@@ -1,0 +1,295 @@
+"""Reference-compatible text model files (version=0.2 `field=value` streams).
+
+Counterpart of gpc_tpu/io/model_io.py for GP models: the stream Reader and
+Writer, prior blocks, kernels of the ported kinds, the Gaussian noise block
+and read_gp/write_gp.  Files are byte-compatible with gpc_tpu's: each
+package loads what the other writes.  Sparse approximations are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import io as _io
+
+import numpy as np
+
+from gpc_tpu_torch import kernels as KM
+from gpc_tpu_torch import priors as priors_mod
+from gpc_tpu_torch.models.gp import GP
+
+VERSION = 0.2
+APPROX_CODE = {"ftc": 0, "dtc": 1, "fitc": 2, "pitc": 3, "dtcvar": 4}
+APPROX_NAME = {v: k for k, v in APPROX_CODE.items()}
+
+
+def _parse_float(s: str) -> float:
+    """float() plus C99 hexfloat, which reference-written version lines use
+    once a scientific matrix has been streamed (CNdlInterfaces.h:27-31)."""
+    try:
+        return float(s)
+    except ValueError:
+        return float.fromhex(s)
+
+
+class Reader:
+    def __init__(self, text: str):
+        # comment lines are skipped wherever they appear (ndlstrutil.h:17-18)
+        self.lines = [ln.rstrip("\r") for ln in text.splitlines()
+                      if ln.strip() and not ln.lstrip().startswith("#")]
+        self.pos = 0
+
+    def line(self) -> str:
+        if self.pos >= len(self.lines):
+            raise ValueError("Unexpected end of stream")
+        ln = self.lines[self.pos]
+        self.pos += 1
+        return ln
+
+    def field(self, name: str) -> str:
+        key, _, val = self.line().partition("=")
+        if key != name:
+            raise ValueError(f"Stream format error: expected field {name}, got {key}")
+        return val
+
+    def int_(self, name): return int(_parse_float(self.field(name)))
+    def float_(self, name): return _parse_float(self.field(name))
+    def bool_(self, name): return self.int_(name) != 0
+
+    def version(self):
+        v = self.float_("version")
+        if v < VERSION:
+            raise ValueError(f"Stream version {v} below minimum {VERSION}")
+        return v
+
+    def matrix(self) -> np.ndarray:
+        self.version()
+        if self.field("baseType") != "matrix":
+            raise ValueError("Unexpected base type (wanted matrix)")
+        if self.field("type") != "doubleMatrix":
+            raise ValueError("Unexpected matrix type")
+        rows = self.int_("numRows")
+        cols = self.int_("numCols")
+        out = np.zeros((rows, cols))
+        for i in range(rows):
+            toks = self.line().split()
+            if len(toks) != cols:
+                raise ValueError(f"Incorrect number of columns in row {i}")
+            out[i] = [_parse_float(t) for t in toks]
+        return out
+
+
+class Writer:
+    def __init__(self):
+        self.buf = _io.StringIO()
+
+    def field(self, name, val):
+        if isinstance(val, bool):
+            val = int(val)
+        if isinstance(val, float):
+            val = f"{val:.17e}"
+        self.buf.write(f"{name}={val}\n")
+
+    def version(self):
+        self.buf.write(f"version={VERSION:.6f}\n")
+
+    def matrix(self, M: np.ndarray):
+        M = np.atleast_2d(np.asarray(M, dtype=np.float64))
+        self.version()
+        self.field("baseType", "matrix")
+        self.field("type", "doubleMatrix")
+        self.field("numRows", M.shape[0])
+        self.field("numCols", M.shape[1])
+        for i in range(M.shape[0]):
+            self.buf.write(" ".join(f"{v:.17e}" for v in M[i]) + "\n")
+
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# priors (CRegularisable::writePriorsToStream, CDist.h:281-303)
+# ---------------------------------------------------------------------------
+
+_PRIOR_NPARAMS = {"gaussian": 1, "gamma": 2, "wang": 1}
+
+
+def _write_prior(w: Writer, prior):
+    w.field("priorIndex", prior.index)
+    w.version()
+    w.field("baseType", "dist")
+    w.field("type", prior.kind)
+    w.field("numParams", _PRIOR_NPARAMS[prior.kind])
+    w.matrix(np.asarray(prior.hyp).reshape(1, -1))
+
+
+def _read_prior(r: Reader):
+    idx = int(float(r.field("priorIndex")))
+    r.version()
+    r.field("baseType")
+    kind = r.field("type")
+    n = r.int_("numParams")
+    hyp = r.matrix().reshape(-1)
+    if len(hyp) != n:
+        raise ValueError("prior numParams mismatch")
+    return priors_mod.Prior(kind, tuple(float(h) for h in hyp), idx)
+
+
+# ---------------------------------------------------------------------------
+# kernels (CKern.cpp:15-46; CComponentKern.cpp:113-137; whitefixed
+# CKern.cpp:773-793)
+# ---------------------------------------------------------------------------
+
+def write_kern(w: Writer, kern: KM.Kern, params: np.ndarray):
+    params = np.asarray(params)
+    w.version()
+    w.field("baseType", "kern")
+    w.field("type", kern.kind)
+    w.field("inputDim", kern.input_dim)
+    w.field("numParams", kern.n_params)
+    if kern.kind == "cmpnd":
+        w.field("numKerns", len(kern.components))
+        off = kern.offsets()
+        for i, c in enumerate(kern.components):
+            write_kern(w, c, params[off[i]:off[i + 1]])
+        return
+    if kern.kind == "whitefixed":
+        w.field("variance", float(kern.fixed_variance))
+        return
+    w.matrix(params.reshape(1, -1))
+    w.field("numPriors", len(kern.priors))
+    for pr in kern.priors:
+        _write_prior(w, pr)
+
+
+def read_kern(r: Reader):
+    """Returns (kern, params)."""
+    r.version()
+    r.field("baseType")
+    kind = r.field("type")
+    input_dim = r.int_("inputDim")
+    n_params = r.int_("numParams")
+    if kind == "cmpnd":
+        num_kerns = r.int_("numKerns")
+        children, child_params = [], []
+        for _ in range(num_kerns):
+            c, cp = read_kern(r)
+            children.append(c)
+            child_params.append(cp)
+        kern = KM.make_kern(kind, input_dim, components=tuple(children))
+        params = np.concatenate(child_params) if child_params else np.zeros(0)
+        return kern, params
+    if kind == "whitefixed":
+        var = r.float_("variance")
+        return KM.WhiteFixed(input_dim=input_dim, fixed_variance=var), np.zeros(0)
+    kern = KM.make_kern(kind, input_dim)
+    params = r.matrix().reshape(-1)
+    if len(params) != n_params:
+        raise ValueError("Listed number of parameters does not match computed number of parameters.")
+    num_priors = r.int_("numPriors")
+    priors = tuple(_read_prior(r) for _ in range(num_priors))
+    return kern.with_priors(priors), params
+
+
+# ---------------------------------------------------------------------------
+# the Gaussian noise block (CNoise.cpp:275-286)
+# ---------------------------------------------------------------------------
+
+def write_noise(w: Writer, noise_type: str, params: np.ndarray, output_dim: int):
+    w.version()
+    w.field("baseType", "noise")
+    w.field("type", noise_type)
+    w.field("outputDim", output_dim)
+    w.field("numParams", len(np.atleast_1d(params)))
+    w.matrix(np.asarray(params).reshape(1, -1))
+
+
+def read_noise(r: Reader):
+    """Returns (noise_type, params, output_dim)."""
+    r.version()
+    r.field("baseType")
+    ntype = r.field("type")
+    if ntype != "gaussian":
+        raise NotImplementedError(
+            f"noise type {ntype!r} is not ported to gpc_tpu_torch yet "
+            f"(ROADMAP.md, queue 1 item 8)")
+    output_dim = r.int_("outputDim")
+    n = r.int_("numParams")
+    params = r.matrix().reshape(-1)
+    if len(params) != n:
+        raise ValueError("noise numParams mismatch")
+    return ntype, params, output_dim
+
+
+# ---------------------------------------------------------------------------
+# GP model files (CGp.cpp:1655-1682 write, 1606-1653 read)
+# ---------------------------------------------------------------------------
+
+class DataDimensionError(ValueError):
+    """Re-attached data doesn't match the stored model's inputDim."""
+
+
+def write_gp(path, model, comment: str = ""):
+    """model: gpc_tpu_torch.models.gp.GP"""
+    spec = model.spec
+    w = Writer()
+    if comment:
+        w.buf.write(f"# {comment}\n")
+    w.version()
+    w.field("baseType", "dataModel")
+    w.field("type", "gp")
+    w.field("numData", spec.n_data)
+    w.field("outputDim", spec.output_dim)
+    w.field("inputDim", spec.input_dim)
+    w.field("sparseApproximation", APPROX_CODE[spec.approx])
+    w.field("numActive", 0)
+    w.field("learnScale", spec.learn_scales)
+    w.field("learnBias", False)
+    w.matrix(np.asarray(model.scales()).reshape(1, -1))
+    w.matrix(np.asarray(model.bias).reshape(1, -1))
+    write_kern(w, spec.kern, model.kern_params())
+    noise_params = getattr(model, "noise_params", None)
+    if noise_params is None:
+        noise_params = np.concatenate([np.zeros(spec.output_dim), [1e-6]])
+    write_noise(w, "gaussian", noise_params, spec.output_dim)
+    with open(path, "w") as f:
+        f.write(w.text())
+
+
+def read_gp(path, X=None, y=None, device=None):
+    """Load a gp model file, re-attaching data if given (gp.cpp:620-622).
+    Returns a GP with the stored parameters, bias and scales."""
+    with open(path) as f:
+        r = Reader(f.read())
+    r.version()
+    if r.field("baseType") != "dataModel" or r.field("type") != "gp":
+        raise ValueError("not a gp model file")
+    n_data = r.int_("numData")
+    output_dim = r.int_("outputDim")
+    input_dim = r.int_("inputDim")
+    approx = APPROX_NAME[r.int_("sparseApproximation")]
+    if approx != "ftc":
+        raise NotImplementedError(
+            f"approximation {approx!r} is not ported to gpc_tpu_torch yet "
+            f"(ROADMAP.md, queue 1 item 7)")
+    r.int_("numActive")
+    learn_scale = r.bool_("learnScale")
+    r.bool_("learnBias")
+    scales = r.matrix().reshape(-1)
+    bias = r.matrix().reshape(-1)
+    kern, kern_params = read_kern(r)
+    _, noise_params, _ = read_noise(r)
+
+    if X is not None and np.asarray(X).shape[1] != input_dim:
+        raise DataDimensionError(
+            f"model expects inputDim={input_dim}, data has {np.asarray(X).shape[1]}")
+    if X is None:
+        X = np.zeros((n_data, input_dim))
+    if y is None:
+        y = np.zeros((n_data, output_dim))
+    model = GP(kern, X, y, learn_scales=learn_scale, centre=False, device=device)
+    model.bias = bias
+    model.fixed_scales = scales
+    model.noise_params = noise_params
+    model.theta = model.spec.pack(kern_params,
+                                  scales=scales if learn_scale else None)
+    return model

@@ -1,0 +1,81 @@
+"""Positive-definite linear algebra with jitter escalation (forward only).
+
+Counterpart of gpc_tpu/linalg.py.  `jitchol` keeps the reference escalation
+(CMatrix::jitChol): no jitter first, then 1e-6·mean|diag|, ×10 per retry, up
+to `max_tries`; after the last try the factor is NaN, which callers read as
+a failed step.  The JAX `lax.cond`/`while_loop` becomes a host loop on
+`cholesky_ex`'s `info`.  The NaN-safe Cholesky VJP comes with training.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def jitchol(A: torch.Tensor, max_tries: int = 10):
+    """(L, jitter_used): lower Cholesky factor of A with escalating jitter."""
+    L, info = torch.linalg.cholesky_ex(A)
+    if int(info) == 0:
+        return L, 0.0
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    jitter = 1e-6 * float(torch.abs(torch.trace(A))) / n
+    for _ in range(max_tries):
+        L, info = torch.linalg.cholesky_ex(A + jitter * eye)
+        if int(info) == 0:
+            return L, jitter
+        jitter *= 10.0
+    return torch.full_like(A, float("nan")), jitter / 10.0
+
+
+def chol_logdet(L: torch.Tensor) -> torch.Tensor:
+    """log|A| from its Cholesky factor."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)))
+
+
+def tri_solve(L, B):
+    """L⁻¹ B for lower-triangular L."""
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def chol_solve(L, B):
+    """A⁻¹ B given the lower Cholesky factor L of A."""
+    return torch.cholesky_solve(B, L)
+
+
+def quad_form(L, m):
+    """Σⱼ mⱼᵀA⁻¹mⱼ given the lower Cholesky factor L of A."""
+    v = tri_solve(L, m)
+    return torch.sum(v * v)
+
+
+def evidence_terms(A, m):
+    """(logdet A, Σⱼ mⱼᵀA⁻¹mⱼ, L) — the dense FTC evidence block."""
+    L, _ = jitchol(A)
+    return chol_logdet(L), quad_form(L, m), L
+
+
+def blocked_tri_inv(L: torch.Tensor, block: int = 2048) -> torch.Tensor:
+    """Dense L⁻¹ (L lower triangular) by recursive block inversion,
+    inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹·B·A⁻¹, C⁻¹]], with leaves of at
+    most `block` rows.  Serving builds it once so every per-batch variance
+    solve is a GEMM."""
+    n = L.shape[0]
+    if n <= block:
+        eye = torch.eye(n, dtype=L.dtype, device=L.device)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+    h = n // 2
+    I1 = blocked_tri_inv(L[:h, :h], block)
+    I2 = blocked_tri_inv(L[h:, h:], block)
+    out = torch.zeros_like(L)
+    out[:h, :h] = I1
+    out[h:, h:] = I2
+    out[h:, :h] = -I2 @ (L[h:, :h] @ I1)
+    return out
+
+
+def dist2(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared Euclidean distances ‖x‖² + ‖x'‖² − 2x·x', ≥ 0."""
+    n1 = torch.sum(X1 * X1, dim=-1, keepdim=True)
+    n2 = torch.sum(X2 * X2, dim=-1, keepdim=True)
+    return torch.clamp(n1 + n2.T - 2.0 * (X1 @ X2.T), min=0.0)

@@ -1,0 +1,121 @@
+"""K2 + K3: the panel Cholesky evidence kernel and its diagonal leaf.
+
+Replaces gpc_tpu/ops/chol_panel.py::panel_state_rbf (the `_panel_kernel`
+Pallas program, mode "full") and its leaf `_factor_diag_fast`.  The CUDA
+sources are `csrc/chol_panel.cu` (design and bounds noted there): a host
+loop over 128-wide column panels, three steps per panel (Gram fill minus
+the split-K bf16 Schur correction; the K2 leaf with the forward-solve step;
+the panel solve with the RHS update), then one launch for G = v·vᵀ and the
+logdet sum.
+
+`panel_state_rbf` returns `(logdet, G, v, T)` with gpc_tpu's meaning for
+K = rbf-Gram(X) + noise·I, rows/cols ≥ n_valid masked out of the Gram:
+  logdet  log|K| (pad rows contribute (N − n_valid)·log noise),
+  G       (D, D) = v·vᵀ, G[i, j] = mᵢᵀK⁻¹mⱼ,
+  v       (D, N) = L⁻¹m, row-stored,
+  T       (N, N) bf16 L below its diagonal blocks (the kernel never forms
+          L_jj, so its diagonal blocks hold zeros; the plain version stores
+          the whole lower L).
+The inputs are NOT pre-scaled: the rbf map takes γ as rbf's inverseWidth.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpc_tpu_torch.ops import cuda_lib
+from gpc_tpu_torch.ops.gram import dist_gram_plain
+
+LEAF = 128   # the leaf width; the CUDA panel width b is LEAF
+
+
+def factor_diag_plain(A: torch.Tensor):
+    """(L⁻¹, log|A|) of PD blocks A (..., b, b): Cholesky, then its
+    triangular inverse and 2·Σ log diag L."""
+    L = torch.linalg.cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    M = torch.linalg.solve_triangular(L, eye, upper=False)
+    ld = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    return M, ld
+
+
+def factor_diag(A: torch.Tensor):
+    """(L⁻¹, log|A|) of a batch of PD blocks A (B, b, b), b a multiple of 128.
+    CPU: the plain version.  CUDA: the K2 leaf kernel, one block per entry."""
+    if A.device.type == "cpu":
+        return factor_diag_plain(A)
+    cuda_lib.require_cuda("factor_diag", A)
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or A.shape[1] % LEAF:
+        raise ValueError(f"factor_diag: want (B, b, b) with b % {LEAF} == 0, "
+                         f"got {tuple(A.shape)}")
+    batch, b, _ = A.shape
+    work = A.clone()                         # the kernel overwrites its input
+    M = torch.empty_like(A)
+    Lw = torch.empty_like(A)
+    ld = torch.empty(batch, dtype=torch.float32, device=A.device)
+    cuda_lib.launch("factor_diag", "gpc_factor_diag", work.data_ptr(), batch,
+                    b, M.data_ptr(), Lw.data_ptr(), ld.data_ptr(),
+                    cuda_lib.stream_of(A))
+    return M, ld
+
+
+def panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid: int = 0):
+    """The plain version: masked rbf Gram + noise·I in X's dtype, Cholesky,
+    v = L⁻¹m row-stored, G = v·vᵀ, the logdet and T = bf16 lower L."""
+    N = X.shape[0]
+    nv = n_valid or N
+    params = torch.stack([torch.as_tensor(p, dtype=X.dtype, device=X.device)
+                          for p in (inv_width, variance)])
+    K = dist_gram_plain("rbf", params, X, X)
+    if nv < N:
+        valid = torch.arange(N, device=X.device) < nv
+        K = torch.where(valid[:, None] & valid[None, :], K, 0.0)
+    K = K + noise * torch.eye(N, dtype=K.dtype, device=K.device)
+    L = torch.linalg.cholesky(K)
+    v = torch.linalg.solve_triangular(L, m.to(K.dtype), upper=False).T
+    ld = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return ld, v @ v.T, v.contiguous(), L.to(torch.bfloat16)
+
+
+def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
+                    n_valid: int = 0):
+    """Panel evidence state (logdet, G, v, T), module docstring.  CPU: the
+    plain version.  CUDA: X (N, q) and m (N, D) float32 with N % 128 == 0,
+    b = 128, through the K3 launches."""
+    if X.device.type == "cpu":
+        return panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid)
+    cuda_lib.require_cuda("panel_state_rbf", X, m)
+    N, q = X.shape
+    D = m.shape[1]
+    nv = n_valid or N
+    if b != LEAF or N % LEAF or m.shape[0] != N or not 0 < nv <= N:
+        raise ValueError(f"panel_state_rbf: need b={LEAF}, N % {LEAF} == 0, "
+                         f"0 < n_valid <= N (got b={b}, X {tuple(X.shape)}, "
+                         f"m {tuple(m.shape)}, n_valid={n_valid})")
+    nb = N // LEAF
+    gamma, var, nz = float(inv_width), float(variance), float(noise)
+    dev = X.device
+    T = torch.zeros((N, N), dtype=torch.bfloat16, device=dev)
+    acc = torch.empty((N, LEAF), dtype=torch.float32, device=dev)
+    part = torch.empty((2 * N, LEAF), dtype=torch.float32, device=dev)  # split-K
+    Md = torch.empty((LEAF, LEAF), dtype=torch.float32, device=dev)
+    ldj = torch.empty(nb, dtype=torch.float64, device=dev)
+    v = m.T.contiguous()
+    G = torch.empty((D, D), dtype=torch.float32, device=dev)
+    ld = torch.empty((), dtype=torch.float32, device=dev)
+    s = cuda_lib.stream_of(X)
+    for j in range(nb):
+        jb = j * LEAF
+        cuda_lib.launch("panel_fill", "gpc_panel_fill", X.data_ptr(), q,
+                        T.data_ptr(), N, jb, nv, gamma, var, part.data_ptr(),
+                        part.shape[0], acc.data_ptr(), s)
+        cuda_lib.launch("factor_diag", "gpc_panel_leaf", acc.data_ptr(), nz,
+                        Md.data_ptr(), v.data_ptr(), D, N, jb,
+                        ldj[j:].data_ptr(), s)
+        if j + 1 < nb:   # the last panel has no rows below it
+            cuda_lib.launch("panel_solve", "gpc_panel_solve", acc.data_ptr(),
+                            Md.data_ptr(), T.data_ptr(), v.data_ptr(), D, N,
+                            jb, s)
+    cuda_lib.launch("panel_state_rbf", "gpc_panel_finish", v.data_ptr(), D, N,
+                    ldj.data_ptr(), nb, G.data_ptr(), ld.data_ptr(), s)
+    return ld, G, v, T

@@ -1,0 +1,105 @@
+"""GPC_TPU_EVIDENCE=panel: the panel kernel (K3) as the FTC evidence engine.
+
+Counterpart of gpc_tpu/ops/panel_engine.py (forward only).  For the CLI
+kernel family cmpnd(rbf[, bias...][, white...][, whitefixed...]):
+
+  * rank-1 bias split — K = K₀ + c·𝟙𝟙ᵀ with K₀ = rbf + noise·I.  𝟙 rides
+    the panel forward solve as one extra RHS column, and G = v·vᵀ gives
+      logdet K = logdet K₀ + log(1 + c·s),   s = G[-1, -1] = 𝟙ᵀK₀⁻¹𝟙,
+      mⱼᵀK⁻¹mⱼ = G[j, j] − c·G[j, -1]²/(1 + c·s);
+  * ragged N — X and the RHS are zero-padded to the panel width; pad rows
+    carry no kernel mass, factor as √noise·I and contribute exactly
+    (Npad − N)·log noise, subtracted here.
+
+On a CUDA tensor this runs the K3 launches; on a CPU tensor, K3's plain
+version.  A noiseless kernel (no white, no ridge) is outside the domain and
+goes to the dense jitchol engine, as in gpc_tpu.  Kernels outside the family
+go to `lazy` in gpc_tpu; that engine is not ported yet, so they raise.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from gpc_tpu_torch import linalg
+from gpc_tpu_torch.kernels import Cmpnd
+from gpc_tpu_torch.ops.chol_panel import LEAF, panel_state_rbf
+
+
+def panel_split(kern):
+    """(rbf_off, bias_offs, white_offs, fixed_white) of the panel family in
+    `kern` — parameter offsets such that inv_width = p[rbf_off], variance =
+    p[rbf_off+1], c = Σ p[bias_offs], noise = Σ p[white_offs] + fixed_white —
+    or None when the family does not apply."""
+    if getattr(kern, "kind", None) == "rbf":
+        return 0, (), (), 0.0
+    if not isinstance(kern, Cmpnd):
+        return None
+    off = kern.offsets()
+    rbf_off = None
+    bias_offs, white_offs = [], []
+    fixed_white = 0.0
+    for i, c in enumerate(kern.components):
+        if c.kind == "rbf":
+            if rbf_off is not None:
+                return None     # two RBFs don't collapse to one panel Gram
+            rbf_off = off[i]
+        elif c.kind == "bias":
+            bias_offs.append(off[i])
+        elif c.kind == "white":
+            white_offs.append(off[i])
+        elif c.kind == "whitefixed":
+            fixed_white += float(c.fixed_variance)
+        else:
+            return None
+    if rbf_off is None:
+        return None
+    return rbf_off, tuple(bias_offs), tuple(white_offs), fixed_white
+
+
+def kern_evidence_panel(kern, p, X, m, ridge=0.0):
+    """(logdet, quad) for K = kern(X) + ridge·I through the panel kernel."""
+    info = panel_split(kern)
+    if info is None:
+        raise NotImplementedError(
+            f"GPC_TPU_EVIDENCE=panel serves cmpnd(rbf[, bias][, white]) only "
+            f"(got {getattr(kern, 'kind', type(kern).__name__)}); gpc_tpu "
+            f"falls back to the lazy engine, which is not ported yet "
+            f"(ROADMAP.md, queue 1 item 6)")
+    rbf_off, bias_offs, white_offs, fixed_white = info
+    if not white_offs and fixed_white + ridge <= 0.0:
+        # a noiseless K: pad rows would factor as 0·I and log 0 enters the
+        # correction; the dense jitchol escalation is the engine for it
+        warnings.warn("GPC_TPU_EVIDENCE=panel needs a white/noise ridge "
+                      "(got a noiseless kernel); falling back to the dense "
+                      "jitchol engine")
+        K = kern.gram(p, X)
+        if ridge:
+            K = K + ridge * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        ld, quad, _L = linalg.evidence_terms(K, m)
+        return ld, quad
+    iw = p[rbf_off]
+    var = p[rbf_off + 1]
+    noise = sum((p[o] for o in white_offs),
+                torch.as_tensor(fixed_white + ridge, dtype=p.dtype, device=p.device))
+    n = X.shape[0]
+    npad = -(-n // LEAF) * LEAF          # the next multiple of the panel width
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, npad - n))
+    cols = [m]
+    if bias_offs:
+        cols.append(torch.ones((n, 1), dtype=m.dtype, device=m.device))
+    rhs = torch.nn.functional.pad(torch.cat(cols, dim=1), (0, 0, 0, npad - n))
+    ld0, G, _v, _T = panel_state_rbf(Xp.contiguous(), rhs.contiguous(), iw,
+                                     var, noise, n_valid=n)
+    ld0 = ld0.to(p.dtype) - (npad - n) * torch.log(noise)
+    G = G.to(p.dtype)
+    if not bias_offs:
+        return ld0, torch.trace(G)
+    c = sum(p[o] for o in bias_offs)
+    s = G[-1, -1]
+    u = G[:-1, -1]
+    qm = torch.sum(torch.diagonal(G)[:-1])
+    denom = 1.0 + c * s
+    return ld0 + torch.log(denom), qm - c * torch.sum(u * u) / denom

@@ -1,0 +1,92 @@
+"""Where the time of the FTC inference slice goes on one NVIDIA GPU.
+
+    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--out FILE]
+
+Runs each stage of the slice once to warm up, then once under
+torch.profiler: the panel evidence (K3), the dense evidence (Gram + jitchol
++ solves), the GPServer factor (explicit inverse) and one served batch of
+8192 rows.  Prints per stage the wall time (host clock around work that ends
+in a synchronize), the device-busy share of that window and the kernels
+that take the most device time; writes the full tables to --out.  Needs
+CUDA: it exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from gpc_tpu_torch import kernels as KM
+from gpc_tpu_torch import linalg
+from gpc_tpu_torch.models.gp import GP, posterior_apply
+from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
+from gpc_tpu_torch.serving import GPServer
+
+
+def _kernel_us(evt):
+    """Device time of a kernel row; 0 for the host-side op rows, whose
+    device time repeats that of the kernels they launch."""
+    return evt.self_device_time_total if evt.device_type == DeviceType.CUDA else 0
+
+
+def stage(name, fn, report):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(prof.key_averages(), key=_kernel_us, reverse=True)
+    busy_ms = sum(_kernel_us(r) for r in rows) / 1e3
+    print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} %)")
+    for r in rows[:6]:
+        if _kernel_us(r) > 0:
+            print(f"    {_kernel_us(r) / 1e3:10.3f} ms  x{r.count:<5d} {r.key[:90]}")
+    report.append(f"== {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n"
+                  + prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--q", type=int, default=8)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_slice: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((args.n, args.q))
+    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((args.n, 1))
+    kern = KM.Cmpnd(input_dim=args.q, components=(
+        KM.Rbf(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q)))
+    model = GP(kern, X, y, device="cuda")
+    theta, Xd, yd, bias, scales = model._args()
+    kp, _ = model.spec.unpack(theta)
+    m = (yd - bias) / scales
+    Xt = torch.tensor(rng.standard_normal((8192, args.q)), dtype=torch.float32,
+                      device="cuda")
+    report = []
+    stage("panel evidence (K3)", lambda: kern_evidence_panel(kern, kp, Xd, m), report)
+    stage("dense evidence", lambda: linalg.evidence_terms(kern.gram(kp, Xd), m), report)
+    server = GPServer(model, chunk=8192, explicit_inverse=True)
+    stage("GPServer factor", lambda: server.refresh(model), report)
+    stage("GPServer batch 8192", lambda: posterior_apply(model.spec, server.state, Xt), report)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n\n".join(report))
+
+
+if __name__ == "__main__":
+    main()

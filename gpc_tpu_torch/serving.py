@@ -1,0 +1,71 @@
+"""Batch prediction server: factor once, then answer bucket-padded batches.
+
+Counterpart of gpc_tpu/serving.py::GPServer (FTC).  `refresh` factors the
+posterior state once on the model's device — K's Cholesky, α = K⁻¹m and,
+with `explicit_inverse`, the blocked L⁻¹, so each batch's variance solve is
+a GEMM.  `predict` serves requests in chunks of at most `chunk` rows, each
+padded to a power-of-two bucket capped at `chunk`: the set of batch shapes
+stays bounded at ~log2(chunk) for any stream of request sizes.  On CUDA the
+rbf Gram of the factor and each batch's cross-Gram run kernel K1.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gpc_tpu_torch import as_tensor
+from gpc_tpu_torch.models.gp import GP, posterior_apply, posterior_state
+
+
+class GPServer:
+    """One-time-factored predictor for a `models.gp.GP`.
+
+    `explicit_inverse` defaults to on for CUDA and off for the CPU (the f64
+    parity route).  `predict` matches `GP.predict` to numerical precision
+    for any request size, ragged tails included."""
+
+    def __init__(self, model: GP, chunk: int = 8192,
+                 explicit_inverse: Optional[bool] = None):
+        self.spec = model.spec
+        self.device = model.device
+        self.chunk = int(chunk)
+        if explicit_inverse is None:
+            explicit_inverse = self.device.type == "cuda"
+        self.explicit_inverse = bool(explicit_inverse)
+        self.refresh(model)
+
+    def refresh(self, model: GP):
+        """Re-factor from the model's current parameters, bias and scales."""
+        self.state = posterior_state(self.spec, *model._args(),
+                                     explicit_inverse=self.explicit_inverse)
+
+    def _bucket(self, t: int) -> int:
+        """Padded batch size for a t-row piece: the next power of two,
+        capped at `chunk`."""
+        b = 1
+        while b < t:
+            b <<= 1
+        return max(min(b, self.chunk), 1)
+
+    def predict(self, Xtest):
+        """(mu, varsigma) as numpy arrays for any number of test rows."""
+        Xtest = np.asarray(Xtest, dtype=np.float64)
+        T = Xtest.shape[0]
+        if T == 0:
+            D = self.spec.output_dim
+            return np.zeros((0, D)), np.zeros((0, D))
+        mus, vars_ = [], []
+        for c0 in range(0, T, self.chunk):
+            Xb = Xtest[c0:c0 + self.chunk]
+            rows = Xb.shape[0]
+            pad = self._bucket(rows) - rows
+            Xt = as_tensor(Xb, self.device)
+            if pad:
+                Xt = torch.nn.functional.pad(Xt, (0, 0, 0, pad))
+            mu, var = posterior_apply(self.spec, self.state, Xt)
+            mus.append(mu[:rows].cpu().numpy())
+            vars_.append(var[:rows].cpu().numpy())
+        return np.concatenate(mus, axis=0), np.concatenate(vars_, axis=0)

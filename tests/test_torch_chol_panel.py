@@ -1,0 +1,66 @@
+"""K2 and K3 (gpc_tpu_torch/ops/chol_panel.py) against gpc_tpu's Pallas
+panel kernel and its leaf.
+
+K2: the plain (Cholesky + triangular inverse) version against
+`_factor_diag_fast`, float32, 1e-4 relative on the logdet and 1e-4·‖M‖ on
+M.  K3: the plain version against `panel_state_rbf(..., interpret=True)` at
+N = 1536, b = 128, D = 2, 2e-3 relative on the logdet and diag(G) — the
+bound the bf16 L buffer of the Pallas kernel is held to
+(tests/test_chol_panel.py).  The CUDA kernels are compared with the plain
+versions on the card in tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from gpc_tpu.ops import chol_panel as JCP
+from gpc_tpu_torch.ops import chol_panel as TCP
+
+
+def _pd_blocks(rng, batch, b):
+    Z = rng.standard_normal((batch, b, b)).astype(np.float32)
+    return (Z @ np.swapaxes(Z, 1, 2) / b + 0.5 * np.eye(b, dtype=np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_factor_diag_plain_matches_leaf(b):
+    A = _pd_blocks(np.random.default_rng(b), 1, b)[0]
+    M_want, ld_want = JCP._factor_diag_fast(jnp.asarray(A), b)
+    M, ld = TCP.factor_diag(torch.from_numpy(A)[None])
+    M_want = np.asarray(M_want)
+    assert abs(float(ld[0]) - float(ld_want)) <= 1e-4 * abs(float(ld_want))
+    assert np.linalg.norm(M[0].numpy() - M_want) <= 1e-4 * np.linalg.norm(M_want)
+
+
+def test_panel_state_plain_matches_pallas_interpret():
+    N, q, D = 1536, 8, 2
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((N, q)).astype(np.float32)
+    m = rng.standard_normal((N, D)).astype(np.float32)
+    ld_want, G_want, _v, _T = JCP.panel_state_rbf(
+        jnp.asarray(X), jnp.asarray(m), jnp.float32(1.0), jnp.float32(1.0),
+        jnp.float32(0.1), b=128, interpret=True)
+    ld, G, v, T = TCP.panel_state_rbf(torch.tensor(X, dtype=torch.float64),
+                                      torch.tensor(m, dtype=torch.float64),
+                                      1.0, 1.0, 0.1, b=128)
+    assert v.shape == (D, N) and T.shape == (N, N) and T.dtype == torch.bfloat16
+    assert abs(float(ld) - float(ld_want)) <= 2e-3 * abs(float(ld_want))
+    g, g_want = np.diagonal(G.numpy()), np.diagonal(np.asarray(G_want))
+    assert np.all(np.abs(g - g_want) <= 2e-3 * np.abs(g_want))
+
+
+def test_panel_state_pad_rows_contribute_log_noise():
+    """Rows ≥ n_valid carry no kernel mass: the padded logdet is the
+    unpadded one plus (N − n_valid)·log noise, and G is unchanged."""
+    rng = np.random.default_rng(4)
+    n, npad, noise = 200, 256, 0.3
+    X = torch.tensor(rng.standard_normal((npad, 3)))
+    m = torch.tensor(rng.standard_normal((npad, 2)))
+    m[n:] = 0.0
+    ld_pad, G_pad, _, _ = TCP.panel_state_rbf(X, m, 0.9, 1.2, noise, n_valid=n)
+    ld, G, _, _ = TCP.panel_state_rbf(X[:n], m[:n], 0.9, 1.2, noise)
+    np.testing.assert_allclose(float(ld_pad), float(ld) + (npad - n) * np.log(noise),
+                               rtol=1e-12)
+    np.testing.assert_allclose(G_pad.numpy(), G.numpy(), rtol=1e-10)

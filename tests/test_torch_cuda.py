@@ -1,0 +1,117 @@
+"""The CUDA kernels of gpc_tpu_torch against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one.
+The file imports neither jax nor gpc_tpu, so it runs where only PyTorch and
+the CUDA toolkit are installed; tests/conftest.py imports jax, so on such a
+machine run it as
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: K1 and K2 compute in float32 like their plain versions and
+differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet); K3 and the
+slice carry the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own
+bound) or float32 against the CPU's float64 (1e-4 on predictions).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpc_tpu_torch import kernels as TK
+from gpc_tpu_torch.models.gp import GP
+from gpc_tpu_torch.ops import chol_panel as TCP
+from gpc_tpu_torch.ops import gram as TG
+from gpc_tpu_torch.ops.cuda_lib import LAUNCHES
+from gpc_tpu_torch.serving import GPServer
+
+pytestmark = pytest.mark.cuda
+
+PARAMS = {"rbf": [0.7, 1.3], "exp": [0.7, 1.3], "ratquad": [1.5, 0.8, 1.3],
+          "matern32": [0.9, 1.3], "matern52": [0.9, 1.3]}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dev):
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("family", TG.FAMILIES)
+def test_dist_gram_kernel_matches_plain(dev, family):
+    """Ragged shapes exercise the masked tile edge."""
+    rng = np.random.default_rng(13)
+    X1, X2 = _randn(rng, (300, 5), dev), _randn(rng, (211, 5), dev)
+    before = LAUNCHES["dist_gram"]
+    got = TG.dist_gram(family, PARAMS[family], X1, X2)
+    assert LAUNCHES["dist_gram"] == before + 1
+    want = TG.dist_gram_plain(family, PARAMS[family], X1, X2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1.3e-6)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    X = torch.zeros((8, 2), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        TG.dist_gram("rbf", [1.0, 1.0], X, X)
+    with pytest.raises(ValueError, match="b % 128"):
+        TCP.factor_diag(torch.eye(100, device=dev)[None])
+    with pytest.raises(ValueError, match="N % 128"):
+        Xf = torch.zeros((200, 2), device=dev)
+        TCP.panel_state_rbf(Xf, Xf[:, :1].contiguous(), 1.0, 1.0, 0.1)
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_factor_diag_kernel_matches_plain(dev, b):
+    rng = np.random.default_rng(b)
+    Z = _randn(rng, (4, b, b), dev)
+    A = Z @ Z.mT / b + 0.5 * torch.eye(b, device=dev)
+    M, ld = TCP.factor_diag(A)
+    _, ld_want = TCP.factor_diag_plain(A)
+    torch.testing.assert_close(ld, ld_want, rtol=1e-4, atol=0.0)
+    L = torch.linalg.cholesky(A)
+    assert float((M @ L - torch.eye(b, device=dev)).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("N,n_valid", [(1024, 1000), (2048, 2048)])
+def test_panel_state_kernel_matches_plain(dev, N, n_valid):
+    rng = np.random.default_rng(5)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, 2), dev)
+    ld, G, v, T = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=n_valid)
+    ld_want, G_want, _, T_want = TCP.panel_state_rbf_plain(X, m, 1.0, 1.0, 0.1,
+                                                           n_valid=n_valid)
+    assert abs(float(ld) - float(ld_want)) <= 2e-3 * abs(float(ld_want))
+    g, g_want = torch.diagonal(G), torch.diagonal(G_want)
+    assert bool(((g - g_want).abs() <= 2e-3 * g_want.abs()).all())
+    assert bool(torch.isfinite(v).all())
+    # below the diagonal blocks T holds the bf16 factor
+    below = torch.ones(N // 128, N // 128, device=dev).tril(-1).repeat_interleave(
+        128, 0).repeat_interleave(128, 1).bool()
+    diff = (T.float() - T_want.float())[below].abs().max()
+    assert float(diff) < 2e-2 * float(T_want.float().abs().max())
+
+
+@pytest.mark.parametrize("evidence", ["dense", "panel"])
+def test_slice_on_card_matches_cpu_float64(dev, monkeypatch, evidence):
+    rng = np.random.default_rng(6)
+    # spread inputs: at the default inverseWidth, unit-normal q=3 data put K
+    # past the bf16 factor's conditioning edge (gpc_tpu's own panel kernel
+    # drifts 0.56% there too)
+    X = 3.0 * rng.standard_normal((600, 3))
+    y = np.sin(X[:, :1]) + 0.05 * rng.standard_normal((600, 1))
+    kern = TK.Cmpnd(input_dim=3, components=(
+        TK.Rbf(input_dim=3), TK.Bias(input_dim=3), TK.White(input_dim=3)))
+    cpu = GP(kern, X, y, device="cpu")
+    card = GP(kern, X, y, device=dev)
+    ref = cpu.log_likelihood()
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", evidence)
+    assert abs(card.log_likelihood() - ref) <= 2e-3 * abs(ref)
+    Xt = 3.0 * rng.standard_normal((300, 3))
+    mu, var = GPServer(card, chunk=128).predict(Xt)
+    want_mu, want_var = cpu.predict(Xt)
+    assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
+    assert np.abs(var - want_var).max() <= 1e-4 * np.abs(want_var).max()
+    assert (var >= 0).all()
