@@ -4,13 +4,18 @@
 
 Builds the hand-written CUDA kernels of gpc_tpu_torch/csrc/ (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version at the shapes the main
-path gives it, then runs the FTC inference slice at N = 16384, q = 8 with
-the CLI default kernel cmpnd(rbf, bias, white): the gp CLI's log-likelihood
-under GPC_TPU_EVIDENCE=panel and dense, predict and test, and a GPServer
-answering three requests.  Every check that fails raises, and the script
-exits non-zero; it exits non-zero without a result when no CUDA device is
-present.  The line before the last is a JSON summary of the kernels; the
-last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+path gives it, then runs two slices at N = 16384, q = 8 with the CLI
+default kernel cmpnd(rbf, bias, white).  Inference: the gp CLI's
+log-likelihood under GPC_TPU_EVIDENCE=panel and dense, predict and test,
+and a GPServer answering three requests.  Training: the objective's
+gradient on the card against the CPU float64 route (N = 500) and panel
+against dense (N = 16384), value_and_grad and SCG timings, and the gp CLI's
+learn -# 3 / display / log-likelihood / relearn -# 1 under dense and panel.
+Each slice runs with the launch counts set to 0 just before it and read
+just after.  Every check that fails raises, and the script exits non-zero;
+it exits non-zero without a result when no CUDA device is present.  The
+line before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +36,43 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N, Q, CHUNK = 16384, 8, 8192
 SEED = 0
+D_PANEL = 2          # K3's right-hand sides in phase 4: m and the bias column
+
+# The H100 SXM's published peaks at 700 W (NVIDIA data sheet, dense): HBM
+# bytes/s and operations/s by type.  bound_ms is the larger of bytes moved
+# (each input read once, each output written once) over HBM_BPS and
+# operations over their peak.
+HBM_BPS = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) for `nbytes` moved and `ops` {type: count}."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(n, m, q):
+    """rbf Gram: X1, X2 in, n·m out; per entry a q-dot (2q), the distance
+    (3), the scaled exponent (2) and the variance (1)."""
+    return bound(4 * (n * q + m * q + n * m), {"f32": n * m * (2 * q + 6)})
+
+
+def k2_bound(b):
+    """(L⁻¹, logdet) of one b-block: A in, M out; Cholesky and triangular
+    inverse, b³/3 each."""
+    return bound(4 * 2 * b * b + 4, {"f32": 2 * b ** 3 / 3})
+
+
+def k3_bound(n, q, d, b=128):
+    """Panel evidence: X, m in; T (bf16), v, G, logdet out.  bf16: the
+    Schur corrections (n³/3) and the panel solves (n²·b); f32: the lower
+    Gram (n²/2 entries at 2q + 6), the leaves (n/b · 2b³/3) and the
+    forward solve (d·n²)."""
+    nbytes = 4 * (n * q + n * d) + 2 * n * n + 4 * (d * n + d * d + 1)
+    return bound(nbytes, {"bf16": n ** 3 / 3 + n * n * b,
+                          "f32": n * n / 2 * (2 * q + 6) + (n // b) * 2 * b ** 3 / 3 + d * n * n})
 
 
 def log(msg):
@@ -94,7 +136,9 @@ def phase_gram(dev, rng):
     ms, plain_ms = paired_ms(lambda: dist_gram("rbf", params["rbf"], X1, X2),
                              lambda: dist_gram_plain("rbf", params["rbf"], X1, X2), 10)
     log(f"phase 2 K1 rbf {N}x{CHUNK}: kernel {ms} ms, plain {plain_ms} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    bound_ms, bound_by = k1_bound(N, CHUNK, Q)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_leaf(dev, rng):
@@ -118,16 +162,23 @@ def phase_leaf(dev, rng):
     ms, plain_ms = paired_ms(lambda: factor_diag(A1),
                              lambda: factor_diag_plain(A1), 50)
     log(f"phase 3 K2 one 128-block: kernel {ms} ms, plain {plain_ms} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    bound_ms, bound_by = k2_bound(128)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
-def phase_panel(dev):
-    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf, panel_state_rbf_plain
+def panel_args(dev):
+    """K3's inputs at the main path's shapes: X (N, Q), rhs (N, 2)."""
     rng = np.random.default_rng(0)
     X = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
     m = torch.tensor(rng.standard_normal((N, 1)), dtype=torch.float32, device=dev)
     rhs = torch.cat([m, torch.ones_like(m)], dim=1).contiguous()   # D = 2
-    args = (X, rhs, 1.0, 1.0, 0.1)
+    return X, rhs, 1.0, 1.0, 0.1
+
+
+def phase_panel(dev):
+    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf, panel_state_rbf_plain
+    args = panel_args(dev)
     ld, G, v, _T = panel_state_rbf(*args)
     ld_p, G_p, v_p, _Tp = panel_state_rbf_plain(*args)
     ld_rel = abs(float(ld) - float(ld_p)) / abs(float(ld_p))
@@ -144,7 +195,43 @@ def phase_panel(dev):
     ms, plain_ms = paired_ms(lambda: panel_state_rbf(*args),
                              lambda: panel_state_rbf_plain(*args), 3)
     log(f"phase 4 K3 N={N}: kernel {ms} ms, plain {plain_ms} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_diag(dev):
+    """K3 mode "full+diag" at the main path's shapes: T's diagonal blocks
+    (bf16 L_jj⁻¹) against the plain version's, within 2e-2 of their max
+    (the bf16 rounding of the factor they come from); logdet, G, v and T
+    below the blocks equal to mode "full"'s, bit for bit."""
+    from gpc_tpu_torch.ops.chol_panel import (diag_blocks, panel_state_rbf,
+                                              panel_state_rbf_plain)
+    args = panel_args(dev)
+    full = panel_state_rbf(*args)
+    diag = panel_state_rbf(*args, mode="full+diag")
+    for name, a, b in zip(("logdet", "G", "v"), full[:3], diag[:3]):
+        check(torch.equal(a, b), f"K3 diag mode changed {name}")
+    got = diag_blocks(diag[3]).float()
+    check(not bool(diag_blocks(full[3]).any()), "K3 mode full wrote T's diagonal blocks")
+    T_rest = diag[3].clone()
+    diag_blocks(T_rest).zero_()
+    check(torch.equal(T_rest, full[3]), "K3 diag mode changed T below the diagonal blocks")
+    del full, diag, T_rest
+    want = diag_blocks(panel_state_rbf_plain(*args, mode="full+diag")[3]).float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= 2e-2 * scale, f"K3 diag blocks off by {err} (max entry {scale})")
+    check(not bool(got.triu(1).any()), "K3 diag blocks not lower triangular")
+    log(f"phase 4 K3 full+diag N={N}: diag blocks max abs err {err} (max entry {scale}); "
+        f"logdet, G, v and T below the blocks equal to mode full")
+    del got, want
+    ms, plain_ms = paired_ms(lambda: panel_state_rbf(*args, mode="full+diag"),
+                             lambda: panel_state_rbf_plain(*args, mode="full+diag"), 3)
+    log(f"phase 4 K3 full+diag N={N}: kernel {ms} ms, plain {plain_ms} ms")
+    bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def run_cli(argv, evidence=None):
@@ -204,9 +291,7 @@ def phase_slice(dev, workdir):
     from gpc_tpu_torch.models.gp import GP
     from gpc_tpu_torch.serving import GPServer
 
-    rng = np.random.default_rng(SEED)
-    X = rng.standard_normal((N, Q))
-    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((N, 1))
+    X, y, rng = slice_data()
     data = os.path.join(workdir, "train.svml")
     model_file = os.path.join(workdir, "gp_model")
     write_svml(data, X, y)
@@ -263,6 +348,164 @@ def phase_slice(dev, workdir):
                 predictions_per_s=n_pred / serve_ms * 1e3)
 
 
+def slice_data():
+    """The slice's data: X ~ N(0, 1)^(N×Q), y = sin(ΣX) + 0.1ε, seed SEED."""
+    rng = np.random.default_rng(SEED)
+    X = rng.standard_normal((N, Q))
+    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((N, 1))
+    return X, y, rng
+
+
+def with_evidence(engine, fn):
+    os.environ["GPC_TPU_EVIDENCE"] = engine
+    try:
+        return fn()
+    finally:
+        os.environ.pop("GPC_TPU_EVIDENCE")
+
+
+def rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_grad_reference(dev):
+    """N = 500: θ̄ on the card (K1, and K3 "full+diag" under panel) against
+    the CPU float64 dense route; f32 within 1e-3 and the bf16 factor within
+    8e-2 in relative L2 (tests/test_panel_engine.py:97-106)."""
+    from gpc_tpu_torch.models.gp import GP
+    rng = np.random.default_rng(SEED + 1)
+    X = rng.standard_normal((500, Q))
+    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((500, 1))
+    cpu = GP(default_kern(Q), X, y, device="cpu")
+    f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+    for engine, tol in (("dense", 1e-3), ("panel", 8e-2)):
+        card = GP(default_kern(Q), X, y, device=dev)
+        f, g = with_evidence(engine, lambda: card.value_and_grad_fn()(card.theta))
+        rel = rel_l2(g, g_ref)
+        check(np.isfinite(f) and np.isfinite(g).all() and np.abs(g).min() > 0,
+              f"{engine} gradient on the card not finite or has a zero entry: {g}")
+        check(rel < tol, f"{engine} θ̄ on the card vs CPU f64: rel L2 {rel}")
+        log(f"phase 6 gradient N=500 {engine}: θ̄ {g.tolist()} vs CPU f64 "
+            f"{g_ref.tolist()} (rel L2 {rel})")
+
+
+def value_and_grad_split(model):
+    """(nlml, θ̄, forward ms, backward ms) of one evaluation on the card."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.models.gp import make_objective
+    _, X, y, bias, scales = model._args()
+    theta = as_tensor(model.theta, model.device).requires_grad_(True)
+    nlml = make_objective(model.spec, X, y, bias, scales)
+    f, fwd_ms = timed(lambda: nlml(theta))
+    (g,), bwd_ms = timed(lambda: torch.autograd.grad(f, theta))
+    return float(f.detach()), g.cpu().numpy().astype(np.float64), fwd_ms, bwd_ms
+
+
+def scg_timed(model, engine, iters):
+    """GP SCG from model.theta for `iters` iterations: the result, and per
+    iteration (step accepted, curvature probe ran, host ms).  The probe runs
+    when the previous step was accepted, so an iteration is two objective
+    evaluations or one.  Each ends in the host reading the objective off the
+    card, so the host clock spans its device work."""
+    from gpc_tpu_torch.optim import scg_checkpointed
+    marks, trace = [], []
+
+    def on_checkpoint(it, st):
+        marks.append(time.perf_counter())
+        trace.append(bool(st["success"]))
+
+    def run():
+        vag = model.value_and_grad_fn()
+        marks.append(time.perf_counter())
+        return scg_checkpointed(vag, model.theta, max_iters=iters, ckpt_every=1,
+                                on_checkpoint=on_checkpoint)
+    res = with_evidence(engine, run)
+    probed = [True] + trace[:-1]
+    return res, list(zip(trace, probed, (np.diff(marks[1:], prepend=marks[0]) * 1e3).tolist()))
+
+
+def phase_train_timing(dev):
+    """N = 16384: forward and backward ms of the objective per engine
+    (median of 3), panel θ̄ against dense θ̄ (8e-2 relative L2), and
+    GP SCG for 20 iterations from the CLI's default start: ms per iteration
+    with the curvature probe (two evaluations) and without it (one)."""
+    from gpc_tpu_torch.models.gp import GP
+    X, y, _ = slice_data()
+    out, grads = {}, {}
+    for engine in ("dense", "panel"):
+        model = GP(default_kern(Q), X, y, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs = [with_evidence(engine, lambda: value_and_grad_split(model)) for _ in range(3)]
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        f, grads[engine] = runs[0][0], runs[0][1]
+        check(np.isfinite(f) and np.isfinite(grads[engine]).all(), f"{engine} value_and_grad not finite")
+        fwd = float(np.median([r[2] for r in runs]))
+        bwd = float(np.median([r[3] for r in runs]))
+        res, steps = scg_timed(model, engine, 20)
+        check(np.isfinite(res.obj) and res.obj <= f, f"{engine} SCG objective rose: {f} -> {res.obj}")
+        two = [ms for _, probe, ms in steps[1:] if probe]   # steps[0] holds the initial evaluation
+        one = [ms for _, probe, ms in steps[1:] if not probe]
+        out[engine] = dict(forward_ms=fwd, backward_ms=bwd, value_and_grad_ms=fwd + bwd,
+                           peak_gib=peak_gib, scg_iters=res.iters, scg_accepted=sum(ok for ok, _, _ in steps),
+                           scg_objective=[f, res.obj],
+                           scg_ms_probe_and_trial=float(np.median(two)) if two else None,
+                           scg_ms_trial_only=float(np.median(one)) if one else None)
+        torch.cuda.empty_cache()
+        log(f"phase 7 value_and_grad N={N} {engine} (median of 3): forward {fwd} ms, "
+            f"backward {bwd} ms; nlml {f}; peak memory above the data {peak_gib} GiB")
+        log(f"phase 7 SCG N={N} {engine}, 20 iterations from the CLI defaults: objective "
+            f"{f} -> {res.obj}; per iteration (accepted, probe ran, ms): {steps}")
+    rel = rel_l2(grads["panel"], grads["dense"])
+    check(rel < 8e-2, f"panel θ̄ vs dense θ̄ at N={N}: rel L2 {rel}")
+    log(f"phase 7 gradient N={N}: panel θ̄ {grads['panel'].tolist()} vs dense "
+        f"{grads['dense'].tolist()} (rel L2 {rel})")
+    return out
+
+
+def learned(out):
+    """(final objective, iterations) from the output of gp learn/relearn."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("Final objective:"))
+    words = line.split()
+    return float(words[2]), int(words[4])
+
+
+def phase_train_cli(dev, workdir):
+    """gp learn -# 3, display, log-likelihood and relearn -# 1 at N = 16384
+    under dense and panel, through the CLI a user calls."""
+    from gpc_tpu_torch.io.svml import read_svml
+    from gpc_tpu_torch.models.gp import GP
+    data = os.path.join(workdir, "train.svml")      # written by phase_slice
+    X, y = read_svml(data)
+    out = {}
+    for engine, tol in (("dense", 1e-4), ("panel", 2e-3)):
+        model = GP(default_kern(Q), X, y, device=dev)
+        f0 = with_evidence(engine, lambda: model.value_and_grad_fn()(model.theta)[0])
+        model_file = os.path.join(workdir, f"learned_{engine}")
+        text, learn_ms = timed(lambda: run_cli(["learn", "-#", "3", data, model_file], engine))
+        final, iters = learned(text)
+        check(iters == 3 and np.isfinite(final) and final <= f0,
+              f"learn under {engine}: {iters} iterations, objective {f0} -> {final}")
+        shown = run_cli(["display", model_file])
+        check("rbfinverseWidth" in shown and shown.splitlines()[-4:] == text.splitlines()[-5:-1],
+              f"display of the learned {engine} model disagrees with learn's summary")
+        ll = float(run_cli(["log-likelihood", data, model_file], engine).split(":")[-1])
+        rel = abs(ll + final) / abs(final)
+        check(rel <= tol, f"{engine} log-likelihood of the learned model {ll} vs -{final}: rel {rel}")
+        text2, relearn_ms = timed(lambda: run_cli(
+            ["relearn", "-#", "1", data, model_file, model_file + "_re"], engine))
+        final2, iters2 = learned(text2)
+        check(iters2 == 1 and np.isfinite(final2) and final2 <= final,
+              f"relearn under {engine}: objective {final} -> {final2}")
+        out[engine] = dict(learn_cli_ms=learn_ms, relearn_cli_ms=relearn_ms,
+                           initial=f0, final=final, after_relearn=final2)
+        log(f"phase 7 CLI N={N} {engine}: learn -# 3 objective {f0} -> {final} "
+            f"({learn_ms} ms CLI wall), log-likelihood {ll} (rel {rel}), "
+            f"relearn -# 1 -> {final2} ({relearn_ms} ms CLI wall)")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -279,16 +522,28 @@ def main():
     k1 = phase_gram(dev, rng)
     k2 = phase_leaf(dev, rng)
     k3 = phase_panel(dev)
+    k3d = phase_diag(dev)
     torch.cuda.empty_cache()
     phase_reference(dev)
+    phase_grad_reference(dev)
 
-    cuda_lib.LAUNCHES.clear()
     with tempfile.TemporaryDirectory() as workdir:
+        cuda_lib.LAUNCHES.clear()
         phase_slice(dev, workdir)
-    launches = dict(cuda_lib.LAUNCHES)
-    log(f"main-path launches: {launches}")
-    for name in ("dist_gram", "factor_diag", "panel_state_rbf"):
-        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
+        launches = dict(cuda_lib.LAUNCHES)
+        log(f"inference-path launches: {launches}")
+        for name in ("dist_gram", "factor_diag", "panel_state_rbf"):
+            check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the inference path")
+        torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        train = phase_train_cli(dev, workdir)
+        train_launches = dict(cuda_lib.LAUNCHES)
+        log(f"training-path launches: {train_launches}")
+        for name in ("dist_gram", "panel_leaf_diag"):
+            check(train_launches.get(name, 0) > 0, f"kernel {name} was not launched on the training path")
+    timing = phase_train_timing(dev)
+    log("training: " + json.dumps({e: dict(train[e], **timing[e]) for e in train}))
 
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
@@ -298,6 +553,9 @@ def main():
         dict(name="panel_state_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:790",
              launches=launches["panel_state_rbf"], **k3),
+        dict(name="panel_state_rbf_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
+             replaces="gpc_tpu/ops/chol_panel.py:598",
+             launches=train_launches["panel_leaf_diag"], **k3d),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

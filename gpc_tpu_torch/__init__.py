@@ -21,9 +21,20 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+class NoDeviceError(RuntimeError):
+    """The card was asked for (or defaulted to) and there is none."""
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card.  The port's entry
+    points run on the card unless the caller asks for the CPU, so with no
+    card this raises rather than falling back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise NoDeviceError("gpc_tpu_torch runs on a CUDA device by default and "
+                            "none is available; pass device=\"cpu\" (CLI: "
+                            "--device cpu) to run on the CPU")
+    return dev
 
 
 def work_dtype(device) -> torch.dtype:

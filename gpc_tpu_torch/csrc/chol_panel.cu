@@ -1,7 +1,10 @@
 // K2 + K3: the panel Cholesky evidence for K = rbf-Gram(X) + noise * I.
 //
-// Replaces gpc_tpu/ops/chol_panel.py::panel_state_rbf (_panel_kernel, mode
-// "full") and its leaf _factor_diag_fast / _cholinv_leaf_fast.
+// Replaces gpc_tpu/ops/chol_panel.py::panel_state_rbf (_panel_kernel, modes
+// "full" and "full+diag") and its leaf _factor_diag_fast / _cholinv_leaf_fast.
+// Mode "full+diag" adds one write per panel to the leaf: bf16(L_jj^-1) into
+// T's diagonal block, 32 KB a panel (4 MB at N = 16384) against the 0.5 GB
+// T the panel solves write, so it moves neither bound below.
 //
 // The TPU kernel was ONE program whose grid ran in order, so it carried the
 // factor across columns in VMEM scratch.  Blocks on the H100 run in no
@@ -353,14 +356,26 @@ __global__ void __launch_bounds__(GRAM_THREADS)
 
 // K2 on the diagonal block acc[:b] + noise I, then v_j = bf16(v[:, jb:jb+b])
 // bf16(M)^T written back over v[:, jb:jb+b] (the bf16 policy of _vrow_gemm).
+// Mode "full+diag" (T not null): M = L_jj^-1 also goes, as bf16, into the
+// lower triangle of T's diagonal block j (_panel_kernel's "diag" residual,
+// which the training backward rebuilds L_jj from).  The leaf runs for every
+// panel, the last included, so every diagonal block is written; the upper
+// triangle keeps the zeros T was allocated with.
 __global__ void __launch_bounds__(LEAF_THREADS)
     panel_leaf_kernel(float* acc, float noise, float* Md, float* v, int D,
-                      int N, int jb, double* ldj) {
+                      int N, int jb, double* ldj, bf16* T) {
   extern __shared__ float smem[];
   const double l = factor_diag_block(acc, LEAF, LEAF, noise, Md, LEAF,
                                      nullptr, smem);
   const int t = threadIdx.x;
   if (t == 0) *ldj = l;
+  if (T != nullptr)   // Md is complete: factor_diag_block ends in a barrier
+    for (int e = t; e < LEAF * LEAF; e += LEAF_THREADS) {
+      const int r = e / LEAF;
+      const int c = e % LEAF;
+      if (c <= r)
+        T[(size_t)(jb + r) * N + jb + c] = __float2bfloat16(Md[e]);
+    }
   float* vin = smem;  // the sweep's storage is free again
   for (int d = 0; d < D; ++d) {
     __syncthreads();
@@ -505,13 +520,15 @@ extern "C" int gpc_panel_fill(const float* X, int q, const void* T, int N,
   return (int)cudaGetLastError();
 }
 
+// T is null in mode "full" and the bf16 factor buffer in mode "full+diag".
 extern "C" int gpc_panel_leaf(float* acc, float noise, float* Md, float* v,
-                              int D, int N, int jb, double* ldj, void* stream) {
+                              int D, int N, int jb, double* ldj, void* T,
+                              void* stream) {
   cudaFuncSetAttribute(panel_leaf_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)LEAF_SMEM);
   panel_leaf_kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
-      acc, noise, Md, v, D, N, jb, ldj);
+      acc, noise, Md, v, D, N, jb, ldj, static_cast<bf16*>(T));
   return (int)cudaGetLastError();
 }
 

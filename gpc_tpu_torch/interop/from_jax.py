@@ -34,7 +34,8 @@ def kern_from_desc(desc) -> KM.Kern:
 
 def from_jax(kern_desc, theta, X, y, bias, fixed_scales,
              learn_scales: bool = False, device=None) -> GP:
-    """A port GP holding gpc_tpu's FTC parameters and data."""
+    """A port GP holding gpc_tpu's FTC parameters and data, on `device`
+    (None: the card, and an error without one; "cpu" for the CPU)."""
     kern = kern_from_desc(kern_desc)
     model = GP(kern, X, y, learn_scales=learn_scales, centre=False,
                device=device)

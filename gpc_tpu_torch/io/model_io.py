@@ -257,7 +257,8 @@ def write_gp(path, model, comment: str = ""):
 
 def read_gp(path, X=None, y=None, device=None):
     """Load a gp model file, re-attaching data if given (gp.cpp:620-622).
-    Returns a GP with the stored parameters, bias and scales."""
+    Returns a GP with the stored parameters, bias and scales on `device`
+    (None: the card, and an error without one; "cpu" for the CPU)."""
     with open(path) as f:
         r = Reader(f.read())
     r.version()

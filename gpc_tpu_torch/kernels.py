@@ -11,7 +11,8 @@ kernel is static, hashable metadata plus functions of a parameter tensor p:
 
 Parameter layouts, defaults and transform codes are gpc_tpu's, so a theta
 vector means the same in both packages.  `Rbf.compute` runs K1
-(ops/gram.dist_gram) on a CUDA tensor and its plain version on the CPU.
+(ops/gram.dist_gram) on a CUDA tensor and its plain version on the CPU;
+both differentiate in p, X1 and X2.
 """
 
 from __future__ import annotations
@@ -59,10 +60,9 @@ class Kern:
 
     def gram(self, p, X):
         """Symmetric Gram: compute + diagonal overwrite (CKern.h:128-144).
-        The diagonal is written in place into the freshly computed K."""
-        K = self.compute(p, X, X)
-        K.diagonal().copy_(self.diag(p, X))
-        return K
+        The diagonal goes in out of place, so autograd may save compute's
+        output for its backward."""
+        return torch.diagonal_scatter(self.compute(p, X, X), self.diag(p, X))
 
     def with_priors(self, priors):
         return dataclasses.replace(self, priors=tuple(priors))

@@ -1,10 +1,16 @@
-"""Positive-definite linear algebra with jitter escalation (forward only).
+"""Positive-definite linear algebra with jitter escalation.
 
 Counterpart of gpc_tpu/linalg.py.  `jitchol` keeps the reference escalation
 (CMatrix::jitChol): no jitter first, then 1e-6·mean|diag|, ×10 per retry, up
 to `max_tries`; after the last try the factor is NaN, which callers read as
 a failed step.  The JAX `lax.cond`/`while_loop` becomes a host loop on
-`cholesky_ex`'s `info`.  The NaN-safe Cholesky VJP comes with training.
+`cholesky_ex`'s `info`.
+
+Gradients: every factor `jitchol` returns comes from `chol_nansafe`, the
+counterpart of gpc_tpu's `_chol_nansafe` — the Φ-rule Cholesky backward,
+which is a no-op (zero cotangent) when the factor is NaN.  Jitter discovery
+runs on a detached copy and builds no graph; the jitter is a plain float, as
+gpc_tpu's `stop_gradient` makes it.
 """
 
 from __future__ import annotations
@@ -12,20 +18,64 @@ from __future__ import annotations
 import torch
 
 
+def _phi_(X):
+    """Lower-triangle projection with halved diagonal (Cholesky jvp mask),
+    in place on a temporary."""
+    X.tril_()
+    X.diagonal().mul_(0.5)
+    return X
+
+
+class _CholNanSafe(torch.autograd.Function):
+    """L = chol(A), NaN where A is not PD; backward Ā = sym(L⁻ᵀΦ(LᵀL̄)L⁻¹),
+    zero when L is NaN (gpc_tpu/linalg.py::_chol_nansafe_bwd)."""
+
+    @staticmethod
+    def forward(ctx, A):
+        L, info = torch.linalg.cholesky_ex(A)
+        if int(info) != 0:
+            L = torch.full_like(A, float("nan"))
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, Lbar):
+        (L,) = ctx.saved_tensors
+        if not bool(torch.isfinite(L).all()):
+            return torch.zeros_like(Lbar)
+        P = _phi_(L.T @ Lbar)
+        D = torch.linalg.solve_triangular(L.T, P, upper=True)          # L⁻ᵀP
+        C = torch.linalg.solve_triangular(L.T, D.T, upper=True).T      # L⁻ᵀPL⁻¹
+        return 0.5 * (C + C.T)
+
+
+def chol_nansafe(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of A, NaN when A is not PD, with a backward that
+    gives a zero (finite) cotangent for a NaN factor."""
+    return _CholNanSafe.apply(A)
+
+
 def jitchol(A: torch.Tensor, max_tries: int = 10):
-    """(L, jitter_used): lower Cholesky factor of A with escalating jitter."""
-    L, info = torch.linalg.cholesky_ex(A)
-    if int(info) == 0:
+    """(L, jitter_used): lower Cholesky factor of A with escalating jitter.
+    The common case (PD at zero jitter) pays one factorization; otherwise
+    the jitter is found on a detached copy and the factor is recomputed once,
+    differentiably, at that jitter."""
+    L = chol_nansafe(A)
+    if bool(torch.isfinite(L[-1, -1])):       # a failed factor is NaN throughout
         return L, 0.0
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    jitter = 1e-6 * float(torch.abs(torch.trace(A))) / n
-    for _ in range(max_tries):
-        L, info = torch.linalg.cholesky_ex(A + jitter * eye)
-        if int(info) == 0:
-            return L, jitter
-        jitter *= 10.0
-    return torch.full_like(A, float("nan")), jitter / 10.0
+    with torch.no_grad():
+        Asg = A.detach()
+        jitter = 1e-6 * float(torch.abs(torch.trace(Asg))) / n
+        for _ in range(max_tries):
+            _, info = torch.linalg.cholesky_ex(Asg + jitter * eye)
+            if int(info) == 0:
+                break
+            jitter *= 10.0
+        else:
+            jitter /= 10.0      # the last jitter tried; its factor is NaN
+    return chol_nansafe(A + jitter * eye), jitter
 
 
 def chol_logdet(L: torch.Tensor) -> torch.Tensor:

@@ -5,3 +5,4 @@ import math
 
 LOGTWOPI = math.log(2.0 * math.pi)
 HALFLOGTWOPI = 0.5 * LOGTWOPI
+GRADCHANGE = 1e-6     # checkgrad's central-difference step (ndlutil.h)

@@ -1,21 +1,24 @@
 """K2 + K3: the panel Cholesky evidence kernel and its diagonal leaf.
 
 Replaces gpc_tpu/ops/chol_panel.py::panel_state_rbf (the `_panel_kernel`
-Pallas program, mode "full") and its leaf `_factor_diag_fast`.  The CUDA
-sources are `csrc/chol_panel.cu` (design and bounds noted there): a host
-loop over 128-wide column panels, three steps per panel (Gram fill minus
-the split-K bf16 Schur correction; the K2 leaf with the forward-solve step;
-the panel solve with the RHS update), then one launch for G = v·vᵀ and the
-logdet sum.
+Pallas program, modes "full" and "full+diag") and its leaf
+`_factor_diag_fast`.  The CUDA sources are `csrc/chol_panel.cu` (design and
+bounds noted there): a host loop over 128-wide column panels, three steps
+per panel (Gram fill minus the split-K bf16 Schur correction; the K2 leaf
+with the forward-solve step; the panel solve with the RHS update), then one
+launch for G = v·vᵀ and the logdet sum.
 
 `panel_state_rbf` returns `(logdet, G, v, T)` with gpc_tpu's meaning for
 K = rbf-Gram(X) + noise·I, rows/cols ≥ n_valid masked out of the Gram:
   logdet  log|K| (pad rows contribute (N − n_valid)·log noise),
   G       (D, D) = v·vᵀ, G[i, j] = mᵢᵀK⁻¹mⱼ,
   v       (D, N) = L⁻¹m, row-stored,
-  T       (N, N) bf16 L below its diagonal blocks (the kernel never forms
-          L_jj, so its diagonal blocks hold zeros; the plain version stores
-          the whole lower L).
+  T       (N, N) bf16: L below its 128-wide diagonal blocks.  The kernel
+          never forms L_jj, so in mode "full" the diagonal blocks hold
+          zeros; mode "full+diag" (the training forward) stores bf16(L_jj⁻¹)
+          there, lower triangle, for the backward (ops/panel_engine.py).
+          Above the diagonal blocks T is zero.  The plain version fills T
+          to the same contract.
 The inputs are NOT pre-scaled: the rbf map takes γ as rbf's inverseWidth.
 """
 
@@ -59,9 +62,23 @@ def factor_diag(A: torch.Tensor):
     return M, ld
 
 
-def panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid: int = 0):
+MODES = ("full", "full+diag")
+
+
+def diag_blocks(T: torch.Tensor, b: int = LEAF) -> torch.Tensor:
+    """The (N/b, b, b) diagonal blocks of an (N, N) matrix; a view of a
+    contiguous T, so writes to it land in T."""
+    nb = T.shape[0] // b
+    return torch.diagonal(T.reshape(nb, b, nb, b), dim1=0, dim2=2).permute(2, 0, 1)
+
+
+def panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid: int = 0,
+                          mode: str = "full"):
     """The plain version: masked rbf Gram + noise·I in X's dtype, Cholesky,
-    v = L⁻¹m row-stored, G = v·vᵀ, the logdet and T = bf16 lower L."""
+    v = L⁻¹m row-stored, G = v·vᵀ, the logdet and T to the kernel's
+    contract (module docstring); a ragged N ends in a narrower block."""
+    if mode not in MODES:
+        raise ValueError(f"panel_state_rbf: mode {mode!r} (want one of {MODES})")
     N = X.shape[0]
     nv = n_valid or N
     params = torch.stack([torch.as_tensor(p, dtype=X.dtype, device=X.device)
@@ -72,18 +89,31 @@ def panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid: int = 0):
         K = torch.where(valid[:, None] & valid[None, :], K, 0.0)
     K = K + noise * torch.eye(N, dtype=K.dtype, device=K.device)
     L = torch.linalg.cholesky(K)
-    v = torch.linalg.solve_triangular(L, m.to(K.dtype), upper=False).T
+    del K
+    v = torch.linalg.solve_triangular(L, m.to(L.dtype), upper=False).T
     ld = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
-    return ld, v @ v.T, v.contiguous(), L.to(torch.bfloat16)
+    T = L.to(torch.bfloat16)
+    for j0 in range(0, N, LEAF):
+        blk = slice(j0, min(j0 + LEAF, N))
+        if mode == "full+diag":
+            Ljj = L[blk, blk]
+            eye = torch.eye(Ljj.shape[0], dtype=L.dtype, device=L.device)
+            T[blk, blk] = torch.linalg.solve_triangular(Ljj, eye, upper=False)
+        else:
+            T[blk, blk] = 0
+    return ld, v @ v.T, v.contiguous(), T
 
 
 def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
-                    n_valid: int = 0):
+                    n_valid: int = 0, mode: str = "full"):
     """Panel evidence state (logdet, G, v, T), module docstring.  CPU: the
     plain version.  CUDA: X (N, q) and m (N, D) float32 with N % 128 == 0,
-    b = 128, through the K3 launches."""
+    b = 128, through the K3 launches; mode "full+diag" also has each leaf
+    store bf16(L_jj⁻¹) into T's diagonal block."""
+    if mode not in MODES:
+        raise ValueError(f"panel_state_rbf: mode {mode!r} (want one of {MODES})")
     if X.device.type == "cpu":
-        return panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid)
+        return panel_state_rbf_plain(X, m, inv_width, variance, noise, n_valid, mode)
     cuda_lib.require_cuda("panel_state_rbf", X, m)
     N, q = X.shape
     D = m.shape[1]
@@ -92,6 +122,7 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
         raise ValueError(f"panel_state_rbf: need b={LEAF}, N % {LEAF} == 0, "
                          f"0 < n_valid <= N (got b={b}, X {tuple(X.shape)}, "
                          f"m {tuple(m.shape)}, n_valid={n_valid})")
+    diag = mode == "full+diag"
     nb = N // LEAF
     gamma, var, nz = float(inv_width), float(variance), float(noise)
     dev = X.device
@@ -109,9 +140,10 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
         cuda_lib.launch("panel_fill", "gpc_panel_fill", X.data_ptr(), q,
                         T.data_ptr(), N, jb, nv, gamma, var, part.data_ptr(),
                         part.shape[0], acc.data_ptr(), s)
-        cuda_lib.launch("factor_diag", "gpc_panel_leaf", acc.data_ptr(), nz,
-                        Md.data_ptr(), v.data_ptr(), D, N, jb,
-                        ldj[j:].data_ptr(), s)
+        cuda_lib.launch("panel_leaf_diag" if diag else "factor_diag",
+                        "gpc_panel_leaf", acc.data_ptr(), nz, Md.data_ptr(),
+                        v.data_ptr(), D, N, jb, ldj[j:].data_ptr(),
+                        T.data_ptr() if diag else None, s)
         if j + 1 < nb:   # the last panel has no rows below it
             cuda_lib.launch("panel_solve", "gpc_panel_solve", acc.data_ptr(),
                             Md.data_ptr(), T.data_ptr(), v.data_ptr(), D, N,

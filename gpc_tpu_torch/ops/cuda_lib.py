@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc for sm_90a into ONE shared library
-with a plain C interface, loaded by ctypes.  The build runs at first use,
+All `csrc/*.cu` files compile with nvcc for sm_90a (one nvcc process per
+source, in parallel) and link into ONE shared library with a plain C
+interface, loaded by ctypes.  The build runs at first use,
 into `gpc_tpu_torch/_build/`, from the sources in the checkout only; the
 library's file name carries a hash of the sources, so an edited source is
 never served by a stale build.
@@ -38,7 +39,7 @@ _SIGNATURES = {
     "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "gpc_factor_diag": [_P, _I, _I, _P, _P, _P, _P],
     "gpc_panel_fill": [_P, _I, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P],
-    "gpc_panel_leaf": [_P, _F, _P, _P, _I, _I, _I, _P, _P],
+    "gpc_panel_leaf": [_P, _F, _P, _P, _I, _I, _I, _P, _P, _P],
     "gpc_panel_solve": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gpc_panel_finish": [_P, _I, _I, _P, _I, _P, _P, _P],
 }
@@ -71,23 +72,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is built."""
+    """Compile csrc/*.cu into the shared library unless it is built: one
+    nvcc per source, all started together, then one link."""
     global build_seconds
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas=-v", "-o", str(tmp)] + [str(f) for f in cu]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{f.stem}.{tag}.o" for f in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+    procs = [subprocess.Popen([nvcc, ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                               "-fPIC", "-Xptxas=-v", "-c", "-o", str(o), str(f)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for f, o in zip(cu, objs)]
+    logs = [f"== {f.name}\n{p.communicate()[0]}" for f, p in zip(cu, procs)]
+    tmp = so.with_suffix(f".{tag}.tmp")
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        link = subprocess.run([nvcc, ARCH, "-shared", "-o", str(tmp)]
+                              + [str(o) for o in objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
     return so
 
 

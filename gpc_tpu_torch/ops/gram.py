@@ -52,11 +52,50 @@ def dist_gram_plain(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
 
 def dist_gram(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
     """(n, m) cross-covariance of a distance-family kernel.  CPU tensors take
-    the plain version; CUDA tensors (float32, contiguous) launch K1."""
+    the plain version under native autograd; CUDA tensors (float32,
+    contiguous) launch K1 through `_DistGram`, whose backward gives the
+    gradient in params, X1 and X2."""
     if family not in FAMILIES:
         raise ValueError(f"unknown distance family {family!r}")
     if X1.device.type == "cpu":
         return dist_gram_plain(family, params, X1, X2)
+    params = torch.as_tensor(params, dtype=X1.dtype, device=X1.device).reshape(-1)
+    return _DistGram.apply(family, params, X1, X2)
+
+
+def recompute_vjp(fn, tensors, needs, cotangent):
+    """The vector-Jacobian product of fn(*tensors) with `cotangent`, for
+    the tensors whose `needs` flag is set (None for the others), by
+    recomputing fn under autograd on detached copies."""
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    if not wanted:
+        return [None] * len(inputs)
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(fn(*inputs), wanted, cotangent))
+    return [next(grads) if t.requires_grad else None for t in inputs]
+
+
+class _DistGram(torch.autograd.Function):
+    """K1 forward; the backward recomputes the plain map under autograd from
+    the saved inputs (gpc_tpu takes this gradient from XLA outside the
+    Pallas kernel, so it has no backward kernel).  When X1 is X2 the two
+    cotangents add up in autograd's accumulation."""
+
+    @staticmethod
+    def forward(ctx, family, params, X1, X2):
+        ctx.family = family
+        ctx.save_for_backward(params, X1, X2)
+        return dist_gram_kernel(family, params, X1, X2)
+
+    @staticmethod
+    def backward(ctx, Kbar):
+        return (None, *recompute_vjp(lambda *a: dist_gram_plain(ctx.family, *a),
+                                     ctx.saved_tensors, ctx.needs_input_grad[1:], Kbar))
+
+
+def dist_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
+    """K1 itself on CUDA tensors (float32, contiguous), no autograd."""
     cuda_lib.require_cuda("dist_gram", X1, X2)
     if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
         raise ValueError(f"dist_gram: shapes {tuple(X1.shape)}, {tuple(X2.shape)}")

@@ -1,0 +1,60 @@
+"""Optimisers: SCG (the default) and checkgrad.
+
+Dispatch mirrors the reference optimiser names scg|conjgrad|graddesc|quasinew
+(COptimisable.h:153-182), as gpc_tpu/optim/__init__.py does.  SCG is ported,
+with and without mid-run checkpoints; the other three are not yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+from gpc_tpu_torch.optim.checkgrad import check_gradients  # noqa: F401
+from gpc_tpu_torch.optim.scg import ScgResult, scg, scg_checkpointed  # noqa: F401
+
+OPTIMISERS = ("scg", "conjgrad", "graddesc", "quasinew")
+
+
+class OptResult(NamedTuple):
+    x: object
+    obj: object
+    iters: object
+
+
+def run_optimiser(name: str, value_and_grad_fn, x0, max_iters: int,
+                  param_tol: float = 1e-6, obj_tol: float = 1e-6,
+                  ckpt_path: str = None, ckpt_every: int = 50,
+                  resume: bool = False) -> OptResult:
+    """Run the named optimiser; returns a uniform (x, obj, iters) result.
+
+    `ckpt_path` enables mid-run checkpoints (SCG only): the full optimiser
+    state is written atomically every `ckpt_every` iterations through
+    utils/checkpoint, and `resume=True` continues a killed run from the file
+    on the identical trajectory."""
+    if name in ("conjgrad", "graddesc", "quasinew"):
+        raise NotImplementedError(
+            f"optimiser {name} is not yet ported to gpc_tpu_torch "
+            f"(ROADMAP.md, queue 1 item 10); scg is")
+    if name != "scg":
+        raise ValueError(f"Unrecognised optimiser type: {name}")
+    if not ckpt_path:
+        r = scg(value_and_grad_fn, x0, max_iters=max_iters,
+                param_tol=param_tol, obj_tol=obj_tol)
+        return OptResult(r.x, r.obj, r.iters)
+    from gpc_tpu_torch.utils import checkpoint as ckpt
+
+    resume_state = None
+    if resume and os.path.exists(ckpt_path):
+        _step, theta, extra, _key = ckpt.load(ckpt_path)
+        resume_state = dict(extra, w=theta)
+
+    def on_checkpoint(step, state):
+        st = dict(state)
+        ckpt.save(ckpt_path, step, st.pop("w"), extra=st)
+
+    r = scg_checkpointed(value_and_grad_fn, x0, max_iters=max_iters,
+                         param_tol=param_tol, obj_tol=obj_tol,
+                         ckpt_every=ckpt_every, on_checkpoint=on_checkpoint,
+                         resume_state=resume_state)
+    return OptResult(r.x, r.obj, r.iters)

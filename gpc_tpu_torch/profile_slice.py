@@ -1,19 +1,22 @@
-"""Where the time of the FTC inference slice goes on one NVIDIA GPU.
+"""Where the time of the FTC inference and training slices goes on one NVIDIA GPU.
 
     python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--out FILE]
 
-Runs each stage of the slice once to warm up, then once under
-torch.profiler: the panel evidence (K3), the dense evidence (Gram + jitchol
-+ solves), the GPServer factor (explicit inverse) and one served batch of
-8192 rows.  Prints per stage the wall time (host clock around work that ends
-in a synchronize), the device-busy share of that window and the kernels
-that take the most device time; writes the full tables to --out.  Needs
-CUDA: it exits non-zero without a card.
+Runs each stage once to warm up, then once under torch.profiler: the panel
+evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
+factor (explicit inverse), one served batch of 8192 rows, and one
+value_and_grad of the training objective per engine (dense: K1 + jitchol
+and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward).
+Prints per stage the wall time (host clock around work that ends in a
+synchronize), the device-busy share of that window and the kernels that
+take the most device time; writes the full tables to --out.  Needs CUDA:
+it exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
@@ -25,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gpc_tpu_torch import kernels as KM
 from gpc_tpu_torch import linalg
-from gpc_tpu_torch.models.gp import GP, posterior_apply
+from gpc_tpu_torch.models.gp import GP, make_objective, posterior_apply
 from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
 from gpc_tpu_torch.serving import GPServer
 
@@ -83,6 +86,20 @@ def main(argv=None):
     server = GPServer(model, chunk=8192, explicit_inverse=True)
     stage("GPServer factor", lambda: server.refresh(model), report)
     stage("GPServer batch 8192", lambda: posterior_apply(model.spec, server.state, Xt), report)
+    del server
+    torch.cuda.empty_cache()
+    nlml = make_objective(model.spec, Xd, yd, bias, scales)
+
+    def value_and_grad(engine):
+        os.environ["GPC_TPU_EVIDENCE"] = engine
+        try:
+            th = theta.clone().requires_grad_(True)
+            return torch.autograd.grad(nlml(th), th)
+        finally:
+            os.environ.pop("GPC_TPU_EVIDENCE")
+
+    for engine in ("dense", "panel"):
+        stage(f"value_and_grad {engine}", lambda: value_and_grad(engine), report)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n\n".join(report))

@@ -6,7 +6,8 @@ K2: the plain (Cholesky + triangular inverse) version against
 M.  K3: the plain version against `panel_state_rbf(..., interpret=True)` at
 N = 1536, b = 128, D = 2, 2e-3 relative on the logdet and diag(G) — the
 bound the bf16 L buffer of the Pallas kernel is held to
-(tests/test_chol_panel.py).  The CUDA kernels are compared with the plain
+(tests/test_chol_panel.py).  K3 mode "full+diag": T's diagonal blocks
+against the Pallas kernel's at N = 512, and T's layout in both modes.  The CUDA kernels are compared with the plain
 versions on the card in tests/test_torch_cuda.py.
 """
 
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 
 from gpc_tpu.ops import chol_panel as JCP
 from gpc_tpu_torch.ops import chol_panel as TCP
+from gpc_tpu_torch.ops import gram as TG
 
 
 def _pd_blocks(rng, batch, b):
@@ -64,3 +66,52 @@ def test_panel_state_pad_rows_contribute_log_noise():
     np.testing.assert_allclose(float(ld_pad), float(ld) + (npad - n) * np.log(noise),
                                rtol=1e-12)
     np.testing.assert_allclose(G_pad.numpy(), G.numpy(), rtol=1e-10)
+
+
+def test_panel_diag_blocks_match_pallas_interpret():
+    """Mode "full+diag": T's diagonal blocks hold bf16(L_jj⁻¹) (lower
+    triangle) as gpc_tpu's kernel stores them, within 2e-2 of their max —
+    the bf16 rounding of the factor the blocks come from."""
+    N, q, D = 512, 8, 2
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((N, q)).astype(np.float32)
+    m = rng.standard_normal((N, D)).astype(np.float32)
+    _, _, _, T_want = JCP.panel_state_rbf(
+        jnp.asarray(X), jnp.asarray(m), jnp.float32(1.0), jnp.float32(1.0),
+        jnp.float32(0.1), b=128, interpret=True, mode="full+diag")
+    _, _, _, T = TCP.panel_state_rbf(torch.tensor(X, dtype=torch.float64),
+                                     torch.tensor(m, dtype=torch.float64),
+                                     1.0, 1.0, 0.1, mode="full+diag")
+    want = TCP.diag_blocks(torch.from_numpy(np.asarray(T_want, np.float32)))
+    got = TCP.diag_blocks(T.float())
+    assert got.shape == (N // 128, 128, 128)
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(got.triu(1), torch.zeros_like(got))
+
+
+def test_plain_T_layout_by_mode():
+    """The plain version fills T to the kernel's contract: bf16 L below the
+    diagonal blocks in both modes, zeros in them in mode "full", bf16(L_jj⁻¹)
+    in mode "full+diag"; logdet, G and v do not depend on the mode."""
+    rng = np.random.default_rng(10)
+    X, m = torch.tensor(rng.standard_normal((300, 3))), torch.tensor(rng.standard_normal((300, 2)))
+    full = TCP.panel_state_rbf(X, m, 0.9, 1.2, 0.2, mode="full")
+    diag = TCP.panel_state_rbf(X, m, 0.9, 1.2, 0.2, mode="full+diag")
+    for a, b in zip(full[:3], diag[:3]):
+        assert torch.equal(a, b)
+    T_full, T_diag = full[3], diag[3]
+    nb = -(-300 // 128)
+    blk = torch.arange(300) // 128
+    same_block = blk[:, None] == blk[None, :]
+    assert torch.equal(T_full[~same_block], T_diag[~same_block])
+    assert torch.equal(T_full[same_block], torch.zeros_like(T_full[same_block]))
+    K = TG.dist_gram_plain("rbf", [0.9, 1.2], X, X) + 0.2 * torch.eye(300, dtype=X.dtype)
+    L = torch.linalg.cholesky(K)
+    for j in range(nb):
+        s = slice(128 * j, min(128 * j + 128, 300))
+        want = torch.linalg.inv(L[s, s]).to(torch.bfloat16)
+        assert torch.equal(T_diag[s, s], want.tril())
+    below = ~same_block & (blk[:, None] > blk[None, :])
+    assert torch.equal(T_full[below], L.to(torch.bfloat16)[below])
+    with pytest.raises(ValueError, match="mode"):
+        TCP.panel_state_rbf(X, m, 0.9, 1.2, 0.2, mode="diag")

@@ -8,9 +8,11 @@ machine run it as
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: K1 and K2 compute in float32 like their plain versions and
-differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet); K3 and the
-slice carry the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own
-bound) or float32 against the CPU's float64 (1e-4 on predictions).
+differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet and on K1's
+gradient); K3 and the slice carry the bf16 L buffer of the panel kernel
+(2e-3, gpc_tpu's own bound; 2e-2 of their max on T's diagonal blocks;
+8e-2 relative L2 on panel gradients) or float32 against the CPU's float64
+(1e-4 on predictions, 1e-3 relative L2 on dense gradients).
 """
 
 import numpy as np
@@ -115,3 +117,101 @@ def test_slice_on_card_matches_cpu_float64(dev, monkeypatch, evidence):
     assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
     assert np.abs(var - want_var).max() <= 1e-4 * np.abs(want_var).max()
     assert (var >= 0).all()
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_dist_gram_gradient_matches_plain(dev, same):
+    """K1's autograd wrapper: the gradient in params, X1 and X2 that native
+    autograd of the plain version gives (both float32)."""
+    rng = np.random.default_rng(16)
+    p0, X10, X20 = np.array([0.7, 1.3]), rng.standard_normal((300, 5)), rng.standard_normal((211, 5))
+    W = _randn(rng, (300, 300 if same else 211), dev)
+
+    def grads(fn):
+        p, X1, X2 = (torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True)
+                     for a in (p0, X10, X20))
+        K = fn("rbf", p, X1, X1 if same else X2)
+        return torch.autograd.grad((K * W).sum(), (p, X1) if same else (p, X1, X2))
+
+    before = LAUNCHES["dist_gram"]
+    got = grads(TG.dist_gram)
+    assert LAUNCHES["dist_gram"] == before + 1
+    want = grads(TG.dist_gram_plain)
+    for a, b in zip(got, want):
+        assert float(a.abs().max()) > 0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_panel_diag_mode_matches_plain(dev):
+    """K3 mode "full+diag": bf16(L_jj⁻¹) in T's diagonal blocks within the
+    bf16 bound of the plain version's; logdet, G, v and T below the blocks
+    equal to mode "full"'s, bit for bit."""
+    N, n_valid = 1024, 1000
+    rng = np.random.default_rng(17)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, 2), dev)
+    full = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=n_valid)
+    before = LAUNCHES["panel_leaf_diag"]
+    diag = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=n_valid, mode="full+diag")
+    assert LAUNCHES["panel_leaf_diag"] == before + N // 128
+    for a, b in zip(full[:3], diag[:3]):
+        assert torch.equal(a, b)
+    got = TCP.diag_blocks(diag[3]).float()
+    assert torch.equal(TCP.diag_blocks(full[3]).float(), torch.zeros_like(got))
+    _, _, _, T_plain = TCP.panel_state_rbf_plain(X, m, 1.0, 1.0, 0.1, n_valid=n_valid,
+                                                 mode="full+diag")
+    want = TCP.diag_blocks(T_plain).float()
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(got.triu(1), torch.zeros_like(got))
+    T_rest = diag[3].clone()
+    TCP.diag_blocks(T_rest).zero_()
+    assert torch.equal(T_rest, full[3])
+
+
+def _train_data(N=600):
+    rng = np.random.default_rng(6)
+    X = 3.0 * rng.standard_normal((N, 3))     # inside the bf16 factor's domain
+    y = np.sin(X[:, :1]) + 0.05 * rng.standard_normal((N, 1))
+    kern = TK.Cmpnd(input_dim=3, components=(
+        TK.Rbf(input_dim=3), TK.Bias(input_dim=3), TK.White(input_dim=3)))
+    return kern, X, y
+
+
+@pytest.mark.parametrize("evidence,tol", [("dense", 1e-3), ("panel", 8e-2)])
+def test_gradient_on_card_matches_cpu_float64(dev, monkeypatch, evidence, tol):
+    """θ̄ through K1 (and K3 "full+diag" under panel) on the card against
+    the CPU float64 dense route, in relative L2: f32 for dense, the
+    bf16-factor bound of tests/test_panel_engine.py for panel."""
+    kern, X, y = _train_data()
+    cpu = GP(kern, X, y, device="cpu")
+    f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", evidence)
+    card = GP(kern, X, y, device=dev)
+    launches = dict(LAUNCHES)
+    f, g = card.value_and_grad_fn()(card.theta)
+    assert LAUNCHES["dist_gram"] > launches.get("dist_gram", 0)
+    if evidence == "panel":
+        assert LAUNCHES["panel_leaf_diag"] > launches.get("panel_leaf_diag", 0)
+    assert abs(f - f_ref) <= 2e-3 * abs(f_ref)
+    assert np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref) < tol
+    assert np.abs(g).min() > 0
+
+
+@pytest.mark.parametrize("evidence", ["dense", "panel"])
+def test_optimise_on_card(dev, monkeypatch, evidence):
+    """Three SCG iterations on the card from the default hyperparameters,
+    on data where the CPU float64 route accepts each step: the objective
+    never rises, and it falls under dense."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((800, 8))
+    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((800, 1))
+    kern = TK.Cmpnd(input_dim=8, components=(
+        TK.Rbf(input_dim=8), TK.Bias(input_dim=8), TK.White(input_dim=8)))
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", evidence)
+    model = GP(kern, X, y, device=dev)
+    f0 = -model.log_likelihood()
+    res = model.optimise(iters=3)
+    assert res.iters == 3 and np.isfinite(res.obj) and res.obj <= f0
+    assert model.theta.dtype == np.float64
+    if evidence == "dense":
+        assert res.obj < f0
+    assert abs(-model.log_likelihood() - res.obj) <= 1e-5 * abs(res.obj)

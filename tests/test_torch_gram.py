@@ -5,7 +5,8 @@ interpret mode.  Both compute in float32 from the same numpy inputs, so
 they differ only in summation order: rtol/atol 2e-5, as
 tests/test_gram_pallas.py holds the Pallas kernel to its jnp fallback.
 The CUDA kernel is compared with the plain version on the card in
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py; its autograd wrapper runs here with the launch
+swapped for the plain version.
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 from gpc_tpu import kernels as GK
 from gpc_tpu.ops.gram_pallas import dist_gram as jax_dist_gram
 from gpc_tpu_torch import kernels as TK
+from gpc_tpu_torch import linalg as TL
 from gpc_tpu_torch.ops import gram as TG
 
 PARAMS = {"rbf": [0.7, 1.3], "exp": [0.7, 1.3], "ratquad": [1.5, 0.8, 1.3],
@@ -55,3 +57,50 @@ def test_unknown_family_raises():
     X = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="unknown distance family"):
         TG.dist_gram("lin", [1.0], X, X)
+
+
+@pytest.fixture
+def kernel_on_cpu(monkeypatch):
+    """`_DistGram` with its CUDA launch swapped for the plain version, so
+    the autograd wrapper that the card uses runs here."""
+    monkeypatch.setattr(TG, "dist_gram_kernel",
+                        lambda family, p, X1, X2: TG.dist_gram_plain(family, p, X1, X2))
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_kernel_autograd_wrapper_matches_native(kernel_on_cpu, same):
+    """K1's backward (the plain map recomputed under autograd) gives the
+    gradient in params, X1 and X2 that native autograd of the plain
+    version gives; with X1 is X2 both cotangents add up."""
+    rng = np.random.default_rng(14)
+    p0, X10, X20 = np.array([0.8, 1.7]), rng.standard_normal((40, 3)), rng.standard_normal((25, 3))
+    W = torch.from_numpy(rng.standard_normal((40, 40 if same else 25)))
+
+    def grads(fn):
+        p, X1, X2 = (torch.tensor(a, requires_grad=True) for a in (p0, X10, X20))
+        K = fn("rbf", p, X1, X1 if same else X2)
+        out = torch.autograd.grad((K * W).sum(), (p, X1) if same else (p, X1, X2))
+        return K.detach(), out
+
+    K_w, g_w = grads(lambda *a: TG._DistGram.apply(*a))
+    K_n, g_n = grads(TG.dist_gram_plain)
+    assert torch.equal(K_w, K_n)
+    for a, b in zip(g_w, g_n):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)
+
+
+def test_gram_writes_its_diagonal_out_of_place():
+    """Kern.gram must not write into compute's output: an op that saves its
+    output for backward (exp here, as an autograd.Function may) would
+    raise at backward after an in-place diagonal write."""
+    class ExpKern(TK.Rbf):
+        def compute(self, p, X1, X2):
+            return torch.exp(-p[0] * TL.dist2(X1, X2))
+
+    X = torch.from_numpy(np.random.default_rng(15).standard_normal((12, 2)))
+    p = torch.tensor([0.7, 1.3], dtype=torch.float64, requires_grad=True)
+    K = ExpKern(input_dim=2).gram(p, X)
+    (g,) = torch.autograd.grad(K.sum(), p)
+    assert torch.equal(torch.diagonal(K), torch.full((12,), 1.3, dtype=torch.float64))
+    want = -(TL.dist2(X, X) * torch.exp(-0.7 * TL.dist2(X, X))).fill_diagonal_(0).sum()
+    torch.testing.assert_close(g, torch.stack([want, torch.tensor(12.0, dtype=torch.float64)]))
