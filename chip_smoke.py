@@ -4,15 +4,20 @@
 
 Builds the hand-written CUDA kernels of gpc_tpu_torch/csrc/ (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version at the shapes the main
-path gives it, then runs two slices at N = 16384, q = 8 with the CLI
-default kernel cmpnd(rbf, bias, white).  Inference: the gp CLI's
-log-likelihood under GPC_TPU_EVIDENCE=panel and dense, predict and test,
-and a GPServer answering three requests.  Training: the objective's
-gradient on the card against the CPU float64 route (N = 500) and panel
-against dense (N = 16384), value_and_grad and SCG timings, and the gp CLI's
-learn -# 3 / display / log-likelihood / relearn -# 1 under dense and panel.
-Each slice runs with the launch counts set to 0 just before it and read
-just after.  Every check that fails raises, and the script exits non-zero;
+path gives it, then runs the slices at N = 16384, q = 8.  Inference, with
+the CLI default kernel cmpnd(rbf, bias, white): the gp CLI's log-likelihood
+under GPC_TPU_EVIDENCE=panel and dense, predict and test, and a GPServer
+answering three requests.  Training, same kernel: the objective's gradient
+on the card against the CPU float64 route (N = 500) and panel against dense
+(N = 16384), value_and_grad and SCG timings, and the gp CLI's learn -# 3 /
+display / log-likelihood / relearn -# 1 under dense and panel.  The kernel
+zoo, with cmpnd(mlp, bias, white): learn -# 3, log-likelihood under dense,
+lazy and panel (which falls back to lazy), predict, a GPServer, and
+learn -# 1 -k poly -i 1 (polyard) at N = 4096; then the lazy engine's
+left-looking sweep with K5 leaves (the default Policy), and the mlp
+value_and_grad timings under dense and lazy.  Each path runs with the
+launch counts set to 0 just before it and read just after.  Every check
+that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -57,6 +62,19 @@ def k1_bound(n, m, q):
     """rbf Gram: X1, X2 in, n·m out; per entry a q-dot (2q), the distance
     (3), the scaled exponent (2) and the variance (1)."""
     return bound(4 * (n * q + m * q + n * m), {"f32": n * m * (2 * q + 6)})
+
+
+def k4_bound(n, m, q):
+    """lin/poly/mlp Gram: X1, X2 in, n·m out; per entry a q-dot (2q) and
+    the map (about 10: mlp's scale, offset, product, sqrt, divide, clamp,
+    arcsin)."""
+    return bound(4 * (n * q + m * q + n * m), {"f32": n * m * (2 * q + 10)})
+
+
+def k5_bound(n):
+    """(L, L⁻¹) of one n-block: A in, L and L⁻¹ out; Cholesky and
+    triangular inverse, n³/3 each."""
+    return bound(4 * 3 * n * n, {"f32": 2 * n ** 3 / 3})
 
 
 def k2_bound(b):
@@ -167,6 +185,67 @@ def phase_leaf(dev, rng):
                 bound_by=bound_by, library_ms=None)
 
 
+def phase_inner(dev, rng):
+    """K4 against its plain version at the serving chunk shape, for lin,
+    poly (degree 2) and mlp: max abs err within 1e-4 of the output's scale
+    (both f32, differing in summation order and in the map's intrinsics).
+    The kernels line gives lin's times (variance 1), beside torch.mm(X1,
+    X2ᵀ), which computes that same function, and the largest absolute error
+    of the three maps."""
+    from gpc_tpu_torch.ops.gram import inner_gram, inner_gram_plain
+    X1 = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
+    X2 = torch.tensor(rng.standard_normal((CHUNK, Q)), dtype=torch.float32, device=dev)
+    params = {"lin": [1.0], "poly": [0.7, 0.4, 1.3], "mlp": [10.0, 10.0, 1.0]}
+    worst, times = 0.0, {}
+    for family, p in params.items():
+        got = inner_gram(family, p, X1, X2)
+        want = inner_gram_plain(family, p, X1, X2)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err)
+        check(err <= 1e-4 * scale, f"K4 {family} disagrees with its plain version "
+                                   f"(max abs {err}, scale {scale})")
+        del got, want
+        times[family] = paired_ms(lambda: inner_gram(family, p, X1, X2),
+                                  lambda: inner_gram_plain(family, p, X1, X2), 10)
+        log(f"phase 2 K4 {family} {N}x{CHUNK}x{Q}: max abs err {err} (scale {scale}); "
+            f"kernel {times[family][0]} ms, plain {times[family][1]} ms")
+    library_ms = cuda_ms(lambda: torch.mm(X1, X2.T), 10)
+    log(f"phase 2 K4 library yardstick torch.mm(X1, X2.T) {N}x{CHUNK}x{Q}: {library_ms} ms")
+    bound_ms, bound_by = k4_bound(N, CHUNK, Q)
+    ms, plain_ms = times["lin"]
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms), times
+
+
+def phase_chol_inv(dev, rng):
+    """K5 against its plain version on a jittered SPD block at n = 256 (the
+    lazy engine's leaf) and 1024 (the widest it takes): ‖ML − I‖ ≤ 1e-3 and
+    L within 1e-3 of the plain version's largest entry."""
+    from gpc_tpu_torch.ops.chol_panel import chol_inv_block, chol_inv_block_plain
+    out = {}
+    for n in (256, 1024):
+        Z = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
+        A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+        L, M = chol_inv_block(A)
+        L_p, _ = chol_inv_block_plain(A)
+        resid = float((M @ L - torch.eye(n, device=dev)).abs().max())
+        err = float((L - L_p).abs().max())
+        scale = float(L_p.abs().max())
+        check(resid <= 1e-3, f"K5 n={n}: max |M L - I| = {resid}")
+        check(err <= 1e-3 * scale, f"K5 n={n}: L off by {err} (max entry {scale})")
+        check(not bool(L.triu(1).any()) and not bool(M.triu(1).any()), "K5 not lower triangular")
+        ms, plain_ms = paired_ms(lambda: chol_inv_block(A), lambda: chol_inv_block_plain(A),
+                                 20 if n == 256 else 5)
+        bound_ms, bound_by = k5_bound(n)
+        out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None)
+        log(f"phase 3 K5 n={n}: max|M L - I| {resid}, max|L - L_plain| {err} "
+            f"(max entry {scale}); kernel {ms} ms, plain {plain_ms} ms, "
+            f"bound {bound_ms} ms ({bound_by})")
+    return out[256], out
+
+
 def panel_args(dev):
     """K3's inputs at the main path's shapes: X (N, Q), rhs (N, 2)."""
     rng = np.random.default_rng(0)
@@ -260,10 +339,13 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def default_kern(q):
+def default_kern(q, lead="rbf"):
+    """cmpnd(lead, bias, white) at the defaults: the CLI's kernel for
+    `-k lead`."""
     from gpc_tpu_torch import kernels as KM
+    first = {"rbf": KM.Rbf, "mlp": KM.Mlp}[lead](input_dim=q)
     return KM.Cmpnd(input_dim=q, components=(
-        KM.Rbf(input_dim=q), KM.Bias(input_dim=q), KM.White(input_dim=q)))
+        first, KM.Bias(input_dim=q), KM.White(input_dim=q)))
 
 
 def phase_reference(dev):
@@ -506,6 +588,169 @@ def phase_train_cli(dev, workdir):
     return out
 
 
+def cli_warned(argv, evidence):
+    """run_cli, and the texts of the warnings it raised."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = run_cli(argv, evidence)
+    return out, [str(w.message) for w in caught]
+
+
+def phase_zoo(dev, workdir):
+    """The kernel-zoo slice through the CLI at N = 16384 with -k mlp
+    (cmpnd(mlp, bias, white)): learn -# 3 under dense; log-likelihood of
+    the learned model under dense, lazy and panel (which warns and falls
+    back to lazy), lazy within 1e-4 of dense (both f32 without TF32) and
+    −(final objective) within 1e-4; predict; a GPServer on the mlp model
+    answering the three request sizes; then learn -# 1 -k poly -i 1
+    (polyard) at N = 4096 and its model file read back."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.io import model_io
+    from gpc_tpu_torch.io.svml import write_svml
+    from gpc_tpu_torch.serving import GPServer
+    X, y, rng = slice_data()
+    data = os.path.join(workdir, "train.svml")       # written by phase_slice
+    model_file = os.path.join(workdir, "mlp_model")
+    text, learn_ms = timed(lambda: run_cli(["learn", "-k", "mlp", "-#", "3", data, model_file],
+                                           "dense"))
+    final, iters = learned(text)
+    check(iters == 3 and np.isfinite(final), f"learn -k mlp: {iters} iterations, objective {final}")
+    shown = run_cli(["display", model_file])
+    check("mlpweightVariance" in shown and shown.splitlines()[-6:] == text.splitlines()[-7:-1],
+          "display of the learned mlp model disagrees with learn's summary")
+    ll, wall = {}, {}
+    for engine in ("dense", "lazy", "panel"):
+        (out, warned), wall[engine] = timed(lambda: cli_warned(
+            ["log-likelihood", data, model_file], engine))
+        ll[engine] = float(out.split(":")[-1])
+        check(np.isfinite(ll[engine]), f"{engine} log-likelihood not finite")
+        if engine == "panel":
+            check(any("falling back to the lazy engine" in w for w in warned),
+                  f"panel did not warn of its fallback to lazy: {warned}")
+    rel = abs(ll["lazy"] - ll["dense"]) / abs(ll["dense"])
+    rel_panel = abs(ll["panel"] - ll["lazy"]) / abs(ll["lazy"])
+    rel_final = abs(ll["dense"] + final) / abs(final)
+    check(rel <= 1e-4, f"lazy vs dense log-likelihood of the mlp model: rel {rel}")
+    check(rel_panel <= 1e-6, f"panel (lazy fallback) vs lazy: rel {rel_panel}")
+    check(rel_final <= 1e-4, f"log-likelihood {ll['dense']} vs -{final}: rel {rel_final}")
+    log(f"phase 8 CLI N={N} -k mlp: learn -# 3 objective -> {final} ({learn_ms} ms CLI wall); "
+        f"log-likelihood dense {ll['dense']} ({wall['dense']} ms), lazy {ll['lazy']} "
+        f"({wall['lazy']} ms), panel->lazy {ll['panel']} ({wall['panel']} ms); "
+        f"lazy vs dense rel {rel}")
+
+    preds = os.path.join(workdir, "mlp_preds")
+    run_cli(["predict", data, model_file, preds])
+    mu_file = np.loadtxt(preds).reshape(-1, 1)
+    check(mu_file.shape == (N, 1) and np.isfinite(mu_file).all(), "mlp predict output")
+    model = model_io.read_gp(model_file, X=X, y=y, device=dev)
+    server, factor_ms = timed(lambda: GPServer(model, chunk=CHUNK, explicit_inverse=True))
+    requests = [rng.standard_normal((t, Q)) for t in (CHUNK, 1000, 37)]
+    served, serve_ms = timed(lambda: [server.predict(r) for r in requests])
+    kp, _ = model.spec.unpack(as_tensor(model.theta, model.device))
+    for Xt, (mu, var) in zip(requests, served):
+        want_mu, want_var = model.predict(Xt)
+        check(np.isfinite(mu).all() and np.isfinite(var).all(), "mlp server output not finite")
+        check((var >= 0).all(), "negative predictive variance (mlp)")
+        # the variance k** − ‖L⁻¹k‖² cancels terms of the prior variance's
+        # size, where the f32 explicit inverse and the solve part at 1e-4
+        prior = float(model.spec.kern.diag(kp, as_tensor(Xt, model.device)).max())
+        for name, got, want, scale in (("mean", mu, want_mu, np.abs(want_mu).max()),
+                                       ("variance", var, want_var, prior)):
+            err = float(np.abs(got - want).max() / scale)
+            check(err < 1e-4, f"mlp server {name} vs GP.predict: {err} of {scale} "
+                              f"(T={Xt.shape[0]})")
+    n_pred = sum(r.shape[0] for r in requests)
+    log(f"phase 8 GPServer -k mlp N={N}: factor {factor_ms} ms, {n_pred} predictions in "
+        f"{serve_ms} ms = {n_pred / serve_ms * 1e3} predictions/s")
+    del server, model
+    torch.cuda.empty_cache()
+
+    small = os.path.join(workdir, "train4096.svml")
+    write_svml(small, X[:4096], y[:4096])
+    ard_file = os.path.join(workdir, "polyard_model")
+    text, ard_ms = timed(lambda: run_cli(
+        ["learn", "-k", "poly", "-i", "1", "-#", "1", small, ard_file], "dense"))
+    final_ard, iters_ard = learned(text)
+    ll_ard = float(run_cli(["log-likelihood", small, ard_file], "dense").split(":")[-1])
+    check(iters_ard == 1 and np.isfinite(final_ard), "learn -k poly -i 1")
+    check("polyardinputScale" in run_cli(["display", ard_file]), "polyard model file")
+    check(abs(ll_ard + final_ard) <= 1e-4 * abs(final_ard),
+          f"polyard log-likelihood {ll_ard} vs -{final_ard}")
+    log(f"phase 8 CLI N=4096 -k poly -i 1: learn -# 1 objective -> {final_ard} "
+        f"({ard_ms} ms CLI wall), log-likelihood {ll_ard}")
+    return dict(learn_cli_ms=learn_ms, final=final, ll=ll, ll_cli_ms=wall,
+                factor_ms=factor_ms, predictions_per_s=n_pred / serve_ms * 1e3)
+
+
+def k5_path_args(dev):
+    """The K5 path's inputs: cmpnd(mlp, bias, white) at the defaults on the
+    slice's data, m = the centred targets."""
+    from gpc_tpu_torch.ops.lazy_evidence import kern_block_fn
+    X, y, _ = slice_data()
+    kern = default_kern(Q, "mlp")
+    p = torch.tensor(kern.default_params(), dtype=torch.float32, device=dev)
+    Xd = torch.tensor(X, dtype=torch.float32, device=dev)
+    m = torch.tensor(y - y.mean(axis=0), dtype=torch.float32, device=dev)
+    return kern_block_fn(kern, p, Xd), m
+
+
+def phase_k5_path(dev):
+    """evidence_left_fast with the default Policy (K5 leaves) at N = 16384
+    against leafinv=False (Cholesky leaves): logdet and quad within 2e-4
+    relative (tests/test_lazy_evidence.py:185-187)."""
+    from gpc_tpu_torch.ops.evidence_fast import Policy, evidence_left_fast
+    kfn, m = k5_path_args(dev)
+    (ld, quad), ms = timed(lambda: evidence_left_fast(kfn, N, m))
+    ld0, quad0 = evidence_left_fast(kfn, N, m, Policy(leafinv=False))
+    rel_ld = abs(float(ld) - float(ld0)) / abs(float(ld0))
+    rel_q = abs(float(quad) - float(quad0)) / abs(float(quad0))
+    check(rel_ld < 2e-4 and rel_q < 2e-4,
+          f"K5 leaves vs Cholesky leaves: logdet rel {rel_ld}, quad rel {rel_q}")
+    log(f"phase 9 evidence_left_fast N={N} mlp, default Policy (K5 leaves): logdet "
+        f"{float(ld)} quad {float(quad)} vs leafinv=False {float(ld0)} {float(quad0)} "
+        f"(rel {rel_ld}, {rel_q}); first call {ms} ms")
+
+
+def phase_zoo_timing(dev):
+    """N = 16384, cmpnd(mlp, bias, white): forward and backward ms of the
+    objective under dense and lazy (median of 3), the peak device memory
+    above the data, θ̄ lazy vs dense (1e-3 relative L2, both f32), and the
+    forward evidence alone: lazy (Cholesky leaves) and the K5 path."""
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.ops.evidence_fast import evidence_left_fast
+    X, y, _ = slice_data()
+    out, grads = {}, {}
+    for engine in ("dense", "lazy"):
+        model = GP(default_kern(Q, "mlp"), X, y, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs = [with_evidence(engine, lambda: value_and_grad_split(model)) for _ in range(3)]
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        f, grads[engine] = runs[0][0], runs[0][1]
+        check(np.isfinite(f) and np.isfinite(grads[engine]).all(), f"mlp {engine} value_and_grad")
+        fwd = float(np.median([r[2] for r in runs]))
+        bwd = float(np.median([r[3] for r in runs]))
+        out[engine] = dict(forward_ms=fwd, backward_ms=bwd, peak_gib=peak_gib, nlml=f)
+        log(f"phase 10 mlp value_and_grad N={N} {engine} (median of 3): forward {fwd} ms, "
+            f"backward {bwd} ms; nlml {f}; peak memory above the data {peak_gib} GiB")
+        del model
+        torch.cuda.empty_cache()
+    rel = rel_l2(grads["lazy"], grads["dense"])
+    check(rel < 1e-3, f"mlp θ̄ lazy vs dense at N={N}: rel L2 {rel}")
+    log(f"phase 10 mlp gradient N={N}: lazy θ̄ {grads['lazy'].tolist()} vs dense "
+        f"{grads['dense'].tolist()} (rel L2 {rel})")
+    model = GP(default_kern(Q, "mlp"), X, y, device=dev)
+    fwd_lazy = [with_evidence("lazy", lambda: timed(model.log_likelihood)[1]) for _ in range(3)]
+    kfn, m = k5_path_args(dev)
+    fwd_k5 = [timed(lambda: evidence_left_fast(kfn, N, m))[1] for _ in range(3)]
+    out["lazy_evidence_ms"] = float(np.median(fwd_lazy))
+    out["k5_path_ms"] = float(np.median(fwd_k5))
+    log(f"phase 10 evidence N={N} mlp (median of 3): lazy GP.log_likelihood "
+        f"{out['lazy_evidence_ms']} ms; evidence_left_fast with K5 leaves {out['k5_path_ms']} ms")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -518,9 +763,13 @@ def main():
     log(card)
     rng = np.random.default_rng(SEED)
 
+    t_start = time.perf_counter()
     phase_build(cuda_lib)
     k1 = phase_gram(dev, rng)
+    k4, _ = phase_inner(dev, rng)
+    torch.cuda.empty_cache()
     k2 = phase_leaf(dev, rng)
+    k5, _ = phase_chol_inv(dev, rng)
     k3 = phase_panel(dev)
     k3d = phase_diag(dev)
     torch.cuda.empty_cache()
@@ -542,8 +791,27 @@ def main():
         log(f"training-path launches: {train_launches}")
         for name in ("dist_gram", "panel_leaf_diag"):
             check(train_launches.get(name, 0) > 0, f"kernel {name} was not launched on the training path")
+        torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        zoo = phase_zoo(dev, workdir)
+        zoo_launches = dict(cuda_lib.LAUNCHES)
+        log(f"kernel-zoo-path launches: {zoo_launches}")
+        check(zoo_launches.get("inner_gram", 0) > 0, "kernel inner_gram was not launched "
+                                                     "on the kernel-zoo path")
+        torch.cuda.empty_cache()
+    cuda_lib.LAUNCHES.clear()
+    phase_k5_path(dev)
+    k5_launches = dict(cuda_lib.LAUNCHES)
+    log(f"K5-path launches: {k5_launches}")
+    check(k5_launches.get("chol_inv_block", 0) > 0, "kernel chol_inv_block was not launched "
+                                                    "on the K5 path")
+    torch.cuda.empty_cache()
     timing = phase_train_timing(dev)
     log("training: " + json.dumps({e: dict(train[e], **timing[e]) for e in train}))
+    torch.cuda.empty_cache()
+    zoo_timing = phase_zoo_timing(dev)
+    log("kernel zoo: " + json.dumps(dict(zoo, timing=zoo_timing)))
 
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
@@ -556,7 +824,13 @@ def main():
         dict(name="panel_state_rbf_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:598",
              launches=train_launches["panel_leaf_diag"], **k3d),
+        dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
+             replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4),
+        dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
+             replaces="gpc_tpu/ops/chol_pallas.py:213",
+             launches=k5_launches["chol_inv_block"], **k5),
     ]
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,15 @@
 
 Ported commands: learn / relearn / display / test / predict /
 log-likelihood, with the same flags, arguments and output as gpc_tpu's, for
-FTC on cmpnd(rbf, bias, white).  gnuplot, the sparse approximations, the
-other kernels and optimisers exit "not yet ported".  Usage:
+FTC with every kernel type of gpc_tpu's gp CLI (-k lin|poly|rbf|exp|ratquad|
+mlp|matern32|matern52, ARD under -i 1).  gnuplot, the sparse approximations
+and the optimisers other than scg exit "not yet ported".  Usage:
 
     python -m gpc_tpu_torch.cli.gp [-v verbosity] [-s seed] [--device cpu|cuda] COMMAND ...
 
 Every command runs on the card unless `--device cpu` is given.
-GPC_TPU_EVIDENCE=panel|dense selects the evidence engine of log-likelihood
-and of training, as in gpc_tpu.
+GPC_TPU_EVIDENCE=dense|lazy|panel selects the evidence engine of
+log-likelihood and of training, as in gpc_tpu.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ def _help():
           "  gp log-likelihood data.svml [model]     marginal likelihood\n"
           "Global options: -v verbosity -s seed --device cpu|cuda (default cuda)\n"
           "Learn options: -C centre (1) -S scale (0) -L learn-scales (0)\n"
-          "  -A ftc  -k rbf  -g gamma -v variance  -O scg  -# iters  -f format\n"
+          "  -A ftc  -k kernel (rbf|lin|mlp|poly|exp|ratquad|matern32|matern52)\n"
+          "  -g gamma -@ alpha -v variance -w weight-var -b bias-var -d degree\n"
+          "  -i input-select  -O scg  -# iters  -f format\n"
           "  -c ckpt-file [--checkpoint-every N] [-r resume]  SCG checkpoints\n"
-          "Not yet ported: gnuplot; -A dtc|dtcvar|fitc|pitc; -k other than rbf;\n"
+          "Not yet ported: gnuplot; -A dtc|dtcvar|fitc|pitc;\n"
           "  -O conjgrad|graddesc|quasinew; -f 1.")
 
 

@@ -39,6 +39,16 @@
 // never stored: the logdet is -2 sum log diag(L^-1).  Blocks wider than 128
 // are assembled from 128-leaves by blocked elimination and block triangular
 // inversion, as _factor_diag_fast does.
+//
+// K5, chol_inv_block, replaces gpc_tpu/ops/chol_pallas.py::chol_inv_block
+// (chol_inv_block_fused, which runs chol_panel._factor_diag): (L, L^-1) of
+// one PD f32 block, n a multiple of 128 up to 1024.  It is K2's blocked
+// routine with L kept: the sweep leaves l^T in the upper triangle of the A
+// half and the pivot on its diagonal, so each leaf's L_pp is read out of
+// shared memory, and L's off-diagonal blocks are the ones the elimination
+// forms anyway.  One block of 1024 threads does it all: like K2 it is bound
+// by the dependent column steps (n of them) and the in-block 128-cubed
+// GEMMs between leaves, not by its 8 n^2 bytes or 2 n^3 / 3 operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -102,21 +112,46 @@ __device__ void leaf_sweep(float* W, float* lvec, float* urow) {
   }
 }
 
-// C = alpha * A op(B) for 128 x 128 x 128 tiles in device memory, all
-// threads of the block; C aliases neither A nor B.  Only the b > 128 leaf
-// assembly uses it, off the main path.
+// C (+)= alpha * A op(B) for 128 x 128 x 128 tiles in device memory, all
+// LEAF_THREADS threads of the block.  Both operands are staged in shared
+// memory first (sm: the leaf's W, free between sweeps; B transposed into
+// rows padded to BS_LD, so the transposed store and the reads are free of
+// bank conflicts), so the device-memory reads are coalesced whatever op(B)
+// is.  Thread t computes column t % LEAF of every LEAF_GROUPS-th row, its A
+// reads broadcast across the warp.  The b > 128 leaf assembly (K2 at
+// b > 128, and K5) uses it.
+constexpr int BS_LD = LEAF + 1;
+constexpr int GEMM_ROWS = LEAF / LEAF_GROUPS;
+static_assert((LEAF * LEAF + LEAF * BS_LD) * sizeof(float) <= LEAF_SMEM,
+              "blk_gemm stages both operands in the leaf's shared memory");
+
 __device__ void blk_gemm(const float* A, int lda, const float* B, int ldb,
                          bool transB, float* C, int ldc, float alpha,
-                         bool accumulate) {
+                         bool accumulate, float* sm) {
+  float* As = sm;                  // As[i * LEAF + k]
+  float* Bs = sm + LEAF * LEAF;    // Bs[k * BS_LD + j] = op(B)[k][j]
   for (int e = threadIdx.x; e < LEAF * LEAF; e += blockDim.x) {
-    const int i = e / LEAF;
-    const int j = e % LEAF;
-    float s = 0.0f;
-    for (int k = 0; k < LEAF; ++k)
-      s += A[(size_t)i * lda + k] *
-           (transB ? B[(size_t)j * ldb + k] : B[(size_t)k * ldb + j]);
-    C[(size_t)i * ldc + j] =
-        accumulate ? C[(size_t)i * ldc + j] + alpha * s : alpha * s;
+    const int r = e / LEAF;
+    const int c = e % LEAF;
+    As[e] = A[(size_t)r * lda + c];
+    Bs[transB ? c * BS_LD + r : r * BS_LD + c] = B[(size_t)r * ldb + c];
+  }
+  __syncthreads();
+  const int j = threadIdx.x % LEAF;
+  const int i0 = threadIdx.x / LEAF;
+  float acc[GEMM_ROWS];
+#pragma unroll
+  for (int r = 0; r < GEMM_ROWS; ++r) acc[r] = 0.0f;
+  for (int k = 0; k < LEAF; ++k) {
+    const float bk = Bs[k * BS_LD + j];
+#pragma unroll
+    for (int r = 0; r < GEMM_ROWS; ++r)
+      acc[r] += As[(i0 + LEAF_GROUPS * r) * LEAF + k] * bk;
+  }
+#pragma unroll
+  for (int r = 0; r < GEMM_ROWS; ++r) {
+    float* c = C + (size_t)(i0 + LEAF_GROUPS * r) * ldc + j;
+    *c = accumulate ? *c + alpha * acc[r] : alpha * acc[r];
   }
   __syncthreads();
 }
@@ -124,11 +159,13 @@ __device__ void blk_gemm(const float* A, int lda, const float* B, int ldb,
 // (M = L^-1, logdet) of the PD b x b block A + noise I, b a multiple of
 // LEAF.  A (lda) is overwritten by the trailing updates; M (ldm) receives the
 // lower-triangular inverse with zeros above; Lw (b x b, ld b) is workspace
-// for the off-diagonal L blocks and is not touched when b == LEAF.  The
-// logdet is returned by thread 0 (other threads return 0).
+// for the off-diagonal L blocks and is not touched when b == LEAF.  With
+// keep_l, Lw receives all of L instead: the diagonal blocks from the sweeps,
+// zeros above the diagonal.  The logdet is returned by thread 0 (other
+// threads return 0).
 __device__ double factor_diag_block(float* A, int lda, int b, float noise,
                                     float* M, int ldm, float* Lw,
-                                    float* smem) {
+                                    float* smem, bool keep_l = false) {
   float* W = smem;
   float* lvec = W + LEAF * AUGW;
   float* urow = lvec + LEAF;
@@ -154,16 +191,27 @@ __device__ double factor_diag_block(float* A, int lda, int b, float noise,
     if (t == 0)
       for (int c = 0; c < LEAF; ++c)
         ld -= 2.0 * log((double)W[c * AUGW + LEAF + c]);
+    if (keep_l) {
+      // row c of the A half holds L[a, c] at a > c and the pivot at a = c
+      float* Lpp = Lw + (size_t)p * LEAF * b + p * LEAF;
+      for (int e = t; e < LEAF * LEAF; e += blockDim.x) {
+        const int r = e / LEAF;
+        const int c = e % LEAF;
+        Lpp[(size_t)r * b + c] = r > c    ? W[c * AUGW + r]
+                                 : r == c ? sqrtf(W[c * AUGW + c])
+                                          : 0.0f;
+      }
+    }
     __syncthreads();
     // L_ip = A_ip M_pp^T; A_ij -= L_ip L_jp^T on the trailing blocks
     for (int i = p + 1; i < nbl; ++i)
       blk_gemm(A + (size_t)i * LEAF * lda + p * LEAF, lda, Mpp, ldm, true,
-               Lw + (size_t)i * LEAF * b + p * LEAF, b, 1.0f, false);
+               Lw + (size_t)i * LEAF * b + p * LEAF, b, 1.0f, false, smem);
     for (int i = p + 1; i < nbl; ++i)
       for (int j = p + 1; j <= i; ++j)
         blk_gemm(Lw + (size_t)i * LEAF * b + p * LEAF, b,
                  Lw + (size_t)j * LEAF * b + p * LEAF, b, true,
-                 A + (size_t)i * LEAF * lda + j * LEAF, lda, -1.0f, true);
+                 A + (size_t)i * LEAF * lda + j * LEAF, lda, -1.0f, true, smem);
   }
   // block triangular inverse: M_ij = -M_ii sum_{j<=k<i} L_ik M_kj, with the
   // unused upper block (j, i) of Lw as the scratch for the sum
@@ -172,15 +220,17 @@ __device__ double factor_diag_block(float* A, int lda, int b, float noise,
       float* S = Lw + (size_t)j * LEAF * b + i * LEAF;
       blk_gemm(Lw + (size_t)i * LEAF * b + j * LEAF, b,
                M + (size_t)j * LEAF * ldm + j * LEAF, ldm, false, S, b, 1.0f,
-               false);
+               false, smem);
       for (int k = j + 1; k < i; ++k)
         blk_gemm(Lw + (size_t)i * LEAF * b + k * LEAF, b,
                  M + (size_t)k * LEAF * ldm + j * LEAF, ldm, false, S, b,
-                 1.0f, true);
+                 1.0f, true, smem);
       blk_gemm(M + (size_t)i * LEAF * ldm + i * LEAF, ldm, S, b, false,
-               M + (size_t)i * LEAF * ldm + j * LEAF, ldm, -1.0f, false);
-      for (int e = t; e < LEAF * LEAF; e += blockDim.x)
+               M + (size_t)i * LEAF * ldm + j * LEAF, ldm, -1.0f, false, smem);
+      for (int e = t; e < LEAF * LEAF; e += blockDim.x) {
         M[(size_t)(j * LEAF + e / LEAF) * ldm + i * LEAF + e % LEAF] = 0.0f;
+        if (keep_l) S[(size_t)(e / LEAF) * b + e % LEAF] = 0.0f;
+      }
       __syncthreads();
     }
   }
@@ -195,6 +245,13 @@ __global__ void __launch_bounds__(LEAF_THREADS)
   const double l = factor_diag_block(A + off, b, b, 0.0f, M + off, b,
                                      Lw + off, smem);
   if (threadIdx.x == 0) ld[blockIdx.x] = (float)l;
+}
+
+// K5: (L, L^-1) of A (b x b, destroyed).  One block.
+__global__ void __launch_bounds__(LEAF_THREADS)
+    chol_inv_kernel(float* A, int b, float* L, float* M) {
+  extern __shared__ float smem[];
+  factor_diag_block(A, b, b, 0.0f, M, b, L, smem, true);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,6 +540,16 @@ extern "C" int gpc_factor_diag(float* A, int batch, int b, float* M,
   if (batch > 0)
     factor_diag_kernel<<<batch, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
         A, b, M, Lw, ld);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gpc_chol_inv_block(float* A, int b, float* L, float* M,
+                                  void* stream) {
+  cudaFuncSetAttribute(chol_inv_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)LEAF_SMEM);
+  chol_inv_kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
+      A, b, L, M);
   return (int)cudaGetLastError();
 }
 

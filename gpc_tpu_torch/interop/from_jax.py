@@ -5,7 +5,8 @@ gpc_tpu_torch FTC `GP` from gpc_tpu's pieces as numpy arrays.  The
 unconstrained theta layout is shared (gpc_tpu/models/gp.py:11-15), so this
 is a structural map of the kernel tree: `kern_desc` is a gpc_tpu kernel
 object, read only through its attributes (kind, input_dim, components,
-fixed_variance, priors), so this module imports neither jax nor gpc_tpu.
+fixed_variance, degree, priors), so this module imports neither jax nor
+gpc_tpu.
 """
 
 from __future__ import annotations
@@ -21,15 +22,18 @@ def kern_from_desc(desc) -> KM.Kern:
     """The port's kernel tree for a gpc_tpu kernel object."""
     priors = tuple(Prior(p.kind, tuple(float(h) for h in p.hyp), int(p.index))
                    for p in getattr(desc, "priors", ()))
-    if desc.kind == "cmpnd":
+    if desc.kind in ("cmpnd", "tensor"):
         children = tuple(kern_from_desc(c) for c in desc.components)
-        return KM.Cmpnd(input_dim=desc.input_dim, components=children,
-                        priors=priors)
+        return KM.make_kern(desc.kind, desc.input_dim,
+                            components=children).with_priors(priors)
     if desc.kind == "whitefixed":
         return KM.WhiteFixed(input_dim=desc.input_dim,
                              fixed_variance=float(desc.fixed_variance),
                              priors=priors)
-    return KM.make_kern(desc.kind, desc.input_dim).with_priors(priors)
+    kwargs = {}
+    if desc.kind in ("poly", "polyard"):
+        kwargs["degree"] = float(desc.degree)
+    return KM.make_kern(desc.kind, desc.input_dim, **kwargs).with_priors(priors)
 
 
 def from_jax(kern_desc, theta, X, y, bias, fixed_scales,

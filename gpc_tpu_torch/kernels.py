@@ -1,18 +1,25 @@
-"""Compositional covariance functions (the slice's kinds).
+"""Compositional covariance functions: every kind gpc_tpu's kernels.py has.
 
-Counterpart of gpc_tpu/kernels.py for white, whitefixed, bias, rbf and the
-additive compound cmpnd — the CLI default cmpnd(rbf, bias, white).  Each
-kernel is static, hashable metadata plus functions of a parameter tensor p:
+Counterpart of gpc_tpu/kernels.py: the leaves white, whitefixed, bias, rbf,
+exp, ratquad, matern32, matern52, lin, mlp, poly and the ARD forms linard,
+rbfard, mlpard, polyard, and the combinators cmpnd (sum) and tensor
+(product).  Each kernel is static, hashable metadata plus functions of a
+parameter tensor p:
 
   compute(p, X1, X2)  cross-covariance without white noise;
   diag(p, X)          diagonal elements;
   gram(p, X)          compute(p, X, X) with its diagonal overwritten by
-                      diag(p, X) — white enters only there.
+                      diag(p, X) — white enters only there;
+  white(p)            the white variance on the kernel's own diagonal.
 
 Parameter layouts, defaults and transform codes are gpc_tpu's, so a theta
-vector means the same in both packages.  `Rbf.compute` runs K1
-(ops/gram.dist_gram) on a CUDA tensor and its plain version on the CPU;
-both differentiate in p, X1 and X2.
+vector means the same in both packages.  The distance family (rbf, exp,
+ratquad, matern32/52) computes through K1 (ops/gram.dist_gram) and the
+inner-product family (lin, poly, mlp) through K4 (ops/gram.inner_gram): on
+a CUDA tensor the kernel, on the CPU its plain version; both differentiate
+in p, X1 and X2.  The ARD forms scale the inputs by √s in plain tensor code
+before the kernel, so autograd reaches the scales s.  `diag` is plain
+PyTorch.  get/set_variance (the GP-LVM's) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import numpy as np
 import torch
 
 from gpc_tpu_torch import transforms as tr
-from gpc_tpu_torch.ops.gram import dist_gram
+from gpc_tpu_torch.ops.gram import dist_gram, inner_gram
 from gpc_tpu_torch.priors import Prior
 
 
@@ -52,11 +59,19 @@ class Kern:
     def transform_codes(self) -> np.ndarray:
         raise NotImplementedError
 
+    @property
+    def stationary(self) -> bool:
+        return True
+
     def compute(self, p, X1, X2):
         raise NotImplementedError
 
     def diag(self, p, X):
         raise NotImplementedError
+
+    def white(self, p):
+        """White variance on the kernel's own symmetric diagonal."""
+        return torch.zeros((), dtype=p.dtype, device=p.device)
 
     def gram(self, p, X):
         """Symmetric Gram: compute + diagonal overwrite (CKern.h:128-144).
@@ -108,6 +123,9 @@ class White(Kern):
     def diag(self, p, X):
         return _ones(X, p) * p[0]
 
+    def white(self, p):
+        return p[0]
+
 
 @dataclasses.dataclass(frozen=True)
 class WhiteFixed(Kern):
@@ -138,6 +156,9 @@ class WhiteFixed(Kern):
     def diag(self, p, X):
         return torch.full((X.shape[0],), self.fixed_variance, dtype=X.dtype,
                           device=X.device)
+
+    def white(self, p):
+        return torch.tensor(self.fixed_variance, dtype=p.dtype, device=p.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +219,348 @@ class Rbf(Kern):
 
 
 @dataclasses.dataclass(frozen=True)
+class _Stationary2(Kern):
+    """A distance-family leaf with params [p0, variance] (exp, matern32/52)."""
+
+    @property
+    def n_params(self):
+        return 2
+
+    def default_params(self):
+        return np.array([1.0, 1.0])
+
+    def transform_codes(self):
+        return np.array([tr.EXP, tr.EXP])
+
+    def compute(self, p, X1, X2):
+        return dist_gram(self.kind, p[:2], X1, X2)
+
+    def diag(self, p, X):
+        return _ones(X, p) * p[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Exp(_Stationary2):
+    """k = σ²·exp(−γ·‖x−x'‖); params [inverseWidth, variance]."""
+
+    @property
+    def kind(self):
+        return "exp"
+
+    def param_names(self):
+        return ["inverseWidth", "variance"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern32(_Stationary2):
+    """k = σ²·(1+√3r/ℓ)·exp(−√3r/ℓ); params [lengthScale, variance]."""
+
+    @property
+    def kind(self):
+        return "matern32"
+
+    def param_names(self):
+        return ["lengthScale", "variance"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern52(_Stationary2):
+    """k = σ²·(1+u+u²/3)·exp(−u), u = √5·r/ℓ; params [lengthScale, variance]."""
+
+    @property
+    def kind(self):
+        return "matern52"
+
+    def param_names(self):
+        return ["lengthScale", "variance"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RatQuad(Kern):
+    """k = σ²·(1 + r²/(2αℓ²))^(−α); params [alpha, lengthScale, variance]."""
+
+    @property
+    def kind(self):
+        return "ratquad"
+
+    @property
+    def n_params(self):
+        return 3
+
+    def param_names(self):
+        return ["alpha", "lengthScale", "variance"]
+
+    def default_params(self):
+        return np.array([1.0, 1.0, 1.0])
+
+    def transform_codes(self):
+        return np.array([tr.EXP, tr.EXP, tr.EXP])
+
+    def compute(self, p, X1, X2):
+        return dist_gram("ratquad", p[:3], X1, X2)
+
+    def diag(self, p, X):
+        return _ones(X, p) * p[2]
+
+
+def _mlp_diag(p, sq):
+    """Mlp's diagonal from the (scaled) squared row norms sq: the arcsin
+    argument clamped strictly inside [−1, 1], as compute's is."""
+    numer = p[0] * sq + p[1]
+    arg = numer / (numer + 1.0)
+    lim = 1.0 - torch.finfo(arg.dtype).eps / 2      # 1 − epsneg
+    return p[2] * torch.asin(torch.clamp(arg, -lim, lim))
+
+
+@dataclasses.dataclass(frozen=True)
+class Lin(Kern):
+    """k = σ²·xᵀx'; params [variance]; non-stationary."""
+
+    @property
+    def kind(self):
+        return "lin"
+
+    @property
+    def n_params(self):
+        return 1
+
+    def param_names(self):
+        return ["variance"]
+
+    def default_params(self):
+        return np.array([1.0])
+
+    def transform_codes(self):
+        return np.array([tr.EXP])
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("lin", p[:1], X1, X2)
+
+    def diag(self, p, X):
+        return p[0] * torch.sum(X * X, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mlp(Kern):
+    """Williams' arcsin kernel σ²·asin((w·xᵀx'+b)/√((w‖x‖²+b+1)(w‖x'‖²+b+1)));
+    params [weightVariance, biasVariance, variance]."""
+
+    @property
+    def kind(self):
+        return "mlp"
+
+    @property
+    def n_params(self):
+        return 3
+
+    def param_names(self):
+        return ["weightVariance", "biasVariance", "variance"]
+
+    def default_params(self):
+        return np.array([10.0, 10.0, 1.0])
+
+    def transform_codes(self):
+        return np.array([tr.EXP, tr.EXP, tr.EXP])
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("mlp", p[:3], X1, X2)
+
+    def diag(self, p, X):
+        return _mlp_diag(p, torch.sum(X * X, dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class Poly(Kern):
+    """k = σ²·(w·xᵀx'+b)^d; the degree d is static (written to the model
+    file, not trained); params [weightVariance, biasVariance, variance]."""
+
+    degree: float = 2.0
+
+    @property
+    def kind(self):
+        return "poly"
+
+    @property
+    def n_params(self):
+        return 3
+
+    def param_names(self):
+        return ["weightVariance", "biasVariance", "variance"]
+
+    def default_params(self):
+        return np.array([1.0, 1.0, 1.0])
+
+    def transform_codes(self):
+        return np.array([tr.EXP, tr.EXP, tr.EXP])
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("poly", p[:3], X1, X2, self.degree)
+
+    def diag(self, p, X):
+        return p[2] * torch.pow(p[0] * torch.sum(X * X, dim=-1) + p[1], self.degree)
+
+
+# ARD forms: scales s in [0, 1] through the sigmoid transform, 0.5 at start,
+# the last input_dim parameters.  compute scales both inputs by √s and hands
+# them to the base kernel's Gram map.
+
+def _ard_codes(head: int, input_dim: int) -> np.ndarray:
+    return np.concatenate([[tr.EXP] * head,
+                           tr.SIGMOID * np.ones(input_dim, np.int32)]).astype(np.int32)
+
+
+class _ArdMixin:
+    def _scales(self, p):
+        return p[self.n_params - self.input_dim:]
+
+    def _scaled(self, p, X1, X2):
+        rs = torch.sqrt(self._scales(p))
+        return X1 * rs, X2 * rs
+
+
+@dataclasses.dataclass(frozen=True)
+class Linard(_ArdMixin, Kern):
+    """ARD linear σ²·Σᵢ sᵢxᵢx'ᵢ; params [variance, inputScale×D]."""
+
+    @property
+    def kind(self):
+        return "linard"
+
+    @property
+    def n_params(self):
+        return 1 + self.input_dim
+
+    def param_names(self):
+        return ["variance"] + ["inputScale"] * self.input_dim
+
+    def default_params(self):
+        return np.concatenate([[1.0], 0.5 * np.ones(self.input_dim)])
+
+    def transform_codes(self):
+        return _ard_codes(1, self.input_dim)
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("lin", p[:1], *self._scaled(p, X1, X2))
+
+    def diag(self, p, X):
+        return p[0] * torch.sum(X * X * self._scales(p), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rbfard(_ArdMixin, Kern):
+    """ARD rbf σ²·exp(−γ/2·Σᵢ sᵢ(xᵢ−x'ᵢ)²); params [inverseWidth, variance,
+    inputScale×D]."""
+
+    @property
+    def kind(self):
+        return "rbfard"
+
+    @property
+    def n_params(self):
+        return 2 + self.input_dim
+
+    def param_names(self):
+        return ["inverseWidth", "variance"] + ["inputScale"] * self.input_dim
+
+    def default_params(self):
+        return np.concatenate([[1.0, 1.0], 0.5 * np.ones(self.input_dim)])
+
+    def transform_codes(self):
+        return _ard_codes(2, self.input_dim)
+
+    def compute(self, p, X1, X2):
+        return dist_gram("rbf", p[:2], *self._scaled(p, X1, X2))
+
+    def diag(self, p, X):
+        return _ones(X, p) * p[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mlpard(_ArdMixin, Kern):
+    """ARD arcsin kernel; params [weightVariance, biasVariance, variance,
+    inputScale×D]."""
+
+    @property
+    def kind(self):
+        return "mlpard"
+
+    @property
+    def n_params(self):
+        return 3 + self.input_dim
+
+    def param_names(self):
+        return ["weightVariance", "biasVariance", "variance"] + ["inputScale"] * self.input_dim
+
+    def default_params(self):
+        return np.concatenate([[10.0, 10.0, 1.0], 0.5 * np.ones(self.input_dim)])
+
+    def transform_codes(self):
+        return _ard_codes(3, self.input_dim)
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("mlp", p[:3], *self._scaled(p, X1, X2))
+
+    def diag(self, p, X):
+        return _mlp_diag(p, torch.sum(X * X * self._scales(p), dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class Polyard(_ArdMixin, Kern):
+    """ARD polynomial; params [weightVariance, biasVariance, variance,
+    inputScale×D]; the degree is static."""
+
+    degree: float = 2.0
+
+    @property
+    def kind(self):
+        return "polyard"
+
+    @property
+    def n_params(self):
+        return 3 + self.input_dim
+
+    def param_names(self):
+        return ["weightVariance", "biasVariance", "variance"] + ["inputScale"] * self.input_dim
+
+    def default_params(self):
+        return np.concatenate([[1.0, 1.0, 1.0], 0.5 * np.ones(self.input_dim)])
+
+    def transform_codes(self):
+        return _ard_codes(3, self.input_dim)
+
+    @property
+    def stationary(self):
+        return False
+
+    def compute(self, p, X1, X2):
+        return inner_gram("poly", p[:3], *self._scaled(p, X1, X2), self.degree)
+
+    def diag(self, p, X):
+        sq = torch.sum(X * X * self._scales(p), dim=-1)
+        return p[2] * torch.pow(p[0] * sq + p[1], self.degree)
+
+
+@dataclasses.dataclass(frozen=True)
 class _Component(Kern):
     """Heterogeneous children with offset parameter indexing."""
 
@@ -219,6 +582,10 @@ class _Component(Kern):
         if not self.components:
             return np.zeros((0,), dtype=np.int32)
         return np.concatenate([c.transform_codes() for c in self.components]).astype(np.int32)
+
+    @property
+    def stationary(self):
+        return all(c.stationary for c in self.components)
 
     def offsets(self):
         off = [0]
@@ -266,21 +633,67 @@ class Cmpnd(_Component):
             out = out + c.diag(pp, X)
         return out
 
+    def white(self, p):
+        w = torch.zeros((), dtype=p.dtype, device=p.device)
+        for c, pp in zip(self.components, self.child_slices(p)):
+            w = w + c.white(pp)
+        return w
+
+
+@dataclasses.dataclass(frozen=True)
+class Tensor(_Component):
+    """Product combinator: k = Πᵢ kᵢ; white children are rejected."""
+
+    def __post_init__(self):
+        for c in self.components:
+            if c.kind == "white":
+                raise ValueError("Can't have white kernel components in tensor kernels.")
+
+    @property
+    def kind(self):
+        return "tensor"
+
+    def compute(self, p, X1, X2):
+        parts = self.child_slices(p)
+        out = self.components[0].compute(parts[0], X1, X2)
+        for c, pp in zip(self.components[1:], parts[1:]):
+            out = out * c.compute(pp, X1, X2)
+        return out
+
+    def diag(self, p, X):
+        parts = self.child_slices(p)
+        out = self.components[0].diag(parts[0], X)
+        for c, pp in zip(self.components[1:], parts[1:]):
+            out = out * c.diag(pp, X)
+        return out
+
 
 _LEAF_TYPES = {
     "white": White,
     "whitefixed": WhiteFixed,
     "bias": Bias,
     "rbf": Rbf,
+    "exp": Exp,
+    "ratquad": RatQuad,
+    "matern32": Matern32,
+    "matern52": Matern52,
+    "lin": Lin,
+    "mlp": Mlp,
+    "poly": Poly,
+    "linard": Linard,
+    "rbfard": Rbfard,
+    "mlpard": Mlpard,
+    "polyard": Polyard,
 }
 
 
 def make_kern(kind: str, input_dim: int, **kwargs) -> Kern:
-    """Factory for the ported kinds (readKernFromStream counterpart)."""
+    """Factory (readKernFromStream counterpart): a leaf by kind, or a cmpnd
+    or tensor of `components`."""
     if kind == "cmpnd":
         return Cmpnd(input_dim=input_dim, components=tuple(kwargs["components"]))
+    if kind == "tensor":
+        return Tensor(input_dim=input_dim, components=tuple(kwargs["components"]))
     if kind not in _LEAF_TYPES:
-        raise NotImplementedError(
-            f"kernel type {kind!r} is not ported to gpc_tpu_torch yet "
-            f"(ported: cmpnd, {', '.join(_LEAF_TYPES)})")
+        raise ValueError(f"Unknown kernel type {kind}")
     return _LEAF_TYPES[kind](input_dim=input_dim, **kwargs)

@@ -5,8 +5,9 @@ layout (CGp::getOptParams): [kernel transformed params][output scales if
 learn_scales (linear)] — the same unconstrained theta as gpc_tpu's FTC.
 
 `log_likelihood` routes the evidence through the engine that
-GPC_TPU_EVIDENCE selects (ops/evidence_mode.py): `dense` (jitchol) or
-`panel` (the K3 kernel).  Both differentiate in θ: `GP.optimise` trains by
+GPC_TPU_EVIDENCE selects (ops/evidence_mode.py): `dense` (jitchol), `lazy`
+(the left-looking blocked factorization with Gram blocks from K1/K4) or
+`panel` (the K3 kernel).  All differentiate in θ: `GP.optimise` trains by
 SCG on the gradient that `torch.autograd.grad` takes through them.  The
 sparse approximations are not ported yet.
 """
@@ -24,6 +25,7 @@ from gpc_tpu_torch import transforms as tr
 from gpc_tpu_torch.kernels import Kern
 from gpc_tpu_torch.optim import check_gradients, run_optimiser
 from gpc_tpu_torch.ops.evidence_mode import select_evidence_mode
+from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
 from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
 
 FTC = "ftc"
@@ -67,7 +69,10 @@ def log_likelihood(spec: GpSpec, theta, X, y, bias, fixed_scales):
     scales = scales if spec.learn_scales else fixed_scales
     m = (y - bias[None, :]) / scales[None, :]
     N, D = spec.n_data, spec.output_dim
-    if select_evidence_mode() == "panel":
+    mode = select_evidence_mode(N)
+    if mode == "lazy":
+        logdetK, quad = kern_evidence_lazy(spec.kern, kp, X, m, force=True)
+    elif mode == "panel":
         logdetK, quad = kern_evidence_panel(spec.kern, kp, X, m)
     else:
         K = spec.kern.gram(kp, X)

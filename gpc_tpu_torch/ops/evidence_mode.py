@@ -4,8 +4,10 @@ The same variable and values as gpc_tpu/ops/evidence_mode.py, so the two
 CLIs take the same settings:
 
   dense      jitchol escalation (linalg.py): the parity route and default;
+  lazy       Gram blocks materialised inside the left-looking blocked
+             factorization (ops/lazy_evidence.py), differentiable; needs N
+             to split into `evidence_base()` blocks;
   panel      the panel kernel K3 (ops/panel_engine.py): forward evidence;
-  lazy       not ported yet (ROADMAP.md, queue 1 item 6);
   iterative  not ported yet (ROADMAP.md, queue 1 item 6).
 
 gpc_tpu's unset-flag default turns to `lazy` past N = 8192 on a TPU because
@@ -16,8 +18,25 @@ has no such limit and keeps `dense` as its default at every size.
 from __future__ import annotations
 
 import os
+import warnings
+
+from gpc_tpu_torch.ops.chol_blocked import BASE
 
 MODES = ("dense", "lazy", "iterative", "panel")
+
+
+def evidence_base() -> int:
+    """The lazy engine's leaf block: GPC_TPU_EVIDENCE_BASE, else
+    ops.chol_blocked.BASE.  The model's shape guard and the engine read it
+    here, so they agree for every base."""
+    return int(os.environ.get("GPC_TPU_EVIDENCE_BASE", BASE))
+
+
+def evidence_splits(n: int) -> bool:
+    """Whether the lazy engine takes size n: n splits into base blocks and
+    is more than two of them."""
+    b = evidence_base()
+    return n % b == 0 and n > 2 * b
 
 
 def evidence_mode() -> str:
@@ -29,13 +48,19 @@ def evidence_mode() -> str:
     return v
 
 
-def select_evidence_mode() -> str:
-    """The FTC evidence engine, `dense` or `panel`; the engines not ported
-    yet raise NotImplementedError."""
+def select_evidence_mode(n: int) -> str:
+    """The FTC evidence engine for n data points.  `lazy` on a size that
+    does not split warns and falls back to `dense`, as in gpc_tpu;
+    `iterative` is not ported yet and raises NotImplementedError."""
     mode = evidence_mode()
-    if mode in ("lazy", "iterative"):
+    if mode == "iterative":
         raise NotImplementedError(
-            f"GPC_TPU_EVIDENCE={mode}: the {mode} evidence engine is not "
-            f"ported to gpc_tpu_torch yet (ROADMAP.md, queue 1 item 6); "
-            f"use dense or panel")
+            "GPC_TPU_EVIDENCE=iterative: the iterative evidence engine is not "
+            "ported to gpc_tpu_torch yet (ROADMAP.md, queue 1 item 6); use "
+            "dense, lazy or panel")
+    if mode == "lazy" and not evidence_splits(n):
+        warnings.warn(
+            f"GPC_TPU_EVIDENCE={mode} needs n_data to split into "
+            f"{evidence_base()} blocks (got N={n}); falling back to dense")
+        return "dense"
     return mode

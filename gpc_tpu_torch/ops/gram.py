@@ -1,13 +1,23 @@
-"""K1: distance-family cross-covariance (the fused Gram tile kernel).
+"""K1 and K4: the fused Gram tile kernels of the two kernel families.
 
-Replaces gpc_tpu/ops/gram_pallas.py::dist_gram.  `dist_gram` launches the
-CUDA kernel of `csrc/gram.cu` for a CUDA tensor and takes `dist_gram_plain`
-(dist2 + map, the same math) for a CPU tensor.  The kernel is bound by its
-n·m·4-byte output on the H100; its design note is in the source.
+K1 replaces gpc_tpu/ops/gram_pallas.py::dist_gram (the distance family:
+rbf, exp, ratquad, matern32/52), K4 replaces its inner_gram (the
+inner-product family: lin, poly, mlp).  `dist_gram` / `inner_gram` launch
+the CUDA kernel of `csrc/gram.cu` for a CUDA tensor and take the plain
+version (the same math: dist2 or X1·X2ᵀ, then the map) for a CPU tensor.
+Both kernels are bound by their n·m·4-byte output on the H100; the design
+note is in the source.  Their autograd wrappers launch the kernel forward
+and recompute the plain map under autograd in the backward.
 
 params follow gpc_tpu.kernels: rbf/exp → [inverseWidth, variance],
 ratquad → [alpha, lengthScale, variance], matern32/52 → [lengthScale,
-variance].
+variance]; lin → [variance]; poly/mlp → [weightVariance, biasVariance,
+variance], poly's degree a separate float.
+
+The maps keep gpc_tpu/kernels.py's guards, not the Pallas tiles': the sqrt
+of exp and matern adds finfo(dtype).tiny, and mlp clamps its arcsin
+argument to ±(1 − epsneg(dtype)), so that arcsin′ stays finite where the
+argument rounds to 1 (the Pallas tile clips to ±1).
 """
 
 from __future__ import annotations
@@ -18,21 +28,23 @@ from gpc_tpu_torch.linalg import dist2
 from gpc_tpu_torch.ops import cuda_lib
 
 FAMILIES = ("rbf", "exp", "ratquad", "matern32", "matern52")
+INNER_FAMILIES = ("lin", "poly", "mlp")
 
 
 def _map(family, d2, p0, p1, p2):
+    tiny = torch.finfo(d2.dtype).tiny
     if family == "rbf":
         return p1 * torch.exp(-0.5 * p0 * d2)
     if family == "exp":
-        return p1 * torch.exp(-p0 * torch.sqrt(d2 + 1e-30))
+        return p1 * torch.exp(-p0 * torch.sqrt(d2 + tiny))
     if family == "ratquad":
         return p2 * torch.pow(1.0 + d2 * (0.5 / (p1 * p1 * p0)), -p0)
     if family == "matern32":
-        u = torch.sqrt(d2 * (3.0 / (p0 * p0)) + 1e-30)
+        u = torch.sqrt(d2 * (3.0 / (p0 * p0)) + tiny)
         return p1 * (1.0 + u) * torch.exp(-u)
     if family == "matern52":
         n2 = d2 * (5.0 / (p0 * p0))
-        u = torch.sqrt(n2 + 1e-30)
+        u = torch.sqrt(n2 + tiny)
         return p1 * (1.0 + u + n2 / 3.0) * torch.exp(-u)
     raise ValueError(f"unknown distance family {family!r}")
 
@@ -94,17 +106,83 @@ class _DistGram(torch.autograd.Function):
                                      ctx.saved_tensors, ctx.needs_input_grad[1:], Kbar))
 
 
-def dist_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
-    """K1 itself on CUDA tensors (float32, contiguous), no autograd."""
-    cuda_lib.require_cuda("dist_gram", X1, X2)
+def _kernel_args(name, params, X1, X2):
+    """Checks of a Gram kernel's inputs; (n, m, q, the three params as
+    floats, the output)."""
+    cuda_lib.require_cuda(name, X1, X2)
     if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
-        raise ValueError(f"dist_gram: shapes {tuple(X1.shape)}, {tuple(X2.shape)}")
+        raise ValueError(f"{name}: shapes {tuple(X1.shape)}, {tuple(X2.shape)}")
     n, q = X1.shape
     m = X2.shape[0]
     p = [float(v) for v in torch.as_tensor(params).reshape(-1).tolist()]
     p += [0.0] * (3 - len(p))
-    out = torch.empty((n, m), dtype=torch.float32, device=X1.device)
+    return n, m, q, p, torch.empty((n, m), dtype=torch.float32, device=X1.device)
+
+
+def dist_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
+    """K1 itself on CUDA tensors (float32, contiguous), no autograd."""
+    n, m, q, p, out = _kernel_args("dist_gram", params, X1, X2)
     cuda_lib.launch("dist_gram", "gpc_dist_gram", X1.data_ptr(), X2.data_ptr(),
                     n, m, q, FAMILIES.index(family), p[0], p[1], p[2],
                     out.data_ptr(), cuda_lib.stream_of(X1))
+    return out
+
+
+def inner_gram_plain(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
+                     degree: float = 2.0):
+    """The plain PyTorch version of K4 (gram_pallas._inner_fallback's math
+    with gpc_tpu/kernels.py's mlp clamp), in X1's dtype."""
+    p = _padded_params(params, X1.dtype, X1.device)
+    cross = X1 @ X2.T
+    if family == "lin":
+        return p[0] * cross
+    if family == "poly":
+        return p[2] * torch.pow(p[0] * cross + p[1], degree)
+    if family != "mlp":
+        raise ValueError(f"unknown inner-product family {family!r}")
+    numer = p[0] * cross + p[1]
+    d1 = p[0] * torch.sum(X1 * X1, dim=1) + p[1] + 1.0
+    d2 = p[0] * torch.sum(X2 * X2, dim=1) + p[1] + 1.0
+    arg = numer / torch.sqrt(d1[:, None] * d2[None, :])
+    lim = 1.0 - torch.finfo(arg.dtype).eps / 2      # 1 − epsneg
+    return p[2] * torch.asin(torch.clamp(arg, -lim, lim))
+
+
+def inner_gram(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
+               degree: float = 2.0):
+    """(n, m) cross-covariance of an inner-product-family kernel.  CPU
+    tensors take the plain version under native autograd; CUDA tensors
+    (float32, contiguous) launch K4 through `_InnerGram`."""
+    if family not in INNER_FAMILIES:
+        raise ValueError(f"unknown inner-product family {family!r}")
+    if X1.device.type == "cpu":
+        return inner_gram_plain(family, params, X1, X2, degree)
+    params = torch.as_tensor(params, dtype=X1.dtype, device=X1.device).reshape(-1)
+    return _InnerGram.apply(family, float(degree), params, X1, X2)
+
+
+class _InnerGram(torch.autograd.Function):
+    """K4 forward; the backward recomputes the plain map under autograd, as
+    `_DistGram` does (gpc_tpu takes this gradient from XLA)."""
+
+    @staticmethod
+    def forward(ctx, family, degree, params, X1, X2):
+        ctx.family, ctx.degree = family, degree
+        ctx.save_for_backward(params, X1, X2)
+        return inner_gram_kernel(family, params, X1, X2, degree)
+
+    @staticmethod
+    def backward(ctx, Kbar):
+        fn = lambda p, X1, X2: inner_gram_plain(ctx.family, p, X1, X2, ctx.degree)
+        return (None, None, *recompute_vjp(fn, ctx.saved_tensors,
+                                           ctx.needs_input_grad[2:], Kbar))
+
+
+def inner_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
+                      degree: float = 2.0):
+    """K4 itself on CUDA tensors (float32, contiguous), no autograd."""
+    n, m, q, p, out = _kernel_args("inner_gram", params, X1, X2)
+    cuda_lib.launch("inner_gram", "gpc_inner_gram", X1.data_ptr(), X2.data_ptr(),
+                    n, m, q, INNER_FAMILIES.index(family), p[0], p[1], p[2],
+                    float(degree), out.data_ptr(), cuda_lib.stream_of(X1))
     return out

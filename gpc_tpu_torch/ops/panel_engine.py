@@ -14,7 +14,7 @@ kernel family cmpnd(rbf[, bias...][, white...][, whitefixed...]):
 On a CUDA tensor this runs the K3 launches; on a CPU tensor, K3's plain
 version.  A noiseless kernel (no white, no ridge) is outside the domain and
 goes to the dense jitchol engine, as in gpc_tpu.  Kernels outside the family
-go to `lazy` in gpc_tpu; that engine is not ported yet, so they raise.
+warn and go to the lazy engine (ops/lazy_evidence.py), as in gpc_tpu.
 
 Training: `_PanelCore` is the counterpart of gpc_tpu's custom VJP
 (`_panel_core_fn`).  When no input needs a gradient the forward is K3 mode
@@ -41,6 +41,7 @@ from gpc_tpu_torch import linalg
 from gpc_tpu_torch.kernels import Cmpnd
 from gpc_tpu_torch.ops.chol_panel import LEAF, diag_blocks, panel_state_rbf
 from gpc_tpu_torch.ops.gram import dist_gram, recompute_vjp
+from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
 
 
 def panel_split(kern):
@@ -127,11 +128,11 @@ def kern_evidence_panel(kern, p, X, m, ridge=0.0):
     """(logdet, quad) for K = kern(X) + ridge·I through the panel kernel."""
     info = panel_split(kern)
     if info is None:
-        raise NotImplementedError(
-            f"GPC_TPU_EVIDENCE=panel serves cmpnd(rbf[, bias][, white]) only "
-            f"(got {getattr(kern, 'kind', type(kern).__name__)}); gpc_tpu "
-            f"falls back to the lazy engine, which is not ported yet "
-            f"(ROADMAP.md, queue 1 item 6)")
+        warnings.warn(f"GPC_TPU_EVIDENCE=panel serves cmpnd(rbf[, bias][, "
+                      f"white]) only (got "
+                      f"{getattr(kern, 'kind', type(kern).__name__)}); "
+                      f"falling back to the lazy engine")
+        return kern_evidence_lazy(kern, p, X, m, ridge=ridge, force=True)
     rbf_off, bias_offs, white_offs, fixed_white = info
     if not white_offs and fixed_white + ridge <= 0.0:
         # a noiseless K: pad rows would factor as 0·I and log 0 enters the

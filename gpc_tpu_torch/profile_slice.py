@@ -4,9 +4,11 @@
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
-factor (explicit inverse), one served batch of 8192 rows, and one
+factor (explicit inverse), one served batch of 8192 rows, one
 value_and_grad of the training objective per engine (dense: K1 + jitchol
-and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward).
+and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
+and one value_and_grad with cmpnd(mlp, bias, white) under dense (K4 +
+jitchol) and under lazy (the left-looking sweep with K4 blocks).
 Prints per stage the wall time (host clock around work that ends in a
 synchronize), the device-busy share of that window and the kernels that
 take the most device time; writes the full tables to --out.  Needs CUDA:
@@ -100,6 +102,15 @@ def main(argv=None):
 
     for engine in ("dense", "panel"):
         stage(f"value_and_grad {engine}", lambda: value_and_grad(engine), report)
+    del model, nlml
+    torch.cuda.empty_cache()
+    mlp = GP(KM.Cmpnd(input_dim=args.q, components=(
+        KM.Mlp(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q))),
+        X, y, device="cuda")
+    theta, Xd, yd, bias, scales = mlp._args()
+    nlml = make_objective(mlp.spec, Xd, yd, bias, scales)
+    for engine in ("dense", "lazy"):
+        stage(f"value_and_grad {engine}, mlp", lambda: value_and_grad(engine), report)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n\n".join(report))

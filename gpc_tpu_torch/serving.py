@@ -6,7 +6,8 @@ with `explicit_inverse`, the blocked L⁻¹, so each batch's variance solve is
 a GEMM.  `predict` serves requests in chunks of at most `chunk` rows, each
 padded to a power-of-two bucket capped at `chunk`: the set of batch shapes
 stays bounded at ~log2(chunk) for any stream of request sizes.  On CUDA the
-rbf Gram of the factor and each batch's cross-Gram run kernel K1.
+Gram of the factor and each batch's cross-Gram run kernel K1 (the distance
+family) or K4 (lin, poly, mlp).
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ M.  K3: the plain version against `panel_state_rbf(..., interpret=True)` at
 N = 1536, b = 128, D = 2, 2e-3 relative on the logdet and diag(G) — the
 bound the bf16 L buffer of the Pallas kernel is held to
 (tests/test_chol_panel.py).  K3 mode "full+diag": T's diagonal blocks
-against the Pallas kernel's at N = 512, and T's layout in both modes.  The CUDA kernels are compared with the plain
-versions on the card in tests/test_torch_cuda.py.
+against the Pallas kernel's at N = 512, and T's layout in both modes.  K5:
+the plain (L, L⁻¹) against `chol_pallas.chol_inv_block(interpret=True)`.
+The CUDA kernels are compared with the plain versions on the card in
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -115,3 +117,25 @@ def test_plain_T_layout_by_mode():
     assert torch.equal(T_full[below], L.to(torch.bfloat16)[below])
     with pytest.raises(ValueError, match="mode"):
         TCP.panel_state_rbf(X, m, 0.9, 1.2, 0.2, mode="diag")
+
+
+@pytest.mark.parametrize("n,tol", [(192, 1e-9), (256, 1e-6)])
+def test_chol_inv_block_plain_matches_pallas_interpret(n, tol):
+    """K5's plain version against gpc_tpu's chol_inv_block in interpret
+    mode, float64 inputs.  n = 192 takes the masked row kernel, which
+    computes in the input's dtype: 1e-9, as tests/test_chol_blocked.py.
+    n = 256 takes the fused blocked Gauss-Jordan kernel, whose GEMMs
+    accumulate in float32 (gpc_tpu/ops/chol_panel.py:77-80): 1e-6 of the
+    largest entry."""
+    from gpc_tpu.ops.chol_pallas import chol_inv_block as jax_chol_inv_block
+    rng = np.random.default_rng(7)
+    Z = rng.standard_normal((n, n))
+    A = Z @ Z.T + n * np.eye(n)
+    L_want, M_want = (np.asarray(a) for a in jax_chol_inv_block(jnp.asarray(A), interpret=True))
+    L, M = TCP.chol_inv_block(torch.from_numpy(A))
+    assert L.dtype == M.dtype == torch.float64
+    for got, want in ((L, L_want), (M, M_want)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+    np.testing.assert_allclose(M.numpy() @ L.numpy(), np.eye(n), atol=1e-9)
+    assert not bool(torch.triu(L, 1).any()) and not bool(torch.triu(M, 1).any())

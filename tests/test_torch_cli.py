@@ -5,8 +5,10 @@ written by gpc_tpu; the port runs with `--device cpu`.  display / test /
 predict / log-likelihood must print the same text, with every number equal
 to float64 rounding (rtol 1e-10).  `learn -# 20` of both packages gives
 hyperparameters within 1e-6 relative after the same number of iterations,
-and each package relearns from the other's model file.  The unported
-commands, flags and a missing card exit with an error.
+and each package relearns from the other's model file.  `learn -# 10` with
+each kernel type of the -k grammar (ARD under -i 1) gives hyperparameters
+within 1e-7, and each package reads the other's model file.  The unported
+commands, flags out of place and a missing card exit with an error.
 """
 
 import re
@@ -84,9 +86,9 @@ def test_panel_log_likelihood_matches_dense_cli(files, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["gnuplot", "train.svml", "gp_model"], "not yet ported"),
-    (["learn", "-k", "lin", "train.svml"], "not yet ported"),
-    (["learn", "-k", "rbf", "-i", "1", "train.svml"], "not yet ported"),
-    (["learn", "-k", "rbf", "-w", "1.0", "train.svml"], "not yet ported"),
+    (["learn", "-O", "conjgrad", "train.svml"], "not yet ported"),
+    (["learn", "-O", "graddesc", "train.svml"], "not yet ported"),
+    (["learn", "-A", "fitc", "-a", "10", "train.svml"], "not yet ported"),
     (["learn", "-A", "dtc", "-a", "10", "train.svml"], "not yet ported"),
     (["learn", "-O", "quasinew", "train.svml"], "not yet ported"),
     (["learn", "-f", "1", "train.svml"], "not yet ported"),
@@ -98,6 +100,14 @@ def test_panel_log_likelihood_matches_dense_cli(files, capsys, monkeypatch):
     (["bogus"], "Invalid gp command"),
     (["display", "missing_model"], "Unable to read file"),
     ([], "No command provided"),
+    (["learn", "-k", "rbf", "-w", "1.0", "train.svml"], "`Weight variance' parameter not valid for rbf"),
+    (["learn", "-k", "mlp", "-d", "3", "train.svml"], "Polynomial degree parameter not valid for mlp"),
+    (["learn", "-k", "poly", "-@", "2", "train.svml"], "Alpha parameter not valid for poly"),
+    (["learn", "-k", "lin", "-g", "2", "train.svml"], "Inverse width parameter not valid for lin"),
+    (["learn", "-k", "exp", "-i", "1", "train.svml"], "Exponential covariance function not available"),
+    (["learn", "-k", "ratquad", "-i", "1", "train.svml"], "Rational quadratic covariance function not"),
+    (["learn", "-k", "matern32", "-i", "1", "train.svml"], "matern32 covariance function not available"),
+    (["learn", "-k", "mlp", "-i", "2", "train.svml"], "is not boolean"),
 ])
 def test_errors_exit_nonzero(files, capsys, argv, message):
     with pytest.raises(SystemExit) as exc:
@@ -150,6 +160,49 @@ def test_learn_matches_jax(learn_file, capsys, flags):
     assert open("m_port").readline().startswith("# Run as: ")
     ll = _run(port_cli.main, CPU + ["log-likelihood", learn_file, "m_port"], capsys)
     np.testing.assert_allclose(float(ll.split(":")[-1]), -obj_t, rtol=1e-10)
+
+
+ZOO = [["-k", "mlp"], ["-k", "poly", "-d", "3"], ["-k", "lin", "-i", "1"], ["-k", "exp"],
+       ["-k", "ratquad", "-@", "2"], ["-k", "matern52"],
+       ["-k", "mlp", "-w", "2", "-b", "0.5", "-i", "1", "-k", "rbf", "-g", "0.4"]]
+
+
+@pytest.fixture
+def zoo_file(files):
+    """Training data at half the spread of learn.svml: there the Grams of
+    every kernel type stay conditioned well enough that the two packages'
+    last-bit differences (XLA fuses a·b + c into one multiply-add) stay
+    below 1e-8 over 10 SCG iterations; at twice the spread poly of degree 3
+    drifts 1e-6."""
+    rng = np.random.default_rng(5)
+    X = 0.5 * rng.standard_normal((150, 2))
+    write_svml("zoo.svml", X, np.sin(X[:, :1]) + 0.2 * rng.standard_normal((150, 1)))
+    return "zoo.svml"
+
+
+@pytest.mark.parametrize("flags", ZOO, ids=lambda f: "".join(f))
+def test_learn_kernel_zoo_matches_jax(zoo_file, capsys, flags):
+    """learn -# 10 with each leaf type of the CLI grammar: the learned θ
+    within 1e-7 of gpc_tpu's (as tests/test_torch_train.py holds
+    GP.optimise), the same display, and each package reads the other's
+    model file to the same log-likelihood."""
+    argv = ["learn", "-#", "10"] + flags + [zoo_file]
+    out_j = _run(jax_cli.main, ["-s", "1"] + argv + ["m_jax"], capsys)
+    out_t = _run(port_cli.main, CPU + ["-s", "1"] + argv + ["m_port"], capsys)
+    p_j, obj_j, it_j = _learned(out_j)
+    p_t, obj_t, it_t = _learned(out_t)
+    assert it_t == it_j == 10 and len(p_t) == len(p_j) > 2
+    np.testing.assert_allclose(p_t, p_j, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(obj_t, obj_j, rtol=1e-8)
+    assert [ln.split(":")[0] for ln in out_t.splitlines()] == \
+        [ln.split(":")[0] for ln in out_j.splitlines()]
+    for reader, model in ((port_cli.main, "m_jax"), (jax_cli.main, "m_port")):
+        ll = _run(reader, (CPU if reader is port_cli.main else []) +
+                  ["log-likelihood", zoo_file, model], capsys)
+        np.testing.assert_allclose(float(ll.split(":")[-1]), -obj_j, rtol=1e-7)
+    text = {f: "".join(ln for ln in open(f) if not ln.startswith("#"))
+            for f in ("m_port", "m_jax")}
+    assert _NUM.sub("#", text["m_port"]) == _NUM.sub("#", text["m_jax"])
 
 
 def test_relearn_cross_loads(learn_file, capsys):

@@ -7,12 +7,16 @@ machine run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: K1 and K2 compute in float32 like their plain versions and
-differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet and on K1's
-gradient); K3 and the slice carry the bf16 L buffer of the panel kernel
-(2e-3, gpc_tpu's own bound; 2e-2 of their max on T's diagonal blocks;
-8e-2 relative L2 on panel gradients) or float32 against the CPU's float64
-(1e-4 on predictions, 1e-3 relative L2 on dense gradients).
+Tolerances: K1, K2, K4 and K5 compute in float32 like their plain
+versions and differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet,
+on K1's and K4's gradients and of the output's scale for K4's power and
+arcsin maps; 1e-3 on ‖ML − I‖ and of max|L| for K5); K3 and the slice carry
+the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own bound; 2e-2 of
+their max on T's diagonal blocks; 8e-2 relative L2 on panel gradients) or
+float32 against the CPU's float64 (1e-4 on predictions, 2e-3 on the
+evidence, 1e-3 relative L2 on dense and lazy gradients).  The lazy engine's
+leaves under K5 are held to its Cholesky leaves at 2e-4
+(tests/test_lazy_evidence.py:185-187).
 """
 
 import numpy as np
@@ -22,7 +26,9 @@ import torch
 from gpc_tpu_torch import kernels as TK
 from gpc_tpu_torch.models.gp import GP
 from gpc_tpu_torch.ops import chol_panel as TCP
+from gpc_tpu_torch.ops import evidence_fast as TEF
 from gpc_tpu_torch.ops import gram as TG
+from gpc_tpu_torch.ops import lazy_evidence as TLE
 from gpc_tpu_torch.ops.cuda_lib import LAUNCHES
 from gpc_tpu_torch.serving import GPServer
 
@@ -30,6 +36,7 @@ pytestmark = pytest.mark.cuda
 
 PARAMS = {"rbf": [0.7, 1.3], "exp": [0.7, 1.3], "ratquad": [1.5, 0.8, 1.3],
           "matern32": [0.9, 1.3], "matern52": [0.9, 1.3]}
+INNER = {"lin": [1.3], "poly": [0.7, 0.4, 1.3], "mlp": [10.0, 10.0, 1.3]}
 
 
 @pytest.fixture
@@ -215,3 +222,124 @@ def test_optimise_on_card(dev, monkeypatch, evidence):
     if evidence == "dense":
         assert res.obj < f0
     assert abs(-model.log_likelihood() - res.obj) <= 1e-5 * abs(res.obj)
+
+
+@pytest.mark.parametrize("family", TG.INNER_FAMILIES)
+def test_inner_gram_kernel_matches_plain(dev, family):
+    """K4 at ragged shapes (the masked tile edge), poly at degree 3."""
+    rng = np.random.default_rng(23)
+    X1, X2 = _randn(rng, (300, 5), dev), _randn(rng, (211, 5), dev)
+    before = LAUNCHES["inner_gram"]
+    got = TG.inner_gram(family, INNER[family], X1, X2, 3.0)
+    assert LAUNCHES["inner_gram"] == before + 1
+    want = TG.inner_gram_plain(family, INNER[family], X1, X2, 3.0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("family", TG.INNER_FAMILIES)
+def test_inner_gram_gradient_matches_plain(dev, family):
+    rng = np.random.default_rng(24)
+    p0, X10 = np.asarray(INNER[family]), rng.standard_normal((300, 5))
+    W = _randn(rng, (300, 300), dev)
+
+    def grads(fn):
+        p, X = (torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True)
+                for a in (p0, X10))
+        return torch.autograd.grad((fn(family, p, X, X, 3.0) * W).sum(), (p, X))
+
+    got = grads(TG.inner_gram)
+    want = grads(TG.inner_gram_plain)
+    for a, b in zip(got, want):
+        assert float(a.abs().max()) > 0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024])
+def test_chol_inv_block_kernel_matches_plain(dev, n):
+    rng = np.random.default_rng(n + 1)
+    Z = _randn(rng, (n, n), dev)
+    A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+    before = LAUNCHES["chol_inv_block"]
+    L, M = TCP.chol_inv_block(A)
+    assert LAUNCHES["chol_inv_block"] == before + 1
+    L_want, _ = TCP.chol_inv_block_plain(A)
+    assert float((M @ L - torch.eye(n, device=dev)).abs().max()) < 1e-3
+    assert float((L - L_want).abs().max()) < 1e-3 * float(L_want.abs().max())
+    assert not bool(L.triu(1).any()) and not bool(M.triu(1).any())
+    with pytest.raises(ValueError, match="n % 128"):
+        TCP.chol_inv_block(A[:n - 8, :n - 8].contiguous())
+    with pytest.raises(RuntimeError, match="forward only"):
+        TCP.chol_inv_block(A.clone().requires_grad_(True))
+
+
+def _mlp_data(N, seed=8):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N, 3))
+    y = np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))
+    kern = TK.Cmpnd(input_dim=3, components=(
+        TK.Mlp(input_dim=3), TK.Bias(input_dim=3), TK.White(input_dim=3)))
+    return kern, X, y
+
+
+@pytest.mark.parametrize("evidence,N", [("dense", 500), ("lazy", 1024), ("panel", 1024)])
+def test_mlp_value_and_grad_on_card_matches_cpu_float64(dev, monkeypatch, evidence, N):
+    """cmpnd(mlp, bias, white): the objective and θ̄ on the card (K4 and
+    its recompute backward; under lazy the left-looking engine, which panel
+    falls back to) against the CPU float64 dense route."""
+    kern, X, y = _mlp_data(N)
+    cpu = GP(kern, X, y, device="cpu")
+    f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", evidence)
+    card = GP(kern, X, y, device=dev)
+    before = LAUNCHES["inner_gram"]
+    if evidence == "panel":
+        with pytest.warns(UserWarning, match="lazy engine"):
+            f, g = card.value_and_grad_fn()(card.theta)
+    else:
+        f, g = card.value_and_grad_fn()(card.theta)
+    assert LAUNCHES["inner_gram"] > before
+    assert abs(f - f_ref) <= 2e-3 * abs(f_ref)
+    assert np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref) < 1e-3
+    assert np.abs(g).min() > 0
+
+
+def test_evidence_left_fast_k5_leaves_match_cholesky_leaves(dev):
+    """The lazy sweep with the default Policy (K5 leaves) against
+    leafinv=False, float32 at N = 2048, cmpnd(mlp, bias, white)."""
+    kern, X, _ = _mlp_data(2048)
+    p = torch.tensor(kern.default_params(), dtype=torch.float32, device=dev)
+    Xd = torch.tensor(X, dtype=torch.float32, device=dev)
+    m = _randn(np.random.default_rng(9), (2048, 2), dev)
+    kfn = TLE.kern_block_fn(kern, p, Xd)
+    before = LAUNCHES["chol_inv_block"]
+    ld, quad = TEF.evidence_left_fast(kfn, 2048, m)
+    assert LAUNCHES["chol_inv_block"] == before + 2048 // 256
+    ld0, quad0 = TEF.evidence_left_fast(kfn, 2048, m, TEF.Policy(leafinv=False))
+    assert abs(float(ld) - float(ld0)) < 2e-4 * abs(float(ld0))
+    assert abs(float(quad) - float(quad0)) < 2e-4 * abs(float(quad0))
+
+
+ZOO = [["-k", "mlp"], ["-k", "poly", "-d", "3"], ["-k", "lin", "-i", "1"], ["-k", "exp"],
+       ["-k", "ratquad", "-@", "2"], ["-k", "matern52"]]
+
+
+@pytest.mark.parametrize("flags", ZOO, ids=lambda f: "".join(f))
+def test_learn_kernel_zoo_on_card(dev, tmp_path, capsys, flags):
+    """gp learn -# 3 with each leaf type on the card (the CLI's default
+    device): a finite objective, and the model file reads back on the card
+    and on the CPU with −(final objective) as its log-likelihood (float32
+    on the card: 1e-4)."""
+    from gpc_tpu_torch.cli import gp as port_cli
+    from gpc_tpu_torch.io.svml import write_svml
+    rng = np.random.default_rng(25)
+    X = 0.5 * rng.standard_normal((300, 2))
+    data, model = str(tmp_path / "d.svml"), str(tmp_path / "m")
+    write_svml(data, X, np.sin(X[:, :1]) + 0.2 * rng.standard_normal((300, 1)))
+    port_cli.main(["learn", "-#", "3"] + flags + [data, model])
+    out = capsys.readouterr().out
+    final = float(out.split("Final objective:")[1].split()[0])
+    assert np.isfinite(final)
+    for device in ([], ["--device", "cpu"]):
+        port_cli.main(device + ["log-likelihood", data, model])
+        ll = float(capsys.readouterr().out.split(":")[-1])
+        assert abs(ll + final) <= 1e-4 * abs(final)

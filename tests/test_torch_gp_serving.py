@@ -132,17 +132,31 @@ def test_panel_engine_noiseless_falls_back_to_dense():
 
 
 def test_panel_engine_outside_family_raises():
+    """Outside the panel family the engine no longer raises: it warns and
+    falls back to the lazy engine (here the dense fused sweep, N = 8 being
+    too small to split), as gpc_tpu does."""
     kern = TK.Cmpnd(input_dim=2, components=(TK.Bias(input_dim=2), TK.White(input_dim=2)))
     X = torch.zeros((8, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="lazy"):
-        TPE.kern_evidence_panel(kern, torch.ones(2, dtype=torch.float64), X, X[:, :1])
+    p = torch.ones(2, dtype=torch.float64)
+    with pytest.warns(UserWarning, match="falling back to the lazy engine"):
+        ld, quad = TPE.kern_evidence_panel(kern, p, X, X[:, :1])
+    ld_d, quad_d, _ = TL.evidence_terms(kern.gram(p, X), X[:, :1])
+    np.testing.assert_allclose([float(ld), float(quad)], [float(ld_d), float(quad_d)],
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("mode", ["lazy", "iterative", "bogus"])
 def test_evidence_mode_unported_and_invalid(monkeypatch, mode):
+    """iterative is not ported (NotImplementedError), an unknown engine is
+    a ValueError, and lazy on a size that does not split warns and falls
+    back to dense."""
     monkeypatch.setenv("GPC_TPU_EVIDENCE", mode)
+    if mode == "lazy":
+        with pytest.warns(UserWarning, match="falling back to dense"):
+            assert TEM.select_evidence_mode(100) == "dense"
+        return
     with pytest.raises(ValueError if mode == "bogus" else NotImplementedError):
-        TEM.select_evidence_mode()
+        TEM.select_evidence_mode(100)
 
 
 @pytest.mark.parametrize("case", [
@@ -222,5 +236,5 @@ def test_unported_paths_raise():
         TGP(kern, X, y, approx="dtc")
     with pytest.raises(NotImplementedError, match="quasinew"):
         TGP(kern, X, y, device="cpu").optimise(optimiser="quasinew")
-    with pytest.raises(NotImplementedError, match="mlp"):
-        TK.make_kern("mlp", 2)
+    with pytest.raises(ValueError, match="Unknown kernel type"):
+        TK.make_kern("bogus", 2)

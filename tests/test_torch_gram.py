@@ -1,12 +1,12 @@
-"""K1 (gpc_tpu_torch/ops/gram.py) against gpc_tpu's fused Gram tiles.
+"""K1 and K4 (gpc_tpu_torch/ops/gram.py) against gpc_tpu's fused Gram tiles.
 
-The port's plain version runs on the CPU; the Pallas tile kernel runs in
+The port's plain versions run on the CPU; the Pallas tile kernels run in
 interpret mode.  Both compute in float32 from the same numpy inputs, so
-they differ only in summation order: rtol/atol 2e-5, as
-tests/test_gram_pallas.py holds the Pallas kernel to its jnp fallback.
-The CUDA kernel is compared with the plain version on the card in
-tests/test_torch_cuda.py; its autograd wrapper runs here with the launch
-swapped for the plain version.
+they differ only in summation order: rtol/atol 2e-5 for K1 and 2e-4 for K4
+(the power and arcsin maps), as tests/test_gram_pallas.py holds the Pallas
+kernels to gpc_tpu's kernels.  The CUDA kernels are compared with the plain
+versions on the card in tests/test_torch_cuda.py; their autograd wrappers
+run here with the launch swapped for the plain version.
 """
 
 import numpy as np
@@ -16,12 +16,14 @@ import jax.numpy as jnp
 
 from gpc_tpu import kernels as GK
 from gpc_tpu.ops.gram_pallas import dist_gram as jax_dist_gram
+from gpc_tpu.ops.gram_pallas import inner_gram as jax_inner_gram
 from gpc_tpu_torch import kernels as TK
 from gpc_tpu_torch import linalg as TL
 from gpc_tpu_torch.ops import gram as TG
 
 PARAMS = {"rbf": [0.7, 1.3], "exp": [0.7, 1.3], "ratquad": [1.5, 0.8, 1.3],
           "matern32": [0.9, 1.3], "matern52": [0.9, 1.3]}
+INNER = {"lin": [1.3], "poly": [0.7, 0.4, 1.3], "mlp": [10.0, 10.0, 1.3]}
 
 
 @pytest.mark.parametrize("family", TG.FAMILIES)
@@ -104,3 +106,47 @@ def test_gram_writes_its_diagonal_out_of_place():
     assert torch.equal(torch.diagonal(K), torch.full((12,), 1.3, dtype=torch.float64))
     want = -(TL.dist2(X, X) * torch.exp(-0.7 * TL.dist2(X, X))).fill_diagonal_(0).sum()
     torch.testing.assert_close(g, torch.stack([want, torch.tensor(12.0, dtype=torch.float64)]))
+
+
+@pytest.mark.parametrize("family", TG.INNER_FAMILIES)
+def test_inner_plain_matches_pallas_interpret(family):
+    """K4's plain version against gpc_tpu's inner_gram tile in interpret
+    mode, float32 256×256 (poly at degree 3)."""
+    rng = np.random.default_rng(21)
+    X1 = rng.standard_normal((256, 4)).astype(np.float32)
+    X2 = rng.standard_normal((256, 4)).astype(np.float32)
+    p = np.asarray(INNER[family], np.float32)
+    want = np.asarray(jax_inner_gram(family, jnp.asarray(p), jnp.asarray(X1),
+                                     jnp.asarray(X2), degree=3.0, tile=128,
+                                     interpret=True))
+    got = TG.inner_gram(family, torch.from_numpy(p), torch.from_numpy(X1),
+                        torch.from_numpy(X2), 3.0)
+    assert got.dtype == torch.float32 and got.shape == (256, 256)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="unknown inner-product family"):
+        TG.inner_gram("rbf", p, torch.from_numpy(X1), torch.from_numpy(X2))
+
+
+@pytest.mark.parametrize("family", TG.INNER_FAMILIES)
+@pytest.mark.parametrize("same", [False, True])
+def test_inner_autograd_wrapper_matches_native(monkeypatch, family, same):
+    """`_InnerGram` with its CUDA launch swapped for the plain version: its
+    backward (the plain map recomputed under autograd) gives the gradient
+    in params, X1 and X2 that native autograd of the plain version gives."""
+    monkeypatch.setattr(TG, "inner_gram_kernel", TG.inner_gram_plain)
+    rng = np.random.default_rng(22)
+    p0 = np.asarray(INNER[family])
+    X10, X20 = rng.standard_normal((40, 3)), rng.standard_normal((25, 3))
+    W = torch.from_numpy(rng.standard_normal((40, 40 if same else 25)))
+
+    def grads(fn):
+        p, X1, X2 = (torch.tensor(a, requires_grad=True) for a in (p0, X10, X20))
+        K = fn(p, X1, X1 if same else X2)
+        out = torch.autograd.grad((K * W).sum(), (p, X1) if same else (p, X1, X2))
+        return K.detach(), out
+
+    K_w, g_w = grads(lambda p, X1, X2: TG._InnerGram.apply(family, 3.0, p, X1, X2))
+    K_n, g_n = grads(lambda p, X1, X2: TG.inner_gram_plain(family, p, X1, X2, 3.0))
+    assert torch.equal(K_w, K_n)
+    for a, b in zip(g_w, g_n):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)
