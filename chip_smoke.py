@@ -15,8 +15,15 @@ zoo, with cmpnd(mlp, bias, white): learn -# 3, log-likelihood under dense,
 lazy and panel (which falls back to lazy), predict, a GPServer, and
 learn -# 1 -k poly -i 1 (polyard) at N = 4096; then the lazy engine's
 left-looking sweep with K5 leaves (the default Policy), and the mlp
-value_and_grad timings under dense and lazy.  Each path runs with the
-launch counts set to 0 just before it and read just after.  Every check
+value_and_grad timings under dense and lazy.  Then the Cholesky leaves at
+any size: K5 at ragged n and K6 (chol_block) against their plain versions
+in phase 3, evidence_left_fast at N = 10000 (the slice's first 10000 rows,
+64 ragged K5 leaves of 156 and 157) against Cholesky leaves, and chol_block
+as a standalone op on an mlp Gram block; and the Hopper probes: K7, the
+whole evidence in one launch, at N = 16384 in its five modes against the
+plain version, the dense f32 evidence and K3, and K8a, the overlap probes
+at the TPU probe's shapes.  Each path runs with the launch counts set to 0
+just before it and read just after.  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -29,7 +36,6 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -38,6 +44,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from gpc_tpu_torch.probes import cuda_ms, require_card  # noqa: E402
 
 N, Q, CHUNK = 16384, 8, 8192
 SEED = 0
@@ -77,6 +85,11 @@ def k5_bound(n):
     return bound(4 * 3 * n * n, {"f32": 2 * n ** 3 / 3})
 
 
+def k6_bound(n):
+    """L of one n-block: A in, L out; Cholesky, n³/3."""
+    return bound(4 * 2 * n * n, {"f32": n ** 3 / 3})
+
+
 def k2_bound(b):
     """(L⁻¹, logdet) of one b-block: A in, M out; Cholesky and triangular
     inverse, b³/3 each."""
@@ -95,21 +108,6 @@ def k3_bound(n, q, d, b=128):
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of `fn` in ms over `reps` launches (CUDA events),
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def paired_ms(kernel, plain, reps):
@@ -218,15 +216,22 @@ def phase_inner(dev, rng):
                 bound_by=bound_by, library_ms=library_ms), times
 
 
+def spd_block(dev, rng, n):
+    Z = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
+    return Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+
+
 def phase_chol_inv(dev, rng):
     """K5 against its plain version on a jittered SPD block at n = 256 (the
-    lazy engine's leaf) and 1024 (the widest it takes): ‖ML − I‖ ≤ 1e-3 and
-    L within 1e-3 of the plain version's largest entry."""
-    from gpc_tpu_torch.ops.chol_panel import chol_inv_block, chol_inv_block_plain
+    N = 16384 lazy path's leaf), 1024 (the widest it takes) and the ragged
+    157, 192 and 1000 (157 is the N = 10000 path's leaf), which the kernel
+    pads to a multiple of 128 with the identity: ‖ML − I‖ ≤ 1e-3 and L
+    within 1e-3 of the plain version's largest entry.  Above 1024 it
+    raises."""
+    from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain
     out = {}
-    for n in (256, 1024):
-        Z = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
-        A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+    for n in (256, 1024, 157, 192, 1000):
+        A = spd_block(dev, rng, n)
         L, M = chol_inv_block(A)
         L_p, _ = chol_inv_block_plain(A)
         resid = float((M @ L - torch.eye(n, device=dev)).abs().max())
@@ -236,14 +241,46 @@ def phase_chol_inv(dev, rng):
         check(err <= 1e-3 * scale, f"K5 n={n}: L off by {err} (max entry {scale})")
         check(not bool(L.triu(1).any()) and not bool(M.triu(1).any()), "K5 not lower triangular")
         ms, plain_ms = paired_ms(lambda: chol_inv_block(A), lambda: chol_inv_block_plain(A),
-                                 20 if n == 256 else 5)
+                                 5 if n > 512 else 20)
         bound_ms, bound_by = k5_bound(n)
         out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         log(f"phase 3 K5 n={n}: max|M L - I| {resid}, max|L - L_plain| {err} "
             f"(max entry {scale}); kernel {ms} ms, plain {plain_ms} ms, "
             f"bound {bound_ms} ms ({bound_by})")
-    return out[256], out
+    try:
+        chol_inv_block(torch.eye(1152, device=dev))
+        check(False, "K5 took n = 1152")
+    except ValueError as e:
+        log(f"phase 3 K5 n=1152 raises: {e}")
+    return out[157], out
+
+
+def phase_chol_block(dev, rng):
+    """K6 against its plain version, torch.linalg.cholesky (the one call
+    that computes the same function, timed as the library yardstick too),
+    at n = 157, 192, 1000 and 1024: L within 1e-3 of the plain version's
+    largest entry, zeros above the diagonal."""
+    from gpc_tpu_torch.ops.chol_pallas import chol_block, chol_block_plain
+    out = {}
+    for n in (157, 192, 1000, 1024):
+        A = spd_block(dev, rng, n)
+        L = chol_block(A)
+        L_p = chol_block_plain(A)
+        err = float((L - L_p).abs().max())
+        scale = float(L_p.abs().max())
+        check(err <= 1e-3 * scale, f"K6 n={n}: L off by {err} (max entry {scale})")
+        check(not bool(L.triu(1).any()), "K6 not lower triangular")
+        reps = 5 if n > 512 else 20
+        ms, plain_ms = paired_ms(lambda: chol_block(A), lambda: chol_block_plain(A), reps)
+        library_ms = cuda_ms(lambda: torch.linalg.cholesky(A), reps)
+        bound_ms, bound_by = k6_bound(n)
+        out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=library_ms)
+        log(f"phase 3 K6 n={n}: max|L - L_plain| {err} (max entry {scale}); kernel {ms} ms, "
+            f"plain {plain_ms} ms, torch.linalg.cholesky {library_ms} ms, "
+            f"bound {bound_ms} ms ({bound_by})")
+    return out[1000], out
 
 
 def panel_args(dev):
@@ -683,11 +720,12 @@ def phase_zoo(dev, workdir):
                 factor_ms=factor_ms, predictions_per_s=n_pred / serve_ms * 1e3)
 
 
-def k5_path_args(dev):
+def k5_path_args(dev, n=N):
     """The K5 path's inputs: cmpnd(mlp, bias, white) at the defaults on the
-    slice's data, m = the centred targets."""
+    slice's first n rows, m = the centred targets."""
     from gpc_tpu_torch.ops.lazy_evidence import kern_block_fn
     X, y, _ = slice_data()
+    X, y = X[:n], y[:n]
     kern = default_kern(Q, "mlp")
     p = torch.tensor(kern.default_params(), dtype=torch.float32, device=dev)
     Xd = torch.tensor(X, dtype=torch.float32, device=dev)
@@ -710,6 +748,180 @@ def phase_k5_path(dev):
     log(f"phase 9 evidence_left_fast N={N} mlp, default Policy (K5 leaves): logdet "
         f"{float(ld)} quad {float(quad)} vs leafinv=False {float(ld0)} {float(quad0)} "
         f"(rel {rel_ld}, {rel_q}); first call {ms} ms")
+
+
+N_RAGGED = 10000    # the slice's data cut to its first 10000 rows
+
+
+def phase_k5_ragged_path(dev):
+    """evidence_left_fast with the default Policy at N = 10000, cmpnd(mlp,
+    bias, white) on the slice's first 10000 rows: the halving gives 64
+    leaves of 156 and 157, each one ragged K5 launch; logdet and quad within
+    2e-4 of leafinv=False (tests/test_lazy_evidence.py:185-187).  The
+    launches of this path's first call are returned; then the path's time
+    (median of 3)."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.ops.evidence_fast import Policy, evidence_left_fast
+    kfn, m = k5_path_args(dev, N_RAGGED)
+    cuda_lib.LAUNCHES.clear()
+    (ld, quad), first_ms = timed(lambda: evidence_left_fast(kfn, N_RAGGED, m))
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K5 ragged-path launches: {launches}")
+    check(launches.get("chol_inv_block", 0) == 64,
+          f"the N={N_RAGGED} path launched chol_inv_block {launches.get('chol_inv_block', 0)} "
+          f"times, not 64")
+    ld0, quad0 = evidence_left_fast(kfn, N_RAGGED, m, Policy(leafinv=False))
+    rel_ld = abs(float(ld) - float(ld0)) / abs(float(ld0))
+    rel_q = abs(float(quad) - float(quad0)) / abs(float(quad0))
+    check(rel_ld < 2e-4 and rel_q < 2e-4,
+          f"ragged K5 leaves vs Cholesky leaves: logdet rel {rel_ld}, quad rel {rel_q}")
+    ms = float(np.median([timed(lambda: evidence_left_fast(kfn, N_RAGGED, m))[1]
+                          for _ in range(3)]))
+    log(f"phase 11 evidence_left_fast N={N_RAGGED} mlp, default Policy (64 ragged K5 leaves "
+        f"of 156/157): logdet {float(ld)} quad {float(quad)} vs leafinv=False {float(ld0)} "
+        f"{float(quad0)} (rel {rel_ld}, {rel_q}); first call {first_ms} ms, "
+        f"median of 3 {ms} ms")
+    return launches, ms
+
+
+def phase_chol_block_path(dev):
+    """K6 as a user calls it: chol_block on the leading 1000 x 1000 block of
+    the mlp Gram of the slice's data (cmpnd(mlp, bias, white) at the
+    defaults), against torch.linalg.cholesky within 1e-3 of its largest
+    entry.  Returns the launches of that one call."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.ops.chol_pallas import chol_block, chol_block_plain
+    kfn, _ = k5_path_args(dev, 1000)
+    A = kfn(0, 0, 1000, 1000).contiguous()
+    cuda_lib.LAUNCHES.clear()
+    L = chol_block(A)
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K6 standalone-op launches: {launches}")
+    check(launches.get("chol_block", 0) == 1, "chol_block was not launched as a standalone op")
+    L_p = chol_block_plain(A)
+    err = float((L - L_p).abs().max())
+    check(bool(torch.isfinite(L).all()) and err <= 1e-3 * float(L_p.abs().max()),
+          f"K6 on the mlp Gram block: L off by {err}")
+    log(f"phase 12 K6 chol_block on the mlp Gram's 1000-block: max|L - L_plain| {err}")
+    return launches
+
+
+def phase_mega(dev, k3_ms):
+    """K7 at N = 16384 on the panel phase's inputs: the probe's entry point
+    once per mode (the launches are this run's), then logdet and quad
+    against the plain version (the same bf16 policy, 1e-3: the leaves'
+    last-bit differences flip bf16 roundings of L across 128 columns; 2e-4
+    at N = 2048 in tests/test_torch_cuda.py) and the dense f32 evidence
+    (gpc_tpu's panel bound, 2e-3); ms per mode beside K3's on the same
+    inputs."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf_plain
+    from gpc_tpu_torch.probes.chol_mega import MODES, evidence_mega_rbf, evidence_mega_rbf_plain
+    args = panel_args(dev)
+    cuda_lib.LAUNCHES.clear()
+    outs = {mode: evidence_mega_rbf(*args, mode=mode) for mode in MODES}
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K7-probe launches: {launches}")
+    check(launches.get("evidence_mega_rbf", 0) == len(MODES),
+          "evidence_mega_rbf was not launched once per mode")
+    ld, quad = (float(x) for x in outs["full"])
+    ld_p, quad_p = (float(x) for x in evidence_mega_rbf_plain(*args))
+    ld_d, G_d, _, _ = panel_state_rbf_plain(*args)
+    ld_d, quad_d = float(ld_d), float(torch.trace(G_d))
+    del G_d
+    err = max(abs(ld - ld_p), abs(quad - quad_p))
+    for name, a, b, tol in (("plain logdet", ld, ld_p, 1e-3), ("plain quad", quad, quad_p, 1e-3),
+                            ("dense logdet", ld, ld_d, 2e-3), ("dense quad", quad, quad_d, 2e-3)):
+        rel = abs(a - b) / abs(b)
+        check(np.isfinite(a) and rel <= tol, f"K7 vs {name}: {a} vs {b} (rel {rel})")
+    log(f"phase 13 K7 N={N}: logdet {ld} quad {quad}; plain {ld_p} {quad_p}; dense f32 {ld_d} "
+        f"{quad_d} (rel {abs(ld - ld_d) / abs(ld_d)}, {abs(quad - quad_d) / abs(quad_d)})")
+    ms_modes = {mode: cuda_ms(lambda: evidence_mega_rbf(*args, mode=mode), 3) for mode in MODES}
+    ms, plain_ms = paired_ms(lambda: evidence_mega_rbf(*args),
+                             lambda: evidence_mega_rbf_plain(*args), 2)
+    log(f"phase 13 K7 N={N} ms per mode: {ms_modes}; full kernel {ms} ms, plain {plain_ms} ms; "
+        f"K3 on the same inputs {k3_ms} ms (phase 4)")
+    bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None), ms_modes
+
+
+def phase_overlap(dev):
+    """K8a at the TPU probe's shapes (RC = KC = 2048, B = 512): the probes'
+    runs (dots, leaves, interleaved and sequential; the slab stream with and
+    without the dot; each leaf part), launches counted, then each probe
+    against its plain version: 1e-5 of the largest entry for the stream
+    without the dot (sums of bf16 values), 5e-5 for the stream with it
+    (float32 sums over 5 x 2048 products, in another order) and where
+    float32 leaves are summed."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.probes import overlap as OV
+    inp = OV.probe_inputs(dev, n_bufs=64)
+    s, v, al, a512, a128, hbm = (inp[k] for k in ("slab", "vrow", "aleaf", "a512", "a128", "hbm"))
+    RC, KC, B = OV.RC, OV.KC, OV.B
+    nd, nl = 64, 8
+    cuda_lib.LAUNCHES.clear()
+    t = {name: cuda_ms(lambda: OV.overlap_probe(s, v, al, *args), 3) for name, args in (
+        ("dots", (nd, 0, False)), ("leaves", (0, nl, False)), ("inter", (nd, nl, True)),
+        ("seq", (nd, nl, False)), ("dots_indep", (nd, 0, False, True)))}
+    dma = {(n, d): cuda_ms(lambda: OV.dma_probe(hbm, v, n, d), 3)
+           for d in (False, True) for n in (16, 64)}
+    parts = {}
+    for kind, lo in (("sweep128", 8), ("fsweep128", 8), ("gemm512", 16), ("gemm128", 16),
+                     ("fdiag", 2), ("ffdiag", 2)):
+        ts = [cuda_ms(lambda: OV.leaf_parts_probe(kind, n, a512, a128), 2) for n in (lo, 4 * lo)]
+        parts[kind] = (ts[1] - ts[0]) / (3 * lo) * 1e3
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K8a-probe launches: {launches}")
+    for name in ("overlap_probe", "dma_probe", "leaf_parts_probe"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
+    flop = 2 * RC * KC * B
+    slab_bytes = RC * KC * 2
+    log(f"phase 14 K8a make_probe {nd} dots + {nl} leaves: {t} ms; per dot {t['dots'] / nd * 1e3} us "
+        f"({flop * nd / t['dots'] / 1e9} TFLOP/s), independent {t['dots_indep'] / nd * 1e3} us; "
+        f"per leaf {t['leaves'] / nl * 1e3} us; inter / max(dots, leaves) "
+        f"{t['inter'] / max(t['dots'], t['leaves'])}, seq / (dots + leaves) "
+        f"{t['seq'] / (t['dots'] + t['leaves'])}")
+    for d in (False, True):
+        per = (dma[(64, d)] - dma[(16, d)]) / 48 * 1e-3
+        log(f"phase 14 K8a slab stream {'with' if d else 'without'} the dot: {per * 1e6} us a slab, "
+            f"{slab_bytes / per / 1e9} GB/s" + (f", {flop / per / 1e12} TFLOP/s" if d else ""))
+    log(f"phase 14 K8a leaf parts, us each (differential): {parts}")
+    # each probe against its plain version
+    worst = {}
+    for name, got, want, tol in (
+            ("overlap_probe", OV.overlap_probe(s, v, al, 4, 2, True),
+             OV.overlap_probe_plain(s, v, al, 4, 2, True), 5e-5),
+            ("dma_probe", OV.dma_probe(hbm, v, 5, True), OV.dma_probe_plain(hbm, v, 5, True), 5e-5),
+            ("dma_probe", OV.dma_probe(hbm, v, 5, False), OV.dma_probe_plain(hbm, v, 5, False), 1e-5),
+            *(("leaf_parts_probe", OV.leaf_parts_probe(k, 2, a512, a128),
+               OV.leaf_parts_probe_plain(k, 2, a512, a128), 5e-5) for k in OV.PARTS)):
+        err = float((got - want).abs().max())
+        check(err <= tol * float(want.abs().max()), f"{name} vs its plain version: max abs {err}")
+        worst[name] = max(worst.get(name, 0.0), err)
+    log(f"phase 14 K8a vs plain, max abs err: {worst}")
+    rows = {}
+    p_ms = cuda_ms(lambda: OV.overlap_probe_plain(s, v, al, nd, nl, True), 1)
+    rows["overlap_probe"] = (t["inter"], p_ms, bound(
+        2 * (2 * RC * KC + B * KC) + 4 * (B * B + 8 * 128),
+        {"bf16": flop * nd, "f32": nl * 2 * B ** 3 / 3}))
+    p_ms = cuda_ms(lambda: OV.dma_probe_plain(hbm, v, 64, False), 1)
+    rows["dma_probe"] = (dma[(64, False)], p_ms, bound(64 * slab_bytes + 4 * 8 * 128, {}))
+    k_ms = cuda_ms(lambda: OV.leaf_parts_probe("fdiag", 8, a512, a128), 2)
+    p_ms = cuda_ms(lambda: OV.leaf_parts_probe_plain("fdiag", 8, a512, a128), 1)
+    rows["leaf_parts_probe"] = (k_ms, p_ms, bound(4 * (512 * 512 + 128 * 128 + 8 * 128),
+                                                  {"f32": 8 * 2 * 512 ** 3 / 3}))
+    entries = {}
+    for name, (k_ms, p_ms, (bound_ms, bound_by)) in rows.items():
+        entries[name] = dict(max_abs_err=worst[name], ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+        log(f"phase 14 K8a {name} (kernels line: overlap {nd}+{nl} interleaved, stream of 64 "
+            f"slabs without the dot, 8 fdiag): kernel {k_ms} ms, plain {p_ms} ms, "
+            f"bound {bound_ms} ms ({bound_by})")
+    return launches, entries, dict(overlap_ms=t, dma_ms={f"{n}{'+dot' if d else ''}": x
+                                                         for (n, d), x in dma.items()},
+                                   parts_us=parts)
 
 
 def phase_zoo_timing(dev):
@@ -752,14 +964,9 @@ def phase_zoo_timing(dev):
 
 
 def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        sys.exit(2)
+    card = require_card()   # exits non-zero without a CUDA device
     from gpc_tpu_torch.ops import cuda_lib
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(card)
     rng = np.random.default_rng(SEED)
 
@@ -770,6 +977,7 @@ def main():
     torch.cuda.empty_cache()
     k2 = phase_leaf(dev, rng)
     k5, _ = phase_chol_inv(dev, rng)
+    k6, _ = phase_chol_block(dev, rng)
     k3 = phase_panel(dev)
     k3d = phase_diag(dev)
     torch.cuda.empty_cache()
@@ -812,6 +1020,15 @@ def main():
     torch.cuda.empty_cache()
     zoo_timing = phase_zoo_timing(dev)
     log("kernel zoo: " + json.dumps(dict(zoo, timing=zoo_timing)))
+    torch.cuda.empty_cache()
+    ragged_launches, ragged_ms = phase_k5_ragged_path(dev)
+    k6_launches = phase_chol_block_path(dev)
+    torch.cuda.empty_cache()
+    mega_launches, k7, mega_modes = phase_mega(dev, k3["ms"])
+    torch.cuda.empty_cache()
+    probe_launches, k8, probes = phase_overlap(dev)
+    log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7_ms_by_mode=mega_modes,
+                                     k3_ms=k3["ms"], **probes)))
 
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
@@ -827,8 +1044,22 @@ def main():
         dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
-             replaces="gpc_tpu/ops/chol_pallas.py:213",
-             launches=k5_launches["chol_inv_block"], **k5),
+             replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
+             launches=ragged_launches["chol_inv_block"], **k5),
+        dict(name="chol_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
+             replaces="gpc_tpu/ops/chol_pallas.py:88", launches=k6_launches["chol_block"], **k6),
+        dict(name="evidence_mega_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_mega.cu",
+             replaces="tools/chol_mega_v2.py:218",
+             launches=mega_launches["evidence_mega_rbf"], **k7),
+        dict(name="overlap_probe", route="cuda", source="gpc_tpu_torch/csrc/probes.cu",
+             replaces="tools/tpu_overlap_probe.py:109",
+             launches=probe_launches["overlap_probe"], **k8["overlap_probe"]),
+        dict(name="dma_probe", route="cuda", source="gpc_tpu_torch/csrc/probes.cu",
+             replaces="tools/tpu_overlap_probe.py:158",
+             launches=probe_launches["dma_probe"], **k8["dma_probe"]),
+        dict(name="leaf_parts_probe", route="cuda", source="gpc_tpu_torch/csrc/probes.cu",
+             replaces="tools/tpu_overlap_probe.py:237",
+             launches=probe_launches["leaf_parts_probe"], **k8["leaf_parts_probe"]),
     ]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

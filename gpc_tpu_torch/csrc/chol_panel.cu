@@ -31,24 +31,33 @@
 // the correction splits k across blocks (partials reduced in fixed order,
 // no atomics) to keep every SM busy.
 //
-// K2, the leaf, inverts one 128 x 128 PD block by the augmented [A | I]
-// Gauss-Jordan sweep in shared memory (128 x 256 f32 = 128 KB, dynamic
-// shared memory above the 48 KB default).  The leaves form the serial chain
-// of the factorization, so their latency is what counts: each sweep step
-// updates only the 128 columns it changes, with all 1024 threads.  L is
-// never stored: the logdet is -2 sum log diag(L^-1).  Blocks wider than 128
-// are assembled from 128-leaves by blocked elimination and block triangular
-// inversion, as _factor_diag_fast does.
+// K2, the leaf (leaf.cuh), inverts one 128 x 128 PD block by the augmented
+// [A | I] Gauss-Jordan sweep in shared memory; L is never stored: the logdet
+// is -2 sum log diag(L^-1).  Blocks wider than 128 are assembled from
+// 128-leaves by blocked elimination and block triangular inversion, as
+// _factor_diag_fast does.
 //
-// K5, chol_inv_block, replaces gpc_tpu/ops/chol_pallas.py::chol_inv_block
-// (chol_inv_block_fused, which runs chol_panel._factor_diag): (L, L^-1) of
-// one PD f32 block, n a multiple of 128 up to 1024.  It is K2's blocked
-// routine with L kept: the sweep leaves l^T in the upper triangle of the A
-// half and the pivot on its diagonal, so each leaf's L_pp is read out of
-// shared memory, and L's off-diagonal blocks are the ones the elimination
-// forms anyway.  One block of 1024 threads does it all: like K2 it is bound
-// by the dependent column steps (n of them) and the in-block 128-cubed
-// GEMMs between leaves, not by its 8 n^2 bytes or 2 n^3 / 3 operations.
+// K5, chol_inv_block, replaces gpc_tpu/ops/chol_pallas.py::chol_inv_block:
+// both its branches, the fused blocked kernel for n a multiple of 128
+// (chol_inv_block_fused, :213) and the masked column sweep with a
+// forward-substitution inverse for any other n (_chol_inv_kernel, :185):
+// (L, L^-1) of one PD f32 block, any n up to 1024.  K6, chol_block, replaces
+// chol_pallas.py::chol_block (_chol_kernel, :88): L alone.  Both are K2's
+// blocked routine with L kept: the sweep leaves l^T in the upper triangle of
+// the A half and the pivot on its diagonal, so each leaf's L_pp is read out
+// of shared memory, and L's off-diagonal blocks are the ones the elimination
+// forms anyway; K6 skips the block triangular inverse.  A block of n = 1024
+// f32 is 4 MB, far above a block's 227 KB of shared memory, so the TPU's
+// whole-block sweep is not carried over: the blocked routine is the design,
+// with its workspace in device memory.  A ragged n (n % 128 = r != 0) is
+// read into the workspace padded to the next multiple of 128 as
+// [[A, 0], [0, I]] by masked scalar loads (no row of the input needs to be
+// aligned); its factor is [[L, 0], [0, I]], so the padding is exact and the
+// padded pivots stay 1, and the result is the n x n corner of the padded
+// outputs, zeros above the diagonal.  One block of 1024 threads does it all: like K2
+// it is bound by the dependent column steps (n rounded up to 128 of them)
+// and the in-block 128-cubed GEMMs between leaves, not by its 12 n^2 bytes
+// or 2 n^3 / 3 operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -56,17 +65,12 @@
 #include <stdint.h>
 
 #include "gram.cuh"
+#include "leaf.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int LEAF = 128;           // leaf width; also the panel width b
-constexpr int AUGW = 2 * LEAF;      // augmented row [A | M]
-constexpr int LEAF_THREADS = 1024;  // 8 row groups per active column
-constexpr int LEAF_GROUPS = LEAF_THREADS / LEAF;
-constexpr size_t LEAF_SMEM = (size_t)(LEAF * AUGW + 2 * LEAF) * sizeof(float);
 
 constexpr int FT_M = 64;             // panel rows per block
 constexpr int FT_K = 64;             // k chunk staged per step
@@ -77,165 +81,9 @@ constexpr int STAGE_BYTES = (FT_M + LEAF) * FT_LD * (int)sizeof(bf16);
 constexpr int CS_BYTES = FT_M * CS_LD * (int)sizeof(float);
 constexpr int TILE_SMEM = STAGE_BYTES > CS_BYTES ? STAGE_BYTES : CS_BYTES;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // ---------------------------------------------------------------------------
-// K2: the leaf and the blocked diagonal factor
+// K2, K5 and K6 on the leaf routines of leaf.cuh
 // ---------------------------------------------------------------------------
-
-// In-place augmented Gauss-Jordan sweep on W = [A | I] (LEAF x AUGW, shared
-// memory).  Per column c the pivot row scaled by pivot^-1/2 is both the
-// elimination row for the M half and l^T for the A half (row c of A equals
-// column c by symmetry), so one rank-1 update per column serves both halves.
-// Step c changes exactly 128 columns: the A-half columns > c (the columns
-// <= c go stale and are never read again) and the M-half columns <= c (M is
-// lower triangular, so its row c is zero beyond c).  Thread t takes active
-// column a = t % LEAF — A-half column a when a > c, else M-half column a —
-// and every LEAF_GROUPS-th row below c.  On exit the M half holds L^-1 in
-// its lower triangle.
-__device__ void leaf_sweep(float* W, float* lvec, float* urow) {
-  const int a = threadIdx.x % LEAF;
-  const int g = threadIdx.x / LEAF;
-  for (int c = 0; c < LEAF; ++c) {
-    const int col = a > c ? a : LEAF + a;
-    const float inv_d = rsqrtf(W[c * AUGW + c]);
-    if (g == 0) urow[a] = W[c * AUGW + col] * inv_d;
-    else if (g == 1) lvec[a] = W[a * AUGW + c] * inv_d;   // read for a > c only
-    __syncthreads();
-    const float u = urow[a];
-    for (int r = c + 1 + g; r < LEAF; r += LEAF_GROUPS)
-      W[r * AUGW + col] -= lvec[r] * u;
-    if (g == 0) W[c * AUGW + col] = u;
-    __syncthreads();
-  }
-}
-
-// C (+)= alpha * A op(B) for 128 x 128 x 128 tiles in device memory, all
-// LEAF_THREADS threads of the block.  Both operands are staged in shared
-// memory first (sm: the leaf's W, free between sweeps; B transposed into
-// rows padded to BS_LD, so the transposed store and the reads are free of
-// bank conflicts), so the device-memory reads are coalesced whatever op(B)
-// is.  Thread t computes column t % LEAF of every LEAF_GROUPS-th row, its A
-// reads broadcast across the warp.  The b > 128 leaf assembly (K2 at
-// b > 128, and K5) uses it.
-constexpr int BS_LD = LEAF + 1;
-constexpr int GEMM_ROWS = LEAF / LEAF_GROUPS;
-static_assert((LEAF * LEAF + LEAF * BS_LD) * sizeof(float) <= LEAF_SMEM,
-              "blk_gemm stages both operands in the leaf's shared memory");
-
-__device__ void blk_gemm(const float* A, int lda, const float* B, int ldb,
-                         bool transB, float* C, int ldc, float alpha,
-                         bool accumulate, float* sm) {
-  float* As = sm;                  // As[i * LEAF + k]
-  float* Bs = sm + LEAF * LEAF;    // Bs[k * BS_LD + j] = op(B)[k][j]
-  for (int e = threadIdx.x; e < LEAF * LEAF; e += blockDim.x) {
-    const int r = e / LEAF;
-    const int c = e % LEAF;
-    As[e] = A[(size_t)r * lda + c];
-    Bs[transB ? c * BS_LD + r : r * BS_LD + c] = B[(size_t)r * ldb + c];
-  }
-  __syncthreads();
-  const int j = threadIdx.x % LEAF;
-  const int i0 = threadIdx.x / LEAF;
-  float acc[GEMM_ROWS];
-#pragma unroll
-  for (int r = 0; r < GEMM_ROWS; ++r) acc[r] = 0.0f;
-  for (int k = 0; k < LEAF; ++k) {
-    const float bk = Bs[k * BS_LD + j];
-#pragma unroll
-    for (int r = 0; r < GEMM_ROWS; ++r)
-      acc[r] += As[(i0 + LEAF_GROUPS * r) * LEAF + k] * bk;
-  }
-#pragma unroll
-  for (int r = 0; r < GEMM_ROWS; ++r) {
-    float* c = C + (size_t)(i0 + LEAF_GROUPS * r) * ldc + j;
-    *c = accumulate ? *c + alpha * acc[r] : alpha * acc[r];
-  }
-  __syncthreads();
-}
-
-// (M = L^-1, logdet) of the PD b x b block A + noise I, b a multiple of
-// LEAF.  A (lda) is overwritten by the trailing updates; M (ldm) receives the
-// lower-triangular inverse with zeros above; Lw (b x b, ld b) is workspace
-// for the off-diagonal L blocks and is not touched when b == LEAF.  With
-// keep_l, Lw receives all of L instead: the diagonal blocks from the sweeps,
-// zeros above the diagonal.  The logdet is returned by thread 0 (other
-// threads return 0).
-__device__ double factor_diag_block(float* A, int lda, int b, float noise,
-                                    float* M, int ldm, float* Lw,
-                                    float* smem, bool keep_l = false) {
-  float* W = smem;
-  float* lvec = W + LEAF * AUGW;
-  float* urow = lvec + LEAF;
-  const int t = threadIdx.x;
-  const int nbl = b / LEAF;
-  double ld = 0.0;
-  for (int p = 0; p < nbl; ++p) {
-    const float* App = A + (size_t)p * LEAF * lda + p * LEAF;
-    for (int e = t; e < LEAF * AUGW; e += blockDim.x) {
-      const int r = e / AUGW;
-      const int c = e % AUGW;
-      W[e] = c < LEAF ? App[(size_t)r * lda + c] + (r == c ? noise : 0.0f)
-                      : (r == c - LEAF ? 1.0f : 0.0f);
-    }
-    __syncthreads();
-    leaf_sweep(W, lvec, urow);
-    float* Mpp = M + (size_t)p * LEAF * ldm + p * LEAF;
-    for (int e = t; e < LEAF * LEAF; e += blockDim.x) {
-      const int r = e / LEAF;
-      const int c = e % LEAF;
-      Mpp[(size_t)r * ldm + c] = c <= r ? W[r * AUGW + LEAF + c] : 0.0f;
-    }
-    if (t == 0)
-      for (int c = 0; c < LEAF; ++c)
-        ld -= 2.0 * log((double)W[c * AUGW + LEAF + c]);
-    if (keep_l) {
-      // row c of the A half holds L[a, c] at a > c and the pivot at a = c
-      float* Lpp = Lw + (size_t)p * LEAF * b + p * LEAF;
-      for (int e = t; e < LEAF * LEAF; e += blockDim.x) {
-        const int r = e / LEAF;
-        const int c = e % LEAF;
-        Lpp[(size_t)r * b + c] = r > c    ? W[c * AUGW + r]
-                                 : r == c ? sqrtf(W[c * AUGW + c])
-                                          : 0.0f;
-      }
-    }
-    __syncthreads();
-    // L_ip = A_ip M_pp^T; A_ij -= L_ip L_jp^T on the trailing blocks
-    for (int i = p + 1; i < nbl; ++i)
-      blk_gemm(A + (size_t)i * LEAF * lda + p * LEAF, lda, Mpp, ldm, true,
-               Lw + (size_t)i * LEAF * b + p * LEAF, b, 1.0f, false, smem);
-    for (int i = p + 1; i < nbl; ++i)
-      for (int j = p + 1; j <= i; ++j)
-        blk_gemm(Lw + (size_t)i * LEAF * b + p * LEAF, b,
-                 Lw + (size_t)j * LEAF * b + p * LEAF, b, true,
-                 A + (size_t)i * LEAF * lda + j * LEAF, lda, -1.0f, true, smem);
-  }
-  // block triangular inverse: M_ij = -M_ii sum_{j<=k<i} L_ik M_kj, with the
-  // unused upper block (j, i) of Lw as the scratch for the sum
-  for (int j = 0; j < nbl; ++j) {
-    for (int i = j + 1; i < nbl; ++i) {
-      float* S = Lw + (size_t)j * LEAF * b + i * LEAF;
-      blk_gemm(Lw + (size_t)i * LEAF * b + j * LEAF, b,
-               M + (size_t)j * LEAF * ldm + j * LEAF, ldm, false, S, b, 1.0f,
-               false, smem);
-      for (int k = j + 1; k < i; ++k)
-        blk_gemm(Lw + (size_t)i * LEAF * b + k * LEAF, b,
-                 M + (size_t)k * LEAF * ldm + j * LEAF, ldm, false, S, b,
-                 1.0f, true, smem);
-      blk_gemm(M + (size_t)i * LEAF * ldm + i * LEAF, ldm, S, b, false,
-               M + (size_t)i * LEAF * ldm + j * LEAF, ldm, -1.0f, false, smem);
-      for (int e = t; e < LEAF * LEAF; e += blockDim.x) {
-        M[(size_t)(j * LEAF + e / LEAF) * ldm + i * LEAF + e % LEAF] = 0.0f;
-        if (keep_l) S[(size_t)(e / LEAF) * b + e % LEAF] = 0.0f;
-      }
-      __syncthreads();
-    }
-  }
-  return ld;
-}
 
 // One block per batch entry: (M, logdet) of A[k] (destroyed).
 __global__ void __launch_bounds__(LEAF_THREADS)
@@ -247,11 +95,32 @@ __global__ void __launch_bounds__(LEAF_THREADS)
   if (threadIdx.x == 0) ld[blockIdx.x] = (float)l;
 }
 
-// K5: (L, L^-1) of A (b x b, destroyed).  One block.
+// A (n x n) into Aw (np x np) as [[A, 0], [0, I]]: warp w takes rows w,
+// w + 32, ..., its lanes the columns, eight loads in flight a thread.  Kept
+// out of line: inlined, its registers stayed live into the factorization's
+// loops, which spilled (K6 ran 45 % slower).
+__device__ __noinline__ void pad_block(const float* __restrict__ A, int n, int np,
+                                       float* __restrict__ Aw) {
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < np; r += LEAF_THREADS / 32) {
+#pragma unroll 8
+    for (int c = lane; c < np; c += 32)
+      Aw[r * np + c] = r < n && c < n ? A[r * n + c] : (r == c ? 1.0f : 0.0f);
+  }
+}
+
+// K5 (INV) and K6: L, and L^-1 under INV, of A (n x n, any n <= 1024).  A
+// is read into the workspace Aw (np x np, np = n rounded up to LEAF) as
+// [[A, 0], [0, I]]; L and M are np x np, their n x n corner the result.
+// One block.
+template <bool INV>
 __global__ void __launch_bounds__(LEAF_THREADS)
-    chol_inv_kernel(float* A, int b, float* L, float* M) {
+    chol_any_kernel(const float* __restrict__ A, int n, int np, float* Aw,
+                    float* L, float* M) {
   extern __shared__ float smem[];
-  factor_diag_block(A, b, b, 0.0f, M, b, L, smem, true);
+  pad_block(A, n, np, Aw);
+  __syncthreads();
+  factor_diag_block<true, INV>(Aw, np, np, 0.0f, M, np, L, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -543,13 +412,16 @@ extern "C" int gpc_factor_diag(float* A, int batch, int b, float* M,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gpc_chol_inv_block(float* A, int b, float* L, float* M,
-                                  void* stream) {
-  cudaFuncSetAttribute(chol_inv_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+// K5 (inverse = 1) and K6 (inverse = 0: M, np x np, is then only the
+// workspace of the leaves' inverses).  K6's L must be zero on entry:
+// without the block inverse nothing writes its blocks above the diagonal.
+extern "C" int gpc_chol_block(const float* A, int n, int np, float* Aw,
+                              float* L, float* M, int inverse, void* stream) {
+  auto kernel = inverse ? chol_any_kernel<true> : chol_any_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)LEAF_SMEM);
-  chol_inv_kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
-      A, b, L, M);
+  kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(A, n, np, Aw,
+                                                               L, M);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
-"""K2 + K3: the panel Cholesky evidence kernel and its diagonal leaf; K5.
+"""K2 + K3: the panel Cholesky evidence kernel and its diagonal leaf.
 
 Replaces gpc_tpu/ops/chol_panel.py::panel_state_rbf (the `_panel_kernel`
 Pallas program, modes "full" and "full+diag") and its leaf
-`_factor_diag_fast`; and, on the same leaf routine,
-gpc_tpu/ops/chol_pallas.py::chol_inv_block (K5: `chol_inv_block` here, the
-leaf of ops/evidence_fast.py's leafinv="pallas").  The CUDA sources are
-`csrc/chol_panel.cu` (design and bounds noted there).  K3 is a host loop
+`_factor_diag_fast`.  K5 (`chol_inv_block`, the leaf of
+ops/evidence_fast.py's leafinv="pallas") runs on the same leaf routine and
+lives in ops/chol_pallas.py, gpc_tpu's module for it; it is re-exported
+here.  The CUDA sources are `csrc/chol_panel.cu` and `csrc/leaf.cuh`
+(design and bounds noted there).  K3 is a host loop
 over 128-wide column panels, three steps per panel (Gram fill minus the
 split-K bf16 Schur correction; the K2 leaf with the forward-solve step; the
 panel solve with the RHS update), then one launch for G = v·vᵀ and the
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from gpc_tpu_torch.ops import cuda_lib
+from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain  # noqa: F401
 from gpc_tpu_torch.ops.gram import dist_gram_plain
 
 LEAF = 128   # the leaf width; the CUDA panel width b is LEAF
@@ -63,41 +65,6 @@ def factor_diag(A: torch.Tensor):
                     b, M.data_ptr(), Lw.data_ptr(), ld.data_ptr(),
                     cuda_lib.stream_of(A))
     return M, ld
-
-
-CHOL_INV_MAX = 1024    # the widest block K5 takes (gpc_tpu's fused op's range)
-
-
-def chol_inv_block_plain(A: torch.Tensor):
-    """(L, L⁻¹) of one PD block A (n, n), any n: Cholesky, then the
-    triangular solve against the identity."""
-    L = torch.linalg.cholesky(A)
-    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    return L, torch.linalg.solve_triangular(L, eye, upper=False)
-
-
-def chol_inv_block(A: torch.Tensor):
-    """K5: (L, L⁻¹) of one PD block A (n, n); L lower with zeros above.
-    CPU: the plain version, any n.  CUDA: float32, n a multiple of 128 up to
-    1024, through K2's blocked routine with L kept (csrc/chol_panel.cu).
-    The kernel has no backward (gpc_tpu's has none either): on the card an
-    input that needs a gradient raises instead of losing it."""
-    if A.device.type == "cpu":
-        return chol_inv_block_plain(A)
-    if torch.is_grad_enabled() and A.requires_grad:
-        raise RuntimeError("chol_inv_block (K5) is forward only; differentiate "
-                           "with evidence_fast.Policy(leafinv=False or 'xla')")
-    cuda_lib.require_cuda("chol_inv_block", A)
-    n = A.shape[0]
-    if A.dim() != 2 or A.shape[1] != n or n % LEAF or not 0 < n <= CHOL_INV_MAX:
-        raise ValueError(f"chol_inv_block: want (n, n) with n % {LEAF} == 0 and "
-                         f"n <= {CHOL_INV_MAX}, got {tuple(A.shape)}")
-    work = A.clone()                         # the kernel overwrites its input
-    L = torch.empty_like(A)
-    M = torch.empty_like(A)
-    cuda_lib.launch("chol_inv_block", "gpc_chol_inv_block", work.data_ptr(), n,
-                    L.data_ptr(), M.data_ptr(), cuda_lib.stream_of(A))
-    return L, M
 
 
 MODES = ("full", "full+diag")

@@ -39,11 +39,19 @@ _SIGNATURES = {
     "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "gpc_factor_diag": [_P, _I, _I, _P, _P, _P, _P],
-    "gpc_chol_inv_block": [_P, _I, _P, _P, _P],
+    "gpc_chol_block": [_P, _I, _I, _P, _P, _P, _I, _P],
     "gpc_panel_fill": [_P, _I, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P],
     "gpc_panel_leaf": [_P, _F, _P, _P, _I, _I, _I, _P, _P, _P],
     "gpc_panel_solve": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gpc_panel_finish": [_P, _I, _I, _P, _I, _P, _P, _P],
+    "gpc_mega_grid": [_I],
+    "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P],
+    "gpc_probe_grid": [],
+    "gpc_overlap_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    "gpc_dma_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpc_leaf_parts": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

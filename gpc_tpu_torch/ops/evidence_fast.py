@@ -9,7 +9,7 @@ left-looking blocked factorization of K = kfn(·) where
     GEMM (`stack`: panels concatenated along the contraction axis);
   * diagonal leaves factor by Cholesky with, under `leafinv`, an explicit
     leaf inverse, so the triangular solves against leaves become GEMMs
-    ("pallas": K5, ops/chol_panel.chol_inv_block; "xla": Cholesky plus a
+    ("pallas": K5, ops/chol_pallas.chol_inv_block; "xla": Cholesky plus a
     triangular solve against the identity; False: Cholesky and triangular
     solves);
   * only (logdet, v = L⁻¹m) survive: L is never assembled.
@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from gpc_tpu_torch.ops.chol_blocked import chol
-from gpc_tpu_torch.ops.chol_panel import chol_inv_block
+from gpc_tpu_torch.ops.chol_pallas import chol_inv_block
 
 
 class Policy(NamedTuple):

@@ -1,0 +1,46 @@
+"""Hopper probes: kernels that answer design questions, on no model path.
+
+`chol_mega` (K7) is the whole rbf evidence in one persistent launch, against
+K3's per-panel launches; `overlap` (K8a) measures whether leaves hide under
+the Schur GEMMs, the slab stream rate and the cost of a leaf's parts.  Each
+kernel has a plain PyTorch version that computes the same returned values;
+`python -m gpc_tpu_torch.probes.<name>` times them on the card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import torch
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 and back to float32: the kernels' GEMM inputs."""
+    return x.to(torch.bfloat16).float()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of `fn` in ms over `reps` calls (CUDA events), after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def require_card() -> str:
+    """The card's name and power limit as nvidia-smi gives them; exits
+    non-zero without a CUDA device (nothing here measures on the CPU)."""
+    if not torch.cuda.is_available():
+        print(f"{sys.argv[0]}: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -119,11 +119,12 @@ def test_plain_T_layout_by_mode():
         TCP.panel_state_rbf(X, m, 0.9, 1.2, 0.2, mode="diag")
 
 
-@pytest.mark.parametrize("n,tol", [(192, 1e-9), (256, 1e-6)])
+@pytest.mark.parametrize("n,tol", [(192, 1e-9), (256, 1e-6), (96, 1e-9), (157, 1e-9)])
 def test_chol_inv_block_plain_matches_pallas_interpret(n, tol):
     """K5's plain version against gpc_tpu's chol_inv_block in interpret
-    mode, float64 inputs.  n = 192 takes the masked row kernel, which
-    computes in the input's dtype: 1e-9, as tests/test_chol_blocked.py.
+    mode, float64 inputs.  n = 96, 157 and 192 take the masked row kernel
+    (chol_pallas.py:185), which computes in the input's dtype: 1e-9, as
+    tests/test_chol_blocked.py.
     n = 256 takes the fused blocked Gauss-Jordan kernel, whose GEMMs
     accumulate in float32 (gpc_tpu/ops/chol_panel.py:77-80): 1e-6 of the
     largest entry."""

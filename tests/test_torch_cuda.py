@@ -16,7 +16,11 @@ their max on T's diagonal blocks; 8e-2 relative L2 on panel gradients) or
 float32 against the CPU's float64 (1e-4 on predictions, 2e-3 on the
 evidence, 1e-3 relative L2 on dense and lazy gradients).  The lazy engine's
 leaves under K5 are held to its Cholesky leaves at 2e-4
-(tests/test_lazy_evidence.py:185-187).
+(tests/test_lazy_evidence.py:185-187).  K6 is held to K5's bounds.  The
+probes: K7 to its plain version (the same bf16 policy) at 2e-4 and to the
+dense float32 evidence at 2e-3; K8a's (8, 128) corners to their plain
+versions within 1e-5 of the largest entry (bf16 products summed in float32
+in another order), 5e-5 where they hold sums of float32 leaves.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from gpc_tpu_torch import kernels as TK
 from gpc_tpu_torch.models.gp import GP
+from gpc_tpu_torch.ops import chol_pallas as TCPL
 from gpc_tpu_torch.ops import chol_panel as TCP
 from gpc_tpu_torch.ops import evidence_fast as TEF
 from gpc_tpu_torch.ops import gram as TG
@@ -254,22 +259,118 @@ def test_inner_gram_gradient_matches_plain(dev, family):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("n", [128, 256, 512, 1024])
-def test_chol_inv_block_kernel_matches_plain(dev, n):
-    rng = np.random.default_rng(n + 1)
-    Z = _randn(rng, (n, n), dev)
-    A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+def _check_chol_inv(A):
+    """K5 on A against its plain version: ‖ML − I‖ and L within 1e-3 of the
+    largest entry, both lower triangular; one launch."""
+    n = A.shape[0]
     before = LAUNCHES["chol_inv_block"]
     L, M = TCP.chol_inv_block(A)
     assert LAUNCHES["chol_inv_block"] == before + 1
     L_want, _ = TCP.chol_inv_block_plain(A)
-    assert float((M @ L - torch.eye(n, device=dev)).abs().max()) < 1e-3
+    assert float((M @ L - torch.eye(n, device=A.device)).abs().max()) < 1e-3
     assert float((L - L_want).abs().max()) < 1e-3 * float(L_want.abs().max())
     assert not bool(L.triu(1).any()) and not bool(M.triu(1).any())
-    with pytest.raises(ValueError, match="n % 128"):
-        TCP.chol_inv_block(A[:n - 8, :n - 8].contiguous())
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024])
+def test_chol_inv_block_kernel_matches_plain(dev, n):
+    """At n and at the ragged n − 8, which K5 pads to n inside the kernel;
+    beyond 1024 it raises."""
+    rng = np.random.default_rng(n + 1)
+    Z = _randn(rng, (n, n), dev)
+    A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+    _check_chol_inv(A)
+    _check_chol_inv(A[:n - 8, :n - 8].contiguous())
+    with pytest.raises(ValueError, match="n <= 1024"):
+        TCP.chol_inv_block(torch.eye(1152, device=dev))
     with pytest.raises(RuntimeError, match="forward only"):
         TCP.chol_inv_block(A.clone().requires_grad_(True))
+
+
+@pytest.mark.parametrize("n", [96, 157, 192, 1000, 1024])
+def test_chol_block_and_ragged_chol_inv_block_match_plain(dev, n):
+    """K6 (L alone) and K5 at ragged and whole sizes: L within 1e-3 of the
+    plain version's largest entry, zeros above the diagonal, ‖ML − I‖ ≤ 1e-3."""
+    rng = np.random.default_rng(n + 7)
+    Z = _randn(rng, (n, n), dev)
+    A = Z @ Z.T / n + 0.5 * torch.eye(n, device=dev)
+    _check_chol_inv(A)
+    before = LAUNCHES["chol_block"]
+    L = TCPL.chol_block(A)
+    assert LAUNCHES["chol_block"] == before + 1
+    L_want = TCPL.chol_block_plain(A)
+    assert float((L - L_want).abs().max()) < 1e-3 * float(L_want.abs().max())
+    assert not bool(L.triu(1).any())
+    with pytest.raises(ValueError, match="n <= 1024"):
+        TCPL.chol_block(torch.eye(1152, device=dev))
+
+
+def test_evidence_mega_kernel_matches_plain(dev):
+    """K7 at N = 2048, q = 8 in one launch against its plain version (the
+    same bf16 policy; 2e-4 relative, as against gpc_tpu's), and within 2e-3
+    of the dense float32 evidence; every mode launches and returns."""
+    from gpc_tpu_torch.probes import chol_mega as TCM
+    args = TCM.probe_args(2048, 8, dev)
+    before = LAUNCHES["evidence_mega_rbf"]
+    ld, quad = TCM.evidence_mega_rbf(*args)
+    assert LAUNCHES["evidence_mega_rbf"] == before + 1
+    ld_p, quad_p = TCM.evidence_mega_rbf_plain(*args)
+    assert abs(float(ld) - float(ld_p)) <= 2e-4 * abs(float(ld_p))
+    assert abs(float(quad) - float(quad_p)) <= 2e-4 * abs(float(quad_p))
+    ld_d, G_d, _, _ = TCP.panel_state_rbf_plain(*args)
+    assert abs(float(ld) - float(ld_d)) <= 2e-3 * abs(float(ld_d))
+    assert abs(float(quad) - float(torch.trace(G_d))) <= 2e-3 * float(torch.trace(G_d))
+    for mode in TCM.MODES[1:]:
+        out = TCM.evidence_mega_rbf(*args, mode=mode)
+        assert all(o.shape == () for o in out)
+    noleaf = TCM.evidence_mega_rbf(*args, mode="noleaf")
+    noleaf_p = TCM.evidence_mega_rbf_plain(*args, mode="noleaf")
+    for a, b in zip(noleaf, noleaf_p):
+        assert abs(float(a) - float(b)) <= 2e-4 * abs(float(b))
+
+
+def _probe_inputs(dev):
+    from gpc_tpu_torch.probes import overlap as TOV
+    return TOV, TOV.probe_inputs(dev, rc=512, kc=512, b=256, n_bufs=3, seed=2)
+
+
+def _probe_close(got, want, tol):
+    assert got.shape == want.shape == (8, 128)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_dots,n_leaves,interleave,indep,overwrite",
+                         [(3, 0, False, False, False), (0, 2, False, False, False),
+                          (4, 2, True, False, False), (4, 2, False, True, False),
+                          (4, 1, False, False, True)])
+def test_overlap_probe_kernel_matches_plain(dev, n_dots, n_leaves, interleave, indep,
+                                            overwrite):
+    TOV, inp = _probe_inputs(dev)
+    args = (inp["slab"], inp["vrow"], inp["aleaf"], n_dots, n_leaves, interleave, indep,
+            overwrite)
+    before = LAUNCHES["overlap_probe"]
+    got = TOV.overlap_probe(*args)
+    assert LAUNCHES["overlap_probe"] == before + 1
+    _probe_close(got, TOV.overlap_probe_plain(*args), 5e-5)
+
+
+@pytest.mark.parametrize("with_dots", [False, True])
+def test_dma_probe_kernel_matches_plain(dev, with_dots):
+    TOV, inp = _probe_inputs(dev)
+    before = LAUNCHES["dma_probe"]
+    got = TOV.dma_probe(inp["hbm"], inp["vrow"], 5, with_dots)
+    assert LAUNCHES["dma_probe"] == before + 1
+    _probe_close(got, TOV.dma_probe_plain(inp["hbm"], inp["vrow"], 5, with_dots), 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["sweep128", "fsweep128", "gemm512", "gemm128", "fdiag",
+                                  "ffdiag"])
+def test_leaf_parts_probe_kernel_matches_plain(dev, kind):
+    TOV, inp = _probe_inputs(dev)
+    before = LAUNCHES["leaf_parts_probe"]
+    got = TOV.leaf_parts_probe(kind, 3, inp["a512"], inp["a128"])
+    assert LAUNCHES["leaf_parts_probe"] == before + 1
+    _probe_close(got, TOV.leaf_parts_probe_plain(kind, 3, inp["a512"], inp["a128"]), 5e-5)
 
 
 def _mlp_data(N, seed=8):
@@ -315,6 +416,21 @@ def test_evidence_left_fast_k5_leaves_match_cholesky_leaves(dev):
     ld, quad = TEF.evidence_left_fast(kfn, 2048, m)
     assert LAUNCHES["chol_inv_block"] == before + 2048 // 256
     ld0, quad0 = TEF.evidence_left_fast(kfn, 2048, m, TEF.Policy(leafinv=False))
+    assert abs(float(ld) - float(ld0)) < 2e-4 * abs(float(ld0))
+    assert abs(float(quad) - float(quad0)) < 2e-4 * abs(float(quad0))
+
+
+def test_evidence_left_fast_ragged_k5_leaves_match_cholesky_leaves(dev):
+    """N = 625 halves to leaves of 156 and 157: four ragged K5 launches,
+    float32, against leafinv=False at 2e-4."""
+    kern, X, _ = _mlp_data(625)
+    p = torch.tensor(kern.default_params(), dtype=torch.float32, device=dev)
+    kfn = TLE.kern_block_fn(kern, p, torch.tensor(X, dtype=torch.float32, device=dev))
+    m = _randn(np.random.default_rng(10), (625, 2), dev)
+    before = LAUNCHES["chol_inv_block"]
+    ld, quad = TEF.evidence_left_fast(kfn, 625, m)
+    assert LAUNCHES["chol_inv_block"] == before + 4
+    ld0, quad0 = TEF.evidence_left_fast(kfn, 625, m, TEF.Policy(leafinv=False))
     assert abs(float(ld) - float(ld0)) < 2e-4 * abs(float(ld0))
     assert abs(float(quad) - float(quad0)) < 2e-4 * abs(float(quad0))
 

@@ -1,0 +1,141 @@
+"""The Hopper probes' plain versions (gpc_tpu_torch/probes) against the TPU
+probes of tools/, on the CPU.
+
+The tools/ modules are loaded from their paths with importlib (they are not
+a package) and their Pallas kernels run in TPU interpret mode, with scratch
+memory zero on entry, as the Hopper kernels' accumulators are.
+
+  * K7, evidence_mega_rbf_plain, against tools/chol_mega_v2.py's
+    evidence_mega_rbf(interpret=True) at N = 384, b = 128, q = 3.  Both keep
+    the bf16 policy (bf16-rounded GEMM inputs, float32 sums); they differ in
+    the leaf (torch's Cholesky vs the masked sweep, both float32), whose
+    last-bit differences flip a few bf16 roundings of L: 2e-4 relative on
+    logdet and quad, well under the policy's 2.5e-3 drift from float64.
+    Mode "noleaf" has no sweep: 1e-5.
+  * K8a, each probe of tools/tpu_overlap_probe.py with RC, KC, B cut to 256,
+    256, 128: the (8, 128) corner within 1e-5 of its largest entry where it
+    holds bf16 products summed in float32 in another order (the slab
+    stream), 5e-5 where it also holds sums of float32 leaves (torch's
+    Cholesky and triangular inverse against the TPU's sweeps).
+
+The CUDA kernels are held against these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from gpc_tpu_torch.probes import chol_mega as TCM
+from gpc_tpu_torch.probes import overlap as TOV
+
+TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(f"_tools_{name}", TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def mega_v2():
+    return _load("chol_mega_v2")
+
+
+@pytest.fixture(scope="module")
+def jprobe():
+    return _load("tpu_overlap_probe")
+
+
+@pytest.fixture
+def small(jprobe, monkeypatch):
+    """The TPU probe at RC = KC = 256, B = 128, in interpret mode; the same
+    numpy inputs as jax and torch arrays."""
+    for name, val in (("RC", 256), ("KC", 256), ("B", 128)):
+        monkeypatch.setattr(jprobe, name, val)
+    inp = TOV.probe_inputs("cpu", rc=256, kc=256, b=128, n_bufs=3, seed=1)
+    as_jax = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16 if v.dtype == torch.bfloat16
+                             else jnp.float32) for k, v in inp.items()}
+    with pltpu.force_tpu_interpret_mode(pltpu.InterpretParams(uninitialized_memory="zero")):
+        yield jprobe, inp, as_jax
+
+
+def _close(got, want, tol):
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape == (8, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode,tol", [("full", 2e-4), ("noleaf", 1e-5)])
+def test_evidence_mega_plain_matches_tpu_interpret(mega_v2, mode, tol):
+    rng = np.random.default_rng(3)
+    X, m = rng.standard_normal((384, 3)), rng.standard_normal((384, 2))
+    ld_j, q_j = mega_v2.evidence_mega_rbf(jnp.asarray(X), jnp.asarray(m), jnp.float64(0.5),
+                                          jnp.float64(1.0), jnp.float64(0.3), b=128,
+                                          interpret=True, mode=mode)
+    ld_t, q_t = TCM.evidence_mega_rbf(torch.from_numpy(X), torch.from_numpy(m), 0.5, 1.0, 0.3,
+                                      b=128, mode=mode)
+    assert ld_t.dtype == q_t.dtype == torch.float32
+    np.testing.assert_allclose(float(ld_t), float(ld_j), rtol=tol)
+    np.testing.assert_allclose(float(q_t), float(q_j), rtol=tol)
+
+
+def test_evidence_mega_plain_near_float64_evidence():
+    """The bf16 policy's drift from the float64 evidence at the panel
+    phase's inputs (q = 8, γ = var = 1) at noise 0.3: inside gpc_tpu's
+    panel bound, 2e-3 relative (1.3e-4 and 1.8e-4 here)."""
+    rng = np.random.default_rng(4)
+    X, m = rng.standard_normal((512, 8)), rng.standard_normal((512, 1))
+    ld, quad = TCM.evidence_mega_rbf(torch.from_numpy(X), torch.from_numpy(m), 1.0, 1.0, 0.3)
+    Xs = X * np.sqrt(0.5)
+    d2 = np.maximum((Xs ** 2).sum(1)[:, None] + (Xs ** 2).sum(1)[None] - 2 * Xs @ Xs.T, 0)
+    L = np.linalg.cholesky(np.exp(-d2) + 0.3 * np.eye(512))
+    v = np.linalg.solve(L, m)
+    np.testing.assert_allclose(float(ld), 2 * np.log(np.diag(L)).sum(), rtol=2e-3)
+    np.testing.assert_allclose(float(quad), (v ** 2).sum(), rtol=2e-3)
+
+
+def test_evidence_mega_rejects_what_the_schedule_does_not_take():
+    X, m = torch.zeros((256, 3)), torch.zeros((256, 1))
+    with pytest.raises(ValueError, match="nb >= 3"):
+        TCM.evidence_mega_rbf(X, m, 1.0, 1.0, 0.1)
+    with pytest.raises(ValueError, match="mode"):
+        TCM.evidence_mega_rbf(torch.zeros((384, 3)), torch.zeros((384, 1)), 1.0, 1.0, 0.1,
+                              mode="fast")
+
+
+@pytest.mark.parametrize("n_dots,n_leaves,interleave,indep,overwrite",
+                         [(3, 0, False, False, False), (0, 2, False, False, False),
+                          (4, 2, True, False, False), (4, 2, False, True, False),
+                          (4, 1, False, False, True)])
+def test_overlap_probe_plain_matches_tpu_interpret(small, n_dots, n_leaves, interleave,
+                                                    indep, overwrite):
+    jprobe, inp, jx = small
+    want = jprobe.make_probe(n_dots, n_leaves, interleave, indep, overwrite)(
+        jx["slab"], jx["vrow"], jx["aleaf"])
+    got = TOV.overlap_probe(inp["slab"], inp["vrow"], inp["aleaf"], n_dots, n_leaves,
+                            interleave, indep, overwrite)
+    _close(got, want, 5e-5)
+
+
+@pytest.mark.parametrize("with_dots", [False, True])
+def test_dma_probe_plain_matches_tpu_interpret(small, with_dots):
+    jprobe, inp, jx = small
+    want = jprobe.make_dma_probe(5, 3, with_dots)(jx["hbm"], jx["vrow"])
+    got = TOV.dma_probe(inp["hbm"], inp["vrow"], 5, with_dots)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("kind", TOV.PARTS)
+def test_leaf_parts_probe_plain_matches_tpu_interpret(small, kind):
+    jprobe, inp, jx = small
+    want = jprobe.make_leaf_parts_probe(kind, 2)(jx["a512"], jx["a128"])
+    got = TOV.leaf_parts_probe(kind, 2, inp["a512"], inp["a128"])
+    _close(got, want, 5e-5)
