@@ -22,7 +22,11 @@ in phase 3, evidence_left_fast at N = 10000 (the slice's first 10000 rows,
 as a standalone op on an mlp Gram block; and the Hopper probes: K7, the
 whole evidence in one launch, at N = 16384 in its five modes against the
 plain version, the dense f32 evidence and K3, and K8a, the overlap probes
-at the TPU probe's shapes.  Each path runs with the launch counts set to 0
+at the TPU probe's shapes; K8b and K8c, the chained bf16 dots of the TPU
+probes in three operand forms and four read patterns, beside one
+torch.matmul a dot (phase 15); and K8d, the exp tile, the rbf Gram tile,
+the matvec chain and the staged bf16 store in its bulk and direct modes
+(phase 16).  Each path runs with the launch counts set to 0
 just before it and read just after.  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
@@ -36,6 +40,7 @@ import contextlib
 import io
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -57,13 +62,27 @@ D_PANEL = 2          # K3's right-hand sides in phase 4: m and the bias column
 # operations over their peak.
 HBM_BPS = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12}
+# The special-function units (exp) are not on the data sheet: 16 results a
+# clock an SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), times the SMs and the SM clock nvidia-smi reports;
+# sfu_peak() computes it for K8d's bounds as PEAK's "sfu" entry.
+SFU_PER_CLOCK_SM = 16
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=PEAK):
     """(bound_ms, bound_by) for `nbytes` moved and `ops` {type: count}."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
+    t_ops = sum(n / peak[kind] for kind, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sfu_peak():
+    """exp results a second: SFU_PER_CLOCK_SM x SMs x clocks.max.sm."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    return SFU_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count \
+        * float(mhz) * 1e6
 
 
 def k1_bound(n, m, q):
@@ -104,6 +123,49 @@ def k3_bound(n, q, d, b=128):
     nbytes = 4 * (n * q + n * d) + 2 * n * n + 4 * (d * n + d * d + 1)
     return bound(nbytes, {"bf16": n ** 3 / 3 + n * n * b,
                           "f32": n * n / 2 * (2 * q + 6) + (n // b) * 2 * b ** 3 / 3 + d * n * n})
+
+
+def k8b_bound(k, b, reps, a_copies=1):
+    """Σ of reps (k, b)-contraction bf16 products: the operands (a_copies
+    of A, and B) in, (b, b) float32 out; 2 k b² operations a product on
+    the tensor cores."""
+    return bound(2 * (a_copies + 1) * k * b + 4 * b * b, {"bf16": 2 * k * b * b * reps})
+
+
+def k8c_bound(k, b, reps, pattern):
+    """K8b's work under a read pattern: dynslot reads two copies of A."""
+    return k8b_bound(k, b, reps, 2 if pattern == "dynslot" else 1)
+
+
+def k8d_exp_bound(b, reps, sfu):
+    """exp tile: A in, acc out; per element a rep 4 float32 operations (two
+    scaled sums) and one exp on the special-function units, which run beside
+    the FMA pipes, so the slower of the two bounds it."""
+    n = b * b * reps
+    return max(bound(8 * b * b, {"f32": 4 * n}), bound(8 * b * b, {"sfu": n}, dict(PEAK, sfu=sfu)))
+
+
+def k8d_gram_bound(b, reps, sfu, d=8):
+    """rbf Gram tile: X, n2 in, the tile out; per element a rep the d-dot
+    (2d), the distance and its clamp (6), acc·0 + exp (2) in float32 and
+    one exp."""
+    n = b * b * reps
+    nbytes = 4 * (b * d + b + b * b)
+    return max(bound(nbytes, {"f32": (2 * d + 8) * n}),
+               bound(nbytes, {"sfu": n}, dict(PEAK, sfu=sfu)))
+
+
+def k8d_matvec_bound(b, reps):
+    """reps (b, b)ᵀ·(b, 1) steps: A and v in, v out, 2 b² float32
+    operations a step.  In fact latency-bound: each step needs the whole
+    previous vector."""
+    return bound(4 * (b * b + 2 * b), {"f32": 2 * b * b * reps})
+
+
+def k8d_store_bound(b, slots=64):
+    """The staged store: A (float32) in, big (slots bf16 tiles) and o out,
+    each byte once; the n·2b² bytes a run writes are printed beside it."""
+    return bound(4 * b * b + 2 * slots * b * b + 4 * b * b, {})
 
 
 def log(msg):
@@ -924,6 +986,134 @@ def phase_overlap(dev):
                                    parts_us=parts)
 
 
+def phase_dots(dev):
+    """K8b and K8c at the TPU probes' shapes (K = 8192, B = 512, REPS =
+    1024): each form (hoisted operands) and each read pattern (form c0) at
+    REPS and at 64 products, launches counted; µs per product by the
+    differential pair; one torch.matmul (cuBLAS) of the same bf16 operands
+    and form per product, the yardstick (library_ms: REPS of them); then each
+    against its plain version at REPS, within 1e-4 of the largest entry
+    (1024 sums of bf16 products near 9e4, float32 in another order)."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.probes import dotform as DF
+    from gpc_tpu_torch.probes import refread as RR
+    K, B, REPS = DF.K, DF.B, DF.REPS
+    forms = DF.probe_inputs(dev, k=K, b=B)
+    reads, Bv = RR.probe_inputs(dev, k=K, b=B)
+    runs = {("dotform", f): (lambda n, f=f: DF.dotform_probe(*forms[f], f, n)) for f in DF.FORMS}
+    runs.update({("refread", p): (lambda n, p=p: RR.refread_probe(reads[p], Bv, p, n))
+                 for p in RR.PATTERNS})
+    plains = {("dotform", f): (lambda f=f: DF.dotform_probe_plain(*forms[f], f, REPS))
+              for f in DF.FORMS}
+    plains.update({("refread", p): (lambda p=p: RR.refread_probe_plain(reads[p], Bv, p, REPS))
+                   for p in RR.PATTERNS})
+    cuda_lib.LAUNCHES.clear()
+    timing = {key: DF.per_dot_us(run, 2, hi=REPS) for key, run in runs.items()}  # (µs a dot, ms)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K8b/K8c-probe launches: {launches}")
+    for name in ("dotform_probe", "refread_probe"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
+    flop = 2 * K * B * B
+    lib_us = {f: cuda_ms(lambda f=f: DF.library_dot(*forms[f], f), 20) * 1e3 for f in DF.FORMS}
+    for (kind, which), (us, ms) in timing.items():
+        log(f"phase 15 {'K8b' if kind == 'dotform' else 'K8c'} {kind} {which} K={K} B={B}: "
+            f"{us} us/dot ({flop / us / 1e6} TFLOP/s) by the 64/{REPS} pair, {ms} ms at {REPS}"
+            + (f"; torch.matmul {lib_us[which]} us/dot ({flop / lib_us[which] / 1e6} TFLOP/s)"
+               if kind == "dotform" else ""))
+    worst, plain_ms = {}, {}
+    for key, run in runs.items():
+        got, want = run(REPS), plains[key]()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-4 * scale, f"{key} vs its plain version: max abs {err} (max entry {scale})")
+        worst[key[0]] = max(worst.get(key[0], 0.0), err)
+        log(f"phase 15 {key[0]} {key[1]} vs plain at {REPS}: max abs err {err} (max entry {scale})")
+        del got, want
+    for key in (("dotform", "c0"), ("refread", "read_each")):
+        plain_ms[key] = cuda_ms(plains[key], 1)
+    entries = {}
+    rows = ((("dotform", "c0"), k8b_bound(K, B, REPS)),
+            (("refread", "read_each"), k8c_bound(K, B, REPS, "read_each")))
+    for key, (bound_ms, bound_by) in rows:
+        entries[f"{key[0]}_probe"] = dict(
+            max_abs_err=worst[key[0]], ms=timing[key][1], plain_ms=plain_ms[key],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_us["c0"] * REPS * 1e-3)
+        log(f"phase 15 {key[0]}_probe (kernels line: {key[1]} at {REPS}): kernel {timing[key][1]} "
+            f"ms, plain {plain_ms[key]} ms, {REPS} x torch.matmul {lib_us['c0'] * REPS * 1e-3} ms, "
+            f"bound {bound_ms} ms ({bound_by})")
+    return launches, entries, dict(
+        us_per_dot={f"{k} {w}": us for (k, w), (us, _) in timing.items()},
+        ms_at_reps={f"{k} {w}": ms for (k, w), (_, ms) in timing.items()},
+        torch_matmul_us_per_dot=lib_us)
+
+
+def phase_vpu(dev):
+    """K8d at the TPU probe's shapes (B = 512; REPS = 2048, and 1024
+    iterations for the matvec and the store, in both modes): each kernel at
+    its full count and an eighth of it, launches counted; µs per iteration
+    by the differential pair; then each against its plain version: exp and
+    the Gram tile within 1e-5 of the largest entry, the matvec chain within
+    1e-4 (float32 in another order over the chain), the store's written
+    slots and o bit for bit."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.probes import vpu as VP
+    B, REPS = VP.B, VP.REPS
+    inp = VP.probe_inputs(dev, b=B)
+    A, X, n2, v = inp["A"], inp["X"], inp["n2"], inp["v"]
+    runs = VP.runs(inp)
+    cuda_lib.LAUNCHES.clear()
+    timing = {}
+    for name, (fn, n) in runs.items():
+        t_lo, t_hi = (cuda_ms(lambda m=m: fn(m), 3) for m in (n // 8, n))
+        timing[name] = ((t_hi - t_lo) / (n - n // 8) * 1e3, t_hi)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"K8d-probe launches: {launches}")
+    for name in ("vpu_exp", "vpu_gram_tile", "vpu_matvec", "vpu_stage_store"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
+    written = REPS // 2 * B * B * 2
+    for name, (us, ms) in timing.items():
+        extra = (f"; {written} bytes written, {written / (ms * 1e-3) / 1e9} GB/s"
+                 if name.startswith("store") else "")
+        log(f"phase 16 K8d {name} B={B}: {us} us/iter (differential), {ms} ms at "
+            f"{runs[name][1]}{extra}")
+    plains = {"exp": lambda: VP.vpu_exp_plain(A, REPS),
+              "gram": lambda: VP.vpu_gram_tile_plain(X, n2, REPS),
+              "matvec": lambda: VP.vpu_matvec_plain(A, v, REPS // 2),
+              "store-bulk": lambda: VP.vpu_stage_store_plain(A, REPS // 2)}
+    errs = {}
+    for name, tol in (("exp", 1e-5), ("gram", 1e-5), ("matvec", 1e-4)):
+        got, want = runs[name][0](runs[name][1]), plains[name]()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+              f"K8d {name} vs its plain version: max abs {err} (max entry {scale})")
+        errs[name] = err
+    big_p, o_p = plains["store-bulk"]()
+    w = VP.written_slots(REPS // 2)
+    for mode in VP.MODES:
+        big, o = VP.vpu_stage_store(A, REPS // 2, mode)
+        check(torch.equal(big[:w], big_p[:w]) and torch.equal(o, o_p),
+              f"K8d store ({mode}) differs from its plain version")
+    errs["store"] = 0.0
+    log(f"phase 16 K8d vs plain, max abs err: {errs} (the store's {w} slots and o bit for bit, "
+        f"both modes)")
+    sfu = sfu_peak()
+    rows = {"vpu_exp": ("exp", k8d_exp_bound(B, REPS, sfu)),
+            "vpu_gram_tile": ("gram", k8d_gram_bound(B, REPS, sfu)),
+            "vpu_matvec": ("matvec", k8d_matvec_bound(B, REPS // 2)),
+            "vpu_stage_store": ("store-bulk", k8d_store_bound(B))}
+    entries = {}
+    for entry, (name, (bound_ms, bound_by)) in rows.items():
+        p_ms = cuda_ms(plains[name], 1)
+        entries[entry] = dict(max_abs_err=errs[name.split("-")[0]], ms=timing[name][1],
+                              plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None)
+        log(f"phase 16 K8d {entry} ({name} at {runs[name][1]}): kernel {timing[name][1]} ms, "
+            f"plain {p_ms} ms, bound {bound_ms} ms ({bound_by}; SFU {sfu / 1e12} T exp/s)")
+    return launches, entries, dict(us_per_iter={k: us for k, (us, _) in timing.items()},
+                                   ms_at_full={k: ms for k, (_, ms) in timing.items()})
+
+
 def phase_zoo_timing(dev):
     """N = 16384, cmpnd(mlp, bias, white): forward and backward ms of the
     objective under dense and lazy (median of 3), the peak device memory
@@ -1027,8 +1217,12 @@ def main():
     mega_launches, k7, mega_modes = phase_mega(dev, k3["ms"])
     torch.cuda.empty_cache()
     probe_launches, k8, probes = phase_overlap(dev)
+    torch.cuda.empty_cache()
+    dot_launches, k8bc, dots = phase_dots(dev)
+    torch.cuda.empty_cache()
+    vpu_launches, k8d, vpu = phase_vpu(dev)
     log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7_ms_by_mode=mega_modes,
-                                     k3_ms=k3["ms"], **probes)))
+                                     k3_ms=k3["ms"], **probes, k8bc=dots, k8d=vpu)))
 
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
@@ -1060,6 +1254,16 @@ def main():
         dict(name="leaf_parts_probe", route="cuda", source="gpc_tpu_torch/csrc/probes.cu",
              replaces="tools/tpu_overlap_probe.py:237",
              launches=probe_launches["leaf_parts_probe"], **k8["leaf_parts_probe"]),
+        dict(name="dotform_probe", route="cuda", source="gpc_tpu_torch/csrc/probes_dots.cu",
+             replaces="tools/tpu_dotform_probe.py:88",
+             launches=dot_launches["dotform_probe"], **k8bc["dotform_probe"]),
+        dict(name="refread_probe", route="cuda", source="gpc_tpu_torch/csrc/probes_dots.cu",
+             replaces="tools/tpu_refread_probe.py:111",
+             launches=dot_launches["refread_probe"], **k8bc["refread_probe"]),
+        *(dict(name=name, route="cuda", source="gpc_tpu_torch/csrc/probes_vpu.cu",
+               replaces=f"tools/tpu_vpu_probe.py:{line}", launches=vpu_launches[name], **k8d[name])
+          for name, line in (("vpu_exp", 114), ("vpu_gram_tile", 121), ("vpu_matvec", 128),
+                             ("vpu_stage_store", 134))),
     ]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,12 @@
 
 `chol_mega` (K7) is the whole rbf evidence in one persistent launch, against
 K3's per-panel launches; `overlap` (K8a) measures whether leaves hide under
-the Schur GEMMs, the slab stream rate and the cost of a leaf's parts.  Each
-kernel has a plain PyTorch version that computes the same returned values;
+the Schur GEMMs, the slab stream rate and the cost of a leaf's parts;
+`dotform` (K8b) times the three operand layouts of a chained bf16 product,
+`refread` (K8c) the same product with its operand re-read before each dot
+in four patterns, and `vpu` (K8d) the epilogue-side rates: an exp tile, an
+rbf Gram tile, a serial matvec chain and a staged bf16 store.  Each kernel
+has a plain PyTorch version that computes the same returned values;
 `python -m gpc_tpu_torch.probes.<name>` times them on the card.
 """
 

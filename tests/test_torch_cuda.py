@@ -20,7 +20,10 @@ leaves under K5 are held to its Cholesky leaves at 2e-4
 probes: K7 to its plain version (the same bf16 policy) at 2e-4 and to the
 dense float32 evidence at 2e-3; K8a's (8, 128) corners to their plain
 versions within 1e-5 of the largest entry (bf16 products summed in float32
-in another order), 5e-5 where they hold sums of float32 leaves.
+in another order), 5e-5 where they hold sums of float32 leaves; K8b's and
+K8c's sums of bf16 products within 1e-4 of the largest entry, K8d's exp and
+Gram tiles within 1e-5, its matvec chain within 1e-4, and its staged store
+bit for bit.
 """
 
 import numpy as np
@@ -459,3 +462,88 @@ def test_learn_kernel_zoo_on_card(dev, tmp_path, capsys, flags):
         port_cli.main(device + ["log-likelihood", data, model])
         ll = float(capsys.readouterr().out.split(":")[-1])
         assert abs(ll + final) <= 1e-4 * abs(final)
+
+
+def _rel_close(got, want, tol):
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+DOT_SHAPES = [(512, 256, 5), (8192, 512, 1024)]   # (K, B, reps): small, and the TPU probes'
+
+
+@pytest.mark.parametrize("k,b,reps", DOT_SHAPES)
+@pytest.mark.parametrize("form", ["c0", "std", "dotT"])
+def test_dotform_kernel_matches_plain(dev, form, k, b, reps):
+    """K8b: Σ of reps bf16 products in float32, within 1e-4 of the largest
+    entry (1024 sums of entries near 9e4 at the full shape)."""
+    from gpc_tpu_torch.probes import dotform as TDF
+    A, Bv = TDF.probe_inputs(dev, k=k, b=b, seed=11)[form]
+    before = LAUNCHES["dotform_probe"]
+    got = TDF.dotform_probe(A, Bv, form, reps)
+    assert LAUNCHES["dotform_probe"] == before + 1
+    _rel_close(got, TDF.dotform_probe_plain(A, Bv, form, reps), 1e-4)
+
+
+@pytest.mark.parametrize("k,b,reps", DOT_SHAPES)
+@pytest.mark.parametrize("pattern", ["hoisted", "read_each", "reshape_each", "dynslot"])
+def test_refread_kernel_matches_plain(dev, pattern, k, b, reps):
+    """K8c: the c0 product under each read pattern, 1e-4 of the largest
+    entry; dynslot alternates its two slots."""
+    from gpc_tpu_torch.probes import refread as TRR
+    a, Bv = TRR.probe_inputs(dev, k=k, b=b, seed=12)
+    before = LAUNCHES["refread_probe"]
+    got = TRR.refread_probe(a[pattern], Bv, pattern, reps)
+    assert LAUNCHES["refread_probe"] == before + 1
+    _rel_close(got, TRR.refread_probe_plain(a[pattern], Bv, pattern, reps), 1e-4)
+
+
+@pytest.mark.parametrize("b,reps", [(128, 8), (512, 2048)])
+@pytest.mark.parametrize("name", ["exp", "gram", "matvec"])
+def test_vpu_kernels_match_plain(dev, name, b, reps):
+    """K8d's exp tile and Gram tile within 1e-5 of the largest entry, the
+    matvec chain (reps / 2 steps, as the TPU probe) within 1e-4: float32 in
+    another order, drifting over the chain."""
+    from gpc_tpu_torch.probes import vpu as TVPU
+    inp = TVPU.probe_inputs(dev, b=b, seed=13)
+    fn, plain, args, n, tol = {
+        "exp": (TVPU.vpu_exp, TVPU.vpu_exp_plain, (inp["A"],), reps, 1e-5),
+        "gram": (TVPU.vpu_gram_tile, TVPU.vpu_gram_tile_plain, (inp["X"], inp["n2"]), reps, 1e-5),
+        "matvec": (TVPU.vpu_matvec, TVPU.vpu_matvec_plain, (inp["A"], inp["v"]), reps // 2,
+                   1e-4)}[name]
+    before = LAUNCHES[fn.__name__]
+    got = fn(*args, n)
+    assert LAUNCHES[fn.__name__] == before + 1
+    _rel_close(got, plain(*args, n), tol)
+
+
+@pytest.mark.parametrize("b,n", [(128, 4), (512, 1024)])
+@pytest.mark.parametrize("mode", ["bulk", "direct"])
+def test_vpu_stage_store_kernel_matches_plain(dev, mode, b, n):
+    """K8d's staged store: the written slots of big equal the plain
+    version's bit for bit, and o = n."""
+    from gpc_tpu_torch.probes import vpu as TVPU
+    A = TVPU.probe_inputs(dev, b=b, seed=14)["A"]
+    before = LAUNCHES["vpu_stage_store"]
+    big, o = TVPU.vpu_stage_store(A, n, mode)
+    assert LAUNCHES["vpu_stage_store"] == before + 1
+    big_p, o_p = TVPU.vpu_stage_store_plain(A, n)
+    w = TVPU.written_slots(n)
+    assert torch.equal(big[:w], big_p[:w]) and torch.equal(o, o_p)
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from gpc_tpu_torch.probes import dotform as TDF
+    from gpc_tpu_torch.probes import refread as TRR
+    from gpc_tpu_torch.probes import vpu as TVPU
+    A = torch.zeros((512, 256), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        TDF.dotform_probe(A.float(), A.float(), "c0", 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TDF.dotform_probe(A.T.contiguous().T, A, "c0", 2)
+    with pytest.raises(ValueError, match="reshape_each wants"):
+        TRR.refread_probe(A, A, "reshape_each", 2)
+    with pytest.raises(ValueError, match="power of two"):
+        TVPU.vpu_matvec(torch.zeros((96, 96), device=dev), torch.zeros((96, 1), device=dev), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TVPU.vpu_stage_store(torch.zeros((256, 256), device=dev).T, 2)

@@ -1,0 +1,235 @@
+"""The K8b, K8c and K8d probes' plain versions (gpc_tpu_torch/probes/
+dotform.py, refread.py, vpu.py) against the TPU probes of tools/, on the CPU.
+
+tools/tpu_{dotform,refread,vpu}_probe.py are loaded from their paths (they
+are not a package), with their module constants cut by monkeypatch, and
+their Pallas kernels run in TPU interpret mode, scratch memory zero on
+entry.  The dotform and vpu probes build their pallas_calls inside main();
+the tests build the same calls around the modules' kernel functions, with
+the same specs.  Those three modules point JAX's persistent compilation
+cache at ~/.cache when imported; the loader undoes that (and gives them a
+temporary home meanwhile), so later tests in the worker write no cache.
+
+Tolerances: 1e-5 of the largest entry for the dots (bf16 products summed in
+float32 in another order), exp, the Gram tile and the matvec chain (float32
+in another order); the store is exact (bf16 of the same unfused float32
+sum) in the slots it writes, and o is exact.  The CUDA kernels are held
+against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+
+import importlib.util
+import os
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from gpc_tpu_torch.probes import dotform as TDF
+from gpc_tpu_torch.probes import refread as TRR
+from gpc_tpu_torch.probes import vpu as TVPU
+
+TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
+CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+              "jax_persistent_cache_min_entry_size_bytes")
+
+
+def _load(name, home):
+    """tools/<name>.py as a module, with JAX's cache settings as they were
+    before and HOME pointing at `home` while it is imported."""
+    saved = {k: getattr(jax.config, k) for k in CACHE_KEYS}
+    old_home = os.environ.get("HOME")
+    os.environ["HOME"] = str(home)
+    try:
+        spec = importlib.util.spec_from_file_location(f"_tools_{name}", TOOLS / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+        if old_home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = old_home
+    return mod
+
+
+@pytest.fixture(scope="module")
+def tools(tmp_path_factory):
+    home = tmp_path_factory.mktemp("home")
+    return {n: _load(n, home) for n in ("tpu_dotform_probe", "tpu_refread_probe",
+                                        "tpu_vpu_probe")}
+
+
+def _interpret():
+    return pltpu.force_tpu_interpret_mode(pltpu.InterpretParams(uninitialized_memory="zero"))
+
+
+def _jx(t):
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16
+                       else jnp.float32)
+
+
+def _close(got, want, tol):
+    want = np.asarray(want, np.float32)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def _vmem(n):
+    return [pl.BlockSpec(memory_space=pltpu.VMEM)] * n
+
+
+def _out(b, dtype=jnp.float32):
+    return jax.ShapeDtypeStruct((b, b), dtype)
+
+
+def test_loading_the_tools_leaves_jax_cache_config_as_it_was(tools, tmp_path):
+    before = {k: getattr(jax.config, k) for k in CACHE_KEYS}
+    _load("tpu_vpu_probe", tmp_path)
+    assert {k: getattr(jax.config, k) for k in CACHE_KEYS} == before
+    assert (tmp_path / ".cache" / "gpc_tpu" / "xla").is_dir()   # the import wrote there
+
+
+@pytest.mark.parametrize("form", TDF.FORMS)
+def test_dotform_plain_matches_tpu_interpret(tools, monkeypatch, form):
+    jd = tools["tpu_dotform_probe"]
+    k, b, reps = 256, 128, 5
+    for name, val in (("K", k), ("B", b), ("REPS", reps)):
+        monkeypatch.setattr(jd, name, val)
+    A, Bv = TDF.probe_inputs("cpu", k=k, b=b, seed=1)[form]
+    with _interpret():
+        want = pl.pallas_call(
+            jd.make_kernel(form), out_shape=_out(b), in_specs=_vmem(2), out_specs=_vmem(1)[0],
+            compiler_params=pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024),
+        )(_jx(A), _jx(Bv))
+    got = TDF.dotform_probe(A, Bv, form, reps)
+    assert got.dtype == torch.float32
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("pattern", TDF.PATTERNS)
+def test_refread_plain_matches_tpu_interpret(tools, monkeypatch, pattern):
+    """K = 512, B = 128: four blocks of A, five dots (dynslot reads slot 0
+    three times and slot 1 twice)."""
+    jr = tools["tpu_refread_probe"]
+    k, b, reps = 512, 128, 5
+    for name, val in (("K", k), ("B", b), ("NBLK", k // b), ("REPS", reps)):
+        monkeypatch.setattr(jr, name, val)
+    kern = {"hoisted": jr.kern_hoisted, "read_each": jr.kern_read_each,
+            "reshape_each": jr.kern_reshape_each, "dynslot": jr.kern_dynslot_each}[pattern]
+    a, Bv = TRR.probe_inputs("cpu", k=k, b=b, seed=2)
+    with _interpret():
+        want = pl.pallas_call(
+            kern, out_shape=_out(b), in_specs=_vmem(2), out_specs=_vmem(1)[0],
+            compiler_params=pltpu.CompilerParams(vmem_limit_bytes=96 * 1024 * 1024),
+        )(_jx(a[pattern]), _jx(Bv))
+    got = TRR.refread_probe(a[pattern], Bv, pattern, reps)
+    _close(got, want, 1e-5)
+
+
+@pytest.fixture
+def vpu_small(tools, monkeypatch):
+    """The vpu probe at B = 128, REPS = 8 (the matvec and the store run 4
+    iterations), in interpret mode; the same numpy inputs for both sides."""
+    jv = tools["tpu_vpu_probe"]
+    monkeypatch.setattr(jv, "B", 128)
+    monkeypatch.setattr(jv, "REPS", 8)
+    with _interpret():
+        yield jv, TVPU.probe_inputs("cpu", b=128, seed=3)
+
+
+@pytest.mark.parametrize("name", ["exp", "gram", "matvec"])
+def test_vpu_plain_matches_tpu_interpret(vpu_small, name):
+    jv, inp = vpu_small
+    b, reps = jv.B, jv.REPS
+    A, X, n2, v = inp["A"], inp["X"], inp["n2"], inp["v"]
+    vm = _vmem(1)[0]
+    if name == "exp":
+        call = pl.pallas_call(jv.kern_exp, out_shape=_out(b), in_specs=_vmem(1), out_specs=vm)
+        args, got = (A,), TVPU.vpu_exp(A, reps)
+    elif name == "gram":
+        call = pl.pallas_call(jv.kern_gramtile, out_shape=_out(b), in_specs=_vmem(3),
+                              out_specs=vm)
+        args, got = (X, n2, n2.reshape(1, b)), TVPU.vpu_gram_tile(X, n2, reps)
+    else:
+        call = pl.pallas_call(jv.kern_matvec, out_shape=jax.ShapeDtypeStruct((b, 1), jnp.float32),
+                              in_specs=_vmem(2), out_specs=vm)
+        args, got = (A, v), TVPU.vpu_matvec(A, v, reps // 2)
+    _close(got, call(*(_jx(x) for x in args)), 1e-5)
+
+
+@pytest.mark.parametrize("mode", TVPU.MODES)
+def test_vpu_stage_store_plain_matches_tpu_interpret(vpu_small, mode):
+    jv, inp = vpu_small
+    b, n = jv.B, jv.REPS // 2
+    call = pl.pallas_call(
+        jv.kern_store_dma,
+        out_shape=(jax.ShapeDtypeStruct((TVPU.SLOTS, b, b), jnp.bfloat16), _out(b)),
+        in_specs=_vmem(1),
+        out_specs=(pl.BlockSpec(memory_space=pl.ANY), pl.BlockSpec(memory_space=pltpu.VMEM)),
+        scratch_shapes=[pltpu.VMEM((2, b, b), jnp.bfloat16), pltpu.SemaphoreType.DMA((2,))])
+    big_j, o_j = call(_jx(inp["A"]))
+    big, o = TVPU.vpu_stage_store(inp["A"], n, mode)
+    w = TVPU.written_slots(n)
+    assert big.dtype == torch.bfloat16 and w == n
+    np.testing.assert_array_equal(big[:w].float().numpy(),
+                                  np.asarray(big_j[:w], np.float32))
+    np.testing.assert_array_equal(o.numpy(), np.asarray(o_j))
+    assert not bool(big[w:].any())
+
+
+def test_vpu_stage_store_plain_wraps_round_the_slots():
+    """More iterations than slots: slot s holds the last it with it mod 64
+    = s, as a loop over every iteration leaves it."""
+    A = TVPU.probe_inputs("cpu", b=128, seed=4)["A"] * 1e-6   # small, so 1e-9 it shows
+    n = 150
+    big, o = TVPU.vpu_stage_store(A, n)
+    want = torch.zeros_like(big)
+    for it in range(n):
+        want[it % TVPU.SLOTS] = (A + torch.tensor(float(it)) * torch.tensor(1e-9)).to(
+            torch.bfloat16)
+    assert torch.equal(big, want) and bool((o == n).all())
+    assert not torch.equal(big[0], big[1])
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: TDF.dotform_probe(_meta((256, 128), torch.bfloat16),
+                               _meta((128, 256), torch.bfloat16), "c0", 2), "form c0 wants"),
+    (lambda: TDF.dotform_probe(_meta((200, 128), torch.bfloat16),
+                               _meta((200, 128), torch.bfloat16), "c0", 2), "multiple of 256"),
+    (lambda: TDF.dotform_probe(_meta((256, 128)), _meta((256, 128)), "c0", 2), "bfloat16"),
+    (lambda: TDF.dotform_probe(_meta((256, 128), torch.bfloat16),
+                               _meta((256, 128), torch.bfloat16), "cT", 2), "form"),
+    (lambda: TDF.dotform_probe(_meta((256, 128), torch.bfloat16),
+                               _meta((256, 128), torch.bfloat16), "c0", 2), "needs CUDA"),
+    (lambda: TRR.refread_probe(_meta((256, 128), torch.bfloat16),
+                               _meta((256, 128), torch.bfloat16), "dynslot", 2), "dynslot wants"),
+    (lambda: TRR.refread_probe(_meta((2, 256, 128), torch.bfloat16),
+                               _meta((256, 128), torch.bfloat16), "reshape", 2), "pattern"),
+    (lambda: TVPU.vpu_exp(_meta((128, 64)), 2), "A \\(B, B\\)"),
+    (lambda: TVPU.vpu_exp(_meta((128, 128), torch.float64), 2), "float32"),
+    (lambda: TVPU.vpu_gram_tile(_meta((128, 4)), _meta((128, 1)), 2), "X \\(B, 8\\)"),
+    (lambda: TVPU.vpu_gram_tile(_meta((96, 8)), _meta((96, 1)), 2), "multiple of 64"),
+    (lambda: TVPU.vpu_matvec(_meta((96, 96)), _meta((96, 1)), 2), "power of two"),
+    (lambda: TVPU.vpu_matvec(_meta((128, 128)), _meta((128,)), 2), "v \\(B, 1\\)"),
+    (lambda: TVPU.vpu_stage_store(_meta((192, 192)), 2), "multiple of 128"),
+    (lambda: TVPU.vpu_stage_store(_meta((128, 128), torch.bfloat16), 2), "float32"),
+    (lambda: TVPU.vpu_stage_store(_meta((128, 128)), 2, "tma"), "mode"),
+    (lambda: TVPU.vpu_stage_store(_meta((128, 128)), 2), "needs CUDA"),
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(call, match):
+    """Off the CPU a wrapper checks its inputs before it builds or launches
+    anything (the meta device has no data): shapes, then the dtype, then
+    the device."""
+    with pytest.raises(ValueError, match=match):
+        call()
