@@ -26,8 +26,15 @@ at the TPU probe's shapes; K8b and K8c, the chained bf16 dots of the TPU
 probes in three operand forms and four read patterns, beside one
 torch.matmul a dot (phase 15); and K8d, the exp tile, the rbf Gram tile,
 the matvec chain and the staged bf16 store in its bulk and direct modes
-(phase 16).  Each path runs with the launch counts set to 0
-just before it and read just after.  Every check
+(phase 16).  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
+register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
+the column-stripe Gram tile with its parameters on the card: phases 2–3
+time them in rounds (median and spread), K2 at b = 128, 256 and 512, K5
+and K6 beside their kernels' device time under torch.profiler, K6 beside
+torch.linalg.cholesky and cholesky_ex; phase 4 also holds K3 at N = 32768
+to the dense f32 and f64 routes.  Each path runs with the launch counts
+set to 0 just before it and read just after.  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -181,6 +188,35 @@ def paired_ms(kernel, plain, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def paired_stats(kernel, plain, reps, rounds):
+    """Kernel and plain ms over `rounds` rounds of plain, kernel, kernel,
+    plain (cuda_ms of `reps` calls each): (median, min, max) of each."""
+    ks, ps = [], []
+    for _ in range(rounds):
+        ps.append(cuda_ms(plain, reps))
+        ks += [cuda_ms(kernel, reps), cuda_ms(kernel, reps)]
+        ps.append(cuda_ms(plain, reps))
+    stat = lambda xs: (float(np.median(xs)), min(xs), max(xs))   # noqa: E731
+    return stat(ks), stat(ps)
+
+
+def kernel_breakdown(fn, reps=3):
+    """{kernel name: (device µs per call, launches per call)} of fn under
+    torch.profiler, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][-40:]:
+            (e.self_device_time_total / reps, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -194,12 +230,17 @@ def phase_build(cuda_lib):
 
 
 def phase_gram(dev, rng):
+    """K1 against its plain version for its five maps at the serving chunk
+    shape (rtol 1e-5), with the parameters on the card as the model passes
+    them; rbf timed in 5 rounds of plain, kernel, kernel, plain (20 calls
+    each): median and spread."""
     from gpc_tpu_torch.ops.gram import dist_gram, dist_gram_plain
     X1 = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
     X2 = torch.tensor(rng.standard_normal((CHUNK, Q)), dtype=torch.float32, device=dev)
     var = 1.3
-    params = {"rbf": [0.7, var], "exp": [0.7, var], "ratquad": [1.5, 0.8, var],
-              "matern32": [0.9, var], "matern52": [0.9, var]}
+    params = {f: torch.tensor(p, dtype=torch.float32, device=dev) for f, p in (
+        ("rbf", [0.7, var]), ("exp", [0.7, var]), ("ratquad", [1.5, 0.8, var]),
+        ("matern32", [0.9, var]), ("matern52", [0.9, var]))}
     worst = 0.0
     for family, p in params.items():
         got = dist_gram(family, p, X1, X2)
@@ -211,18 +252,23 @@ def phase_gram(dev, rng):
               f"K1 {family} disagrees with its plain version (max abs {err})")
         log(f"phase 2 K1 {family} {N}x{CHUNK}x{Q}: max abs err {err}")
         del got, want
-    ms, plain_ms = paired_ms(lambda: dist_gram("rbf", params["rbf"], X1, X2),
-                             lambda: dist_gram_plain("rbf", params["rbf"], X1, X2), 10)
-    log(f"phase 2 K1 rbf {N}x{CHUNK}: kernel {ms} ms, plain {plain_ms} ms")
+    (ms, lo, hi), (plain_ms, _, _) = paired_stats(
+        lambda: dist_gram("rbf", params["rbf"], X1, X2),
+        lambda: dist_gram_plain("rbf", params["rbf"], X1, X2), 20, 5)
+    log(f"phase 2 K1 rbf {N}x{CHUNK}: kernel median {ms} ms (min {lo}, max {hi}, 10 runs of 20), "
+        f"plain median {plain_ms} ms")
     bound_ms, bound_by = k1_bound(N, CHUNK, Q)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
 def phase_leaf(dev, rng):
+    """K2 on 16 jittered SPD blocks at b = 128, 256 and 512: logdet within
+    1e-4 relative and ‖ML − I‖ ≤ 1e-3; one 128-block (the main path's leaf)
+    timed against its plain version."""
     from gpc_tpu_torch.ops.chol_panel import factor_diag, factor_diag_plain
     worst = 0.0
-    for b in (128, 256):
+    for b in (128, 256, 512):
         Z = torch.tensor(rng.standard_normal((16, b, b)), dtype=torch.float32, device=dev)
         A = Z @ Z.mT / b + 0.5 * torch.eye(b, device=dev)
         M, ld = factor_diag(A)
@@ -234,6 +280,7 @@ def phase_leaf(dev, rng):
         worst = max(worst, err)
         check(ld_rel < 1e-4, f"K2 b={b} logdet off by {ld_rel} relative")
         check(resid < 1e-3, f"K2 b={b} max |M L - I| = {resid}")
+        check(not bool(M.triu(1).any()), f"K2 b={b} M not lower triangular")
         log(f"phase 3 K2 b={b} x16: logdet rel {ld_rel}, max|M L - I| {resid}, "
             f"max|M - M_plain| {err}")
     A1 = A[:1, :128, :128].contiguous()      # the main path's one 128-block
@@ -247,15 +294,19 @@ def phase_leaf(dev, rng):
 
 def phase_inner(dev, rng):
     """K4 against its plain version at the serving chunk shape, for lin,
-    poly (degree 2) and mlp: max abs err within 1e-4 of the output's scale
-    (both f32, differing in summation order and in the map's intrinsics).
-    The kernels line gives lin's times (variance 1), beside torch.mm(X1,
-    X2ᵀ), which computes that same function, and the largest absolute error
-    of the three maps."""
+    poly (degree 2, which the kernel multiplies out) and mlp: max abs err
+    within 1e-4 of the output's scale (both f32, differing in summation
+    order and in the map's intrinsics), the parameters on the card as the
+    model passes them.  Each map timed in 5 rounds of plain, kernel,
+    kernel, plain (20 calls each), median and spread, and torch.mm(X1, X2ᵀ)
+    in the same rounds.  The kernels line gives lin's times (variance 1),
+    beside torch.mm, which computes that same function, and the largest
+    absolute error of the three maps."""
     from gpc_tpu_torch.ops.gram import inner_gram, inner_gram_plain
     X1 = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
     X2 = torch.tensor(rng.standard_normal((CHUNK, Q)), dtype=torch.float32, device=dev)
-    params = {"lin": [1.0], "poly": [0.7, 0.4, 1.3], "mlp": [10.0, 10.0, 1.0]}
+    params = {f: torch.tensor(p, dtype=torch.float32, device=dev) for f, p in (
+        ("lin", [1.0]), ("poly", [0.7, 0.4, 1.3]), ("mlp", [10.0, 10.0, 1.0]))}
     worst, times = 0.0, {}
     for family, p in params.items():
         got = inner_gram(family, p, X1, X2)
@@ -266,12 +317,17 @@ def phase_inner(dev, rng):
         check(err <= 1e-4 * scale, f"K4 {family} disagrees with its plain version "
                                    f"(max abs {err}, scale {scale})")
         del got, want
-        times[family] = paired_ms(lambda: inner_gram(family, p, X1, X2),
-                                  lambda: inner_gram_plain(family, p, X1, X2), 10)
+        (k, klo, khi), (pl, _, _) = paired_stats(lambda: inner_gram(family, p, X1, X2),
+                                                 lambda: inner_gram_plain(family, p, X1, X2),
+                                                 20, 5)
+        times[family] = (k, pl)
         log(f"phase 2 K4 {family} {N}x{CHUNK}x{Q}: max abs err {err} (scale {scale}); "
-            f"kernel {times[family][0]} ms, plain {times[family][1]} ms")
-    library_ms = cuda_ms(lambda: torch.mm(X1, X2.T), 10)
-    log(f"phase 2 K4 library yardstick torch.mm(X1, X2.T) {N}x{CHUNK}x{Q}: {library_ms} ms")
+            f"kernel median {k} ms (min {klo}, max {khi}, 10 runs of 20), plain median {pl} ms")
+    (library_ms, llo, lhi), _ = paired_stats(lambda: torch.mm(X1, X2.T),
+                                             lambda: inner_gram("lin", params["lin"], X1, X2),
+                                             20, 5)
+    log(f"phase 2 K4 library yardstick torch.mm(X1, X2.T) {N}x{CHUNK}x{Q}: median {library_ms} "
+        f"ms (min {llo}, max {lhi}); K4 lin / torch.mm {times['lin'][0] / library_ms}")
     bound_ms, bound_by = k4_bound(N, CHUNK, Q)
     ms, plain_ms = times["lin"]
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -290,7 +346,7 @@ def phase_chol_inv(dev, rng):
     pads to a multiple of 128 with the identity: ‖ML − I‖ ≤ 1e-3 and L
     within 1e-3 of the plain version's largest entry.  Above 1024 it
     raises."""
-    from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain
+    from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain, plan_kernels
     out = {}
     for n in (256, 1024, 157, 192, 1000):
         A = spd_block(dev, rng, n)
@@ -308,8 +364,11 @@ def phase_chol_inv(dev, rng):
         out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         log(f"phase 3 K5 n={n}: max|M L - I| {resid}, max|L - L_plain| {err} "
-            f"(max entry {scale}); kernel {ms} ms, plain {plain_ms} ms, "
-            f"bound {bound_ms} ms ({bound_by})")
+            f"(max entry {scale}); kernel {ms} ms ({plan_kernels(n, True)} kernel launches "
+            f"a call), plain {plain_ms} ms, bound {bound_ms} ms ({bound_by})")
+        if n == 1000:
+            log(f"phase 3 K5 n={n} device time by kernel (us a call, launches a call): "
+                f"{kernel_breakdown(lambda: chol_inv_block(A))}")
     try:
         chol_inv_block(torch.eye(1152, device=dev))
         check(False, "K5 took n = 1152")
@@ -320,10 +379,11 @@ def phase_chol_inv(dev, rng):
 
 def phase_chol_block(dev, rng):
     """K6 against its plain version, torch.linalg.cholesky (the one call
-    that computes the same function, timed as the library yardstick too),
-    at n = 157, 192, 1000 and 1024: L within 1e-3 of the plain version's
-    largest entry, zeros above the diagonal."""
-    from gpc_tpu_torch.ops.chol_pallas import chol_block, chol_block_plain
+    that computes the same function), at n = 157, 192, 1000 and 1024: L
+    within 1e-3 of the plain version's largest entry, zeros above the
+    diagonal.  The library yardstick is the faster of torch.linalg.cholesky
+    and cholesky_ex (which skips the host sync on its info flag)."""
+    from gpc_tpu_torch.ops.chol_pallas import chol_block, chol_block_plain, plan_kernels
     out = {}
     for n in (157, 192, 1000, 1024):
         A = spd_block(dev, rng, n)
@@ -335,13 +395,19 @@ def phase_chol_block(dev, rng):
         check(not bool(L.triu(1).any()), "K6 not lower triangular")
         reps = 5 if n > 512 else 20
         ms, plain_ms = paired_ms(lambda: chol_block(A), lambda: chol_block_plain(A), reps)
-        library_ms = cuda_ms(lambda: torch.linalg.cholesky(A), reps)
+        chol_ms = cuda_ms(lambda: torch.linalg.cholesky(A), reps)
+        chol_ex_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(A), reps)
+        library_ms = min(chol_ms, chol_ex_ms)
         bound_ms, bound_by = k6_bound(n)
         out[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=library_ms)
-        log(f"phase 3 K6 n={n}: max|L - L_plain| {err} (max entry {scale}); kernel {ms} ms, "
-            f"plain {plain_ms} ms, torch.linalg.cholesky {library_ms} ms, "
-            f"bound {bound_ms} ms ({bound_by})")
+        log(f"phase 3 K6 n={n}: max|L - L_plain| {err} (max entry {scale}); kernel {ms} ms "
+            f"({plan_kernels(n, False)} kernel launches a call), plain {plain_ms} ms, "
+            f"torch.linalg.cholesky {chol_ms} ms, cholesky_ex {chol_ex_ms} ms, kernel / faster "
+            f"{ms / library_ms}, bound {bound_ms} ms ({bound_by})")
+        if n == 1000:   # the leaf's and the one-block tile GEMMs' device time
+            log(f"phase 3 K6 n={n} device time by kernel (us a call, launches a call): "
+                f"{kernel_breakdown(lambda: chol_block(A))}")
     return out[1000], out
 
 
@@ -373,9 +439,49 @@ def phase_panel(dev):
     ms, plain_ms = paired_ms(lambda: panel_state_rbf(*args),
                              lambda: panel_state_rbf_plain(*args), 3)
     log(f"phase 4 K3 N={N}: kernel {ms} ms, plain {plain_ms} ms")
+    log(f"phase 4 K3 N={N} device time by kernel (us a call, launches a call): "
+        f"{kernel_breakdown(lambda: panel_state_rbf(*args), 1)}")
     bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+N_DRIFT = 32768     # K3's drift check: twice the slice's N; T is 2 GiB of bf16
+
+
+def phase_panel_drift(dev):
+    """K3 at N = 32768 (X ~ N(0, 1), q = 8, rhs = (m, 1)) against the dense
+    routes in float32 and float64 (the plain version in each dtype): the
+    relative drift of the logdet and of diag(G), held to gpc_tpu's 2e-3
+    panel bound; the f32 route's own drift from f64 is printed beside."""
+    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf, panel_state_rbf_plain
+    rng = np.random.default_rng(SEED + 2)
+    X = torch.tensor(rng.standard_normal((N_DRIFT, Q)), dtype=torch.float32, device=dev)
+    m = torch.tensor(rng.standard_normal((N_DRIFT, 1)), dtype=torch.float32, device=dev)
+    rhs = torch.cat([m, torch.ones_like(m)], dim=1).contiguous()
+    (ld, G, _, T), ms = timed(lambda: panel_state_rbf(X, rhs, 1.0, 1.0, 0.1))
+    got = (float(ld), torch.diagonal(G).double())
+    del T
+    torch.cuda.empty_cache()
+    dense = {}
+    for dtype in (torch.float32, torch.float64):
+        ld_d, G_d, _, T_d = panel_state_rbf_plain(X.to(dtype), rhs.to(dtype), 1.0, 1.0, 0.1)
+        dense[dtype] = (float(ld_d), torch.diagonal(G_d).double())
+        del T_d, G_d
+        torch.cuda.empty_cache()
+
+    def drift(a, b):
+        return (abs(a[0] - b[0]) / abs(b[0]), float(((a[1] - b[1]).abs() / b[1].abs()).max()))
+    out = {"k3_ms": ms}
+    for name, (a, b) in (("K3 vs f64", (got, dense[torch.float64])),
+                         ("K3 vs f32", (got, dense[torch.float32])),
+                         ("f32 vs f64", (dense[torch.float32], dense[torch.float64]))):
+        out[name] = drift(a, b)
+    for name in ("K3 vs f64", "K3 vs f32"):
+        check(max(out[name]) < 2e-3, f"K3 at N={N_DRIFT}, {name}: (logdet, diag G) drift {out[name]}")
+    log(f"phase 4 K3 drift N={N_DRIFT} (logdet rel, max diag(G) rel): {out}; K3 {ms} ms "
+        f"(first call)")
+    return out
 
 
 def phase_diag(dev):
@@ -1171,6 +1277,8 @@ def main():
     k3 = phase_panel(dev)
     k3d = phase_diag(dev)
     torch.cuda.empty_cache()
+    drift = phase_panel_drift(dev)
+    torch.cuda.empty_cache()
     phase_reference(dev)
     phase_grad_reference(dev)
 
@@ -1221,7 +1329,10 @@ def main():
     dot_launches, k8bc, dots = phase_dots(dev)
     torch.cuda.empty_cache()
     vpu_launches, k8d, vpu = phase_vpu(dev)
+    log("launches in the kernels line count wrapper calls; a K5 or K6 call launches several "
+        "kernels (phase 3 prints how many), a K3 call 3 a panel plus 1")
     log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7_ms_by_mode=mega_modes,
+                                     k3_drift_n32768=drift,
                                      k3_ms=k3["ms"], **probes, k8bc=dots, k8d=vpu)))
 
     kernels = [

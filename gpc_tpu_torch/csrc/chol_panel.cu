@@ -31,41 +31,40 @@
 // the correction splits k across blocks (partials reduced in fixed order,
 // no atomics) to keep every SM busy.
 //
-// K2, the leaf (leaf.cuh), inverts one 128 x 128 PD block by the augmented
-// [A | I] Gauss-Jordan sweep in shared memory; L is never stored: the logdet
-// is -2 sum log diag(L^-1).  Blocks wider than 128 are assembled from
-// 128-leaves by blocked elimination and block triangular inversion, as
-// _factor_diag_fast does.
+// K2, the leaf (chol_tiles.cuh::leaf128), factors one 128 x 128 PD block by
+// 32-wide sub-panels in shared memory and returns (L^-1, logdet); the logdet
+// is 2 sum log diag(L) in double.
 //
-// K5, chol_inv_block, replaces gpc_tpu/ops/chol_pallas.py::chol_inv_block:
-// both its branches, the fused blocked kernel for n a multiple of 128
-// (chol_inv_block_fused, :213) and the masked column sweep with a
-// forward-substitution inverse for any other n (_chol_inv_kernel, :185):
-// (L, L^-1) of one PD f32 block, any n up to 1024.  K6, chol_block, replaces
-// chol_pallas.py::chol_block (_chol_kernel, :88): L alone.  Both are K2's
-// blocked routine with L kept: the sweep leaves l^T in the upper triangle of
-// the A half and the pivot on its diagonal, so each leaf's L_pp is read out
-// of shared memory, and L's off-diagonal blocks are the ones the elimination
-// forms anyway; K6 skips the block triangular inverse.  A block of n = 1024
-// f32 is 4 MB, far above a block's 227 KB of shared memory, so the TPU's
-// whole-block sweep is not carried over: the blocked routine is the design,
-// with its workspace in device memory.  A ragged n (n % 128 = r != 0) is
-// read into the workspace padded to the next multiple of 128 as
-// [[A, 0], [0, I]] by masked scalar loads (no row of the input needs to be
-// aligned); its factor is [[L, 0], [0, I]], so the padding is exact and the
-// padded pivots stay 1, and the result is the n x n corner of the padded
-// outputs, zeros above the diagonal.  One block of 1024 threads does it all: like K2
-// it is bound by the dependent column steps (n rounded up to 128 of them)
-// and the in-block 128-cubed GEMMs between leaves, not by its 12 n^2 bytes
-// or 2 n^3 / 3 operations.
+// K2 at b > 128, K5 (chol_inv_block) and K6 (chol_block) run the blocked
+// factorization gpc_chol_blocked: a plan of launches that ops/chol_pallas.py
+// builds (chol_plan) and this file runs, one kernel per step on the caller's
+// stream, each on as many blocks as the step has 128-tiles (and batch
+// entries): per panel p the leaf, the panel solve L_ip = A_ip L_pp^-T and
+// the trailing update A_ij -= L_ip L_jp^T; then, for the inverse, the
+// diagonals of the block-triangular inverse.  K5 replaces
+// gpc_tpu/ops/chol_pallas.py::chol_inv_block: both its branches, the fused
+// blocked kernel for n a multiple of 128 (chol_inv_block_fused, :213) and
+// the masked column sweep with a forward-substitution inverse for any other
+// n (_chol_inv_kernel, :185): (L, L^-1) of one PD f32 block, any n up to
+// 1024.  K6 replaces chol_pallas.py::chol_block (_chol_kernel, :88): L
+// alone, the same plan without the inverse's diagonals.  A ragged n (n % 128
+// = r != 0) is first copied into the workspace padded to the next multiple
+// of 128 as [[A, 0], [0, I]] (pad_kernel; no row of the input needs to be
+// aligned); its factor is [[L, 0], [0, I]], so the padding is exact, and the
+// result is the n x n corner of the padded outputs, zeros above the
+// diagonal.  Without padding the first panel reads the input and writes its
+// trailing update into the workspace, which every later step works in.  The
+// bound: 2 n^3 / 3 f32 operations (K5) at n = 1000 is 10 us of the card's
+// 67 TFLOP/s, but the critical path is the chain of n / 128 leaves, each
+// followed by two dependent tile GEMMs; chol_tiles.cuh notes the design.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "chol_tiles.cuh"
 #include "gram.cuh"
-#include "leaf.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -82,45 +81,108 @@ constexpr int CS_BYTES = FT_M * CS_LD * (int)sizeof(float);
 constexpr int TILE_SMEM = STAGE_BYTES > CS_BYTES ? STAGE_BYTES : CS_BYTES;
 
 // ---------------------------------------------------------------------------
-// K2, K5 and K6 on the leaf routines of leaf.cuh
+// K2, K5 and K6: the blocked factorization's steps
 // ---------------------------------------------------------------------------
 
-// One block per batch entry: (M, logdet) of A[k] (destroyed).
-__global__ void __launch_bounds__(LEAF_THREADS)
-    factor_diag_kernel(float* A, int b, float* M, float* Lw, float* ld) {
-  extern __shared__ float smem[];
-  const size_t off = (size_t)blockIdx.x * b * b;
-  const double l = factor_diag_block(A + off, b, b, 0.0f, M + off, b,
-                                     Lw + off, smem);
-  if (threadIdx.x == 0) ld[blockIdx.x] = (float)l;
-}
+// Step kinds of a plan (ops/chol_pallas.py::chol_plan).
+enum StepKind { STEP_LEAF = 0, STEP_SOLVE = 1, STEP_UPDATE = 2, STEP_INV = 3 };
 
-// A (n x n) into Aw (np x np) as [[A, 0], [0, I]]: warp w takes rows w,
-// w + 32, ..., its lanes the columns, eight loads in flight a thread.  Kept
-// out of line: inlined, its registers stayed live into the factorization's
-// loops, which spilled (K6 ran 45 % slower).
-__device__ __noinline__ void pad_block(const float* __restrict__ A, int n, int np,
-                                       float* __restrict__ Aw) {
-  const int lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < np; r += LEAF_THREADS / 32) {
-#pragma unroll 8
-    for (int c = lane; c < np; c += 32)
-      Aw[r * np + c] = r < n && c < n ? A[r * n + c] : (r == c ? 1.0f : 0.0f);
+// Each batch entry of A (n x n) into Aw (np x np) as [[A, 0], [0, I]],
+// grid-stride.  Kept out of
+// the factorization's kernels (inlined into the first design's single
+// kernel, its registers stayed live and spilled: K6 ran 45 % slower).
+__global__ void __launch_bounds__(TILE_THREADS)
+    pad_kernel(const float* __restrict__ A, int n, int np, int batch,
+               float* __restrict__ Aw) {
+  const size_t block = (size_t)np * np;
+  for (size_t e = (size_t)blockIdx.x * TILE_THREADS + threadIdx.x; e < batch * block;
+       e += (size_t)gridDim.x * TILE_THREADS) {
+    const size_t b = e / block;
+    const int r = (int)(e % block / np);
+    const int c = (int)(e % np);
+    Aw[e] = r < n && c < n ? A[b * n * n + (size_t)r * n + c] : (r == c ? 1.0f : 0.0f);
   }
 }
 
-// K5 (INV) and K6: L, and L^-1 under INV, of A (n x n, any n <= 1024).  A
-// is read into the workspace Aw (np x np, np = n rounded up to LEAF) as
-// [[A, 0], [0, I]]; L and M are np x np, their n x n corner the result.
-// One block.
-template <bool INV>
-__global__ void __launch_bounds__(LEAF_THREADS)
-    chol_any_kernel(const float* __restrict__ A, int n, int np, float* Aw,
-                    float* L, float* M) {
-  extern __shared__ float smem[];
-  pad_block(A, n, np, Aw);
-  __syncthreads();
-  factor_diag_block<true, INV>(Aw, np, np, 0.0f, M, np, L, smem);
+// The leaf of panel p, one block per batch entry (blockIdx.y): (L_pp, M_pp)
+// of src's block (p, p).  With ldw: the batch entry's logdet accumulates in
+// stream order over the panels (deterministic), and the last panel's leaf
+// writes it to ld as float.
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    chol_leaf_kernel(const float* __restrict__ src, int np, int p, float* L,
+                     float* M, double* ldw, float* ld, int last) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t off = (size_t)blockIdx.y * np * np + (size_t)p * LEAF * np + p * LEAF;
+  const double l = leaf128(src + off, np, 0.0f, L + off, np, M + off, np, smem);
+  if (ldw != nullptr && threadIdx.x == 0) {
+    const double v = (p == 0 ? 0.0 : ldw[blockIdx.y]) + l;
+    ldw[blockIdx.y] = v;
+    if (last) ld[blockIdx.y] = (float)v;
+  }
+}
+
+// Panel solve, one block per tile (i, p) below the leaf: L_ip = src_ip
+// M_pp^T; the mirrored tile (p, i) of L, and of M when zero_m, is zeroed
+// (the results are lower triangular).
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    chol_solve_kernel(const float* __restrict__ src, int np, int p,
+                      const int2* __restrict__ tiles, float* L, float* M, int zero_m) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t base = (size_t)blockIdx.y * np * np;
+  const int i = tiles[blockIdx.x].x;
+  const size_t ip = base + (size_t)i * LEAF * np + p * LEAF;
+  const size_t pp = base + (size_t)p * LEAF * np + p * LEAF;
+  const size_t pi = base + (size_t)p * LEAF * np + i * LEAF;
+  float acc[8][8];
+  acc_zero(acc);
+  mm128<true>(acc, src + ip, np, M + pp, np, smem);
+  acc_store(acc, L + ip, np, nullptr, 1.0f);
+  for (int e = threadIdx.x; e < LEAF * LEAF; e += TILE_THREADS) {
+    const size_t o = pi + (size_t)(e / LEAF) * np + e % LEAF;
+    L[o] = 0.0f;
+    if (zero_m) M[o] = 0.0f;
+  }
+}
+
+// Trailing update, one block per lower tile (i, j), p < j <= i: Aw_ij =
+// src_ij - L_ip L_jp^T.
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    chol_update_kernel(const float* src, int np, int p,
+                       const int2* __restrict__ tiles, const float* __restrict__ L,
+                       float* Aw) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t base = (size_t)blockIdx.y * np * np;
+  const int2 ij = tiles[blockIdx.x];
+  const size_t o = base + (size_t)ij.x * LEAF * np + ij.y * LEAF;
+  float acc[8][8];
+  acc_zero(acc);
+  mm128<true>(acc, L + base + (size_t)ij.x * LEAF * np + p * LEAF, np,
+              L + base + (size_t)ij.y * LEAF * np + p * LEAF, np, smem);
+  acc_store(acc, Aw + o, np, src + o, -1.0f);
+}
+
+// Block inverse, diagonal d, one block per tile (i, j = i - d): S = sum_{j <=
+// k < i} L_ik M_kj into M_ij, then M_ij = -M_ii S (the tiles M_kj it reads
+// lie on earlier diagonals, written by earlier launches).
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    chol_inv_kernel(int np, const int2* __restrict__ tiles,
+                    const float* __restrict__ L, float* M) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t base = (size_t)blockIdx.y * np * np;
+  const int2 ij = tiles[blockIdx.x];
+  const int i = ij.x;
+  const int j = ij.y;
+  float* Mij = M + base + (size_t)i * LEAF * np + j * LEAF;
+  float acc[8][8];
+  acc_zero(acc);
+  for (int k = j; k < i; ++k)
+    mm128<false>(acc, L + base + (size_t)i * LEAF * np + k * LEAF, np,
+                 M + base + (size_t)k * LEAF * np + j * LEAF, np, smem);
+  acc_store(acc, Mij, np, nullptr, 1.0f);
+  __syncthreads();   // S complete in M_ij for every thread of the block
+  acc_zero(acc);
+  mm128<false>(acc, M + base + (size_t)i * LEAF * np + i * LEAF, np, Mij, np, smem);
+  acc_store(acc, Mij, np, nullptr, -1.0f);   // mm128 ended past its last read of S
 }
 
 // ---------------------------------------------------------------------------
@@ -280,36 +342,36 @@ __global__ void __launch_bounds__(GRAM_THREADS)
   acc[e] = g - corr;
 }
 
-// K2 on the diagonal block acc[:b] + noise I, then v_j = bf16(v[:, jb:jb+b])
-// bf16(M)^T written back over v[:, jb:jb+b] (the bf16 policy of _vrow_gemm).
+// K2 (leaf128) on the diagonal block acc[:b] + noise I, then v_j =
+// bf16(v[:, jb:jb+b]) bf16(M)^T written back over v[:, jb:jb+b] (the bf16 policy of _vrow_gemm).
 // Mode "full+diag" (T not null): M = L_jj^-1 also goes, as bf16, into the
 // lower triangle of T's diagonal block j (_panel_kernel's "diag" residual,
 // which the training backward rebuilds L_jj from).  The leaf runs for every
 // panel, the last included, so every diagonal block is written; the upper
 // triangle keeps the zeros T was allocated with.
-__global__ void __launch_bounds__(LEAF_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS, 1)
     panel_leaf_kernel(float* acc, float noise, float* Md, float* v, int D,
                       int N, int jb, double* ldj, bf16* T) {
-  extern __shared__ float smem[];
-  const double l = factor_diag_block(acc, LEAF, LEAF, noise, Md, LEAF,
-                                     nullptr, smem);
+  extern __shared__ __align__(16) float smem[];
+  const double l = leaf128(acc, LEAF, noise, nullptr, 0, Md, LEAF, smem);
   const int t = threadIdx.x;
   if (t == 0) *ldj = l;
-  if (T != nullptr)   // Md is complete: factor_diag_block ends in a barrier
-    for (int e = t; e < LEAF * LEAF; e += LEAF_THREADS) {
+  if (T != nullptr)   // Md is complete: leaf128 ends in a barrier
+    for (int e = t; e < LEAF * LEAF; e += TILE_THREADS) {
       const int r = e / LEAF;
       const int c = e % LEAF;
       if (c <= r)
         T[(size_t)(jb + r) * N + jb + c] = __float2bfloat16(Md[e]);
     }
-  float* vin = smem;  // the sweep's storage is free again
+  float* vin = smem;                          // L's storage is free again
+  const float* Ms = smem + LEAF * LDS;        // M = L_jj^-1 stays in shared memory
   for (int d = 0; d < D; ++d) {
     __syncthreads();
     if (t < LEAF) vin[t] = bf16_round(v[(size_t)d * N + jb + t]);
     __syncthreads();
     if (t < LEAF) {
       float s = 0.0f;
-      for (int k = 0; k <= t; ++k) s += vin[k] * bf16_round(Md[t * LEAF + k]);
+      for (int k = 0; k <= t; ++k) s += vin[k] * bf16_round(Ms[t * LDS + k]);
       v[(size_t)d * N + jb + t] = s;
     }
   }
@@ -401,27 +463,66 @@ __global__ void __launch_bounds__(FIN_THREADS)
 
 }  // namespace
 
-extern "C" int gpc_factor_diag(float* A, int batch, int b, float* M,
-                               float* Lw, float* ld, void* stream) {
-  cudaFuncSetAttribute(factor_diag_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)LEAF_SMEM);
-  if (batch > 0)
-    factor_diag_kernel<<<batch, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
-        A, b, M, Lw, ld);
-  return (int)cudaGetLastError();
-}
-
-// K5 (inverse = 1) and K6 (inverse = 0: M, np x np, is then only the
-// workspace of the leaves' inverses).  K6's L must be zero on entry:
-// without the block inverse nothing writes its blocks above the diagonal.
-extern "C" int gpc_chol_block(const float* A, int n, int np, float* Aw,
-                              float* L, float* M, int inverse, void* stream) {
-  auto kernel = inverse ? chol_any_kernel<true> : chol_any_kernel<false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)LEAF_SMEM);
-  kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(A, n, np, Aw,
-                                                               L, M);
+// K2 (batch entries of b x b, inverse = 1), K5 (inverse = 1) and K6
+// (inverse = 0: M, np x np, is then only the workspace of the leaves'
+// inverses).  steps: nsteps host rows (kind, p or d, first tile, tiles);
+// tiles: device int2 (i, j) pairs.  The first panel reads A (read only) and
+// every later step the workspace Aw; Aw may be null when the plan has
+// one panel and A is read in place.  copy: A is first copied into Aw,
+// padded as [[A, 0], [0, I]] (a ragged n, or an A whose rows are not 16-byte
+// aligned).  ldw (batch doubles) and ld (batch floats) may be null: then no
+// logdet is formed.
+extern "C" int gpc_chol_blocked(const float* A, int n, int copy, int np, int batch,
+                                float* Aw, float* L, float* M, double* ldw,
+                                float* ld, const int* steps, int nsteps,
+                                const int* tiles, int inverse, void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(chol_leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)LEAF_SMEM);
+    cudaFuncSetAttribute(chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)MM_SMEM);
+    cudaFuncSetAttribute(chol_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)MM_SMEM);
+    cudaFuncSetAttribute(chol_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)MM_SMEM);
+    configured = true;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* src = A;
+  if (copy) {
+    pad_kernel<<<(batch * np * np + 4 * TILE_THREADS - 1) / (4 * TILE_THREADS),
+                 TILE_THREADS, 0, s>>>(A, n, np, batch, Aw);
+    src = Aw;
+  }
+  const int nbl = np / LEAF;
+  const int2* tl = reinterpret_cast<const int2*>(tiles);
+  for (int q = 0; q < nsteps; ++q) {
+    const int kind = steps[4 * q];
+    const int p = steps[4 * q + 1];
+    const int2* t = tl + steps[4 * q + 2];
+    const dim3 grid(steps[4 * q + 3], batch);
+    const float* sp = p == 0 ? src : Aw;
+    switch (kind) {
+      case STEP_LEAF:
+        chol_leaf_kernel<<<dim3(1, batch), TILE_THREADS, LEAF_SMEM, s>>>(
+            sp, np, p, L, M, ldw, ld, p == nbl - 1);
+        break;
+      case STEP_SOLVE:
+        chol_solve_kernel<<<grid, TILE_THREADS, MM_SMEM, s>>>(sp, np, p, t, L, M, inverse);
+        break;
+      case STEP_UPDATE:
+        chol_update_kernel<<<grid, TILE_THREADS, MM_SMEM, s>>>(sp, np, p, t, L, Aw);
+        break;
+      case STEP_INV:
+        chol_inv_kernel<<<grid, TILE_THREADS, MM_SMEM, s>>>(np, t, L, M);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -466,7 +567,7 @@ extern "C" int gpc_panel_leaf(float* acc, float noise, float* Md, float* v,
   cudaFuncSetAttribute(panel_leaf_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)LEAF_SMEM);
-  panel_leaf_kernel<<<1, LEAF_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
+  panel_leaf_kernel<<<1, TILE_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
       acc, noise, Md, v, D, N, jb, ldj, static_cast<bf16*>(T));
   return (int)cudaGetLastError();
 }

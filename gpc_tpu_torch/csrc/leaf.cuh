@@ -1,7 +1,8 @@
-// K2's leaf routines, shared by the panel evidence (chol_panel.cu), the
-// whole-evidence probe K7 (chol_mega.cu) and the overlap probes K8a
-// (probes.cu).  Every routine here is run by one block of LEAF_THREADS
-// threads and assumes that block size.
+// The first design of K2's leaf routines, kept for the probes that were
+// measured on it: the whole-evidence probe K7 (chol_mega.cu) and the overlap
+// probes K8a (probes.cu).  K2, K3's leaf, K5 and K6 run chol_tiles.cuh's
+// redesign.  Every routine here is run by one block of LEAF_THREADS threads
+// and assumes that block size.
 //
 // leaf_sweep inverts one 128 x 128 PD block by the augmented [A | I]
 // Gauss-Jordan sweep in shared memory (128 x 256 f32 = 128 KB, dynamic

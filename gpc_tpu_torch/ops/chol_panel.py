@@ -5,7 +5,7 @@ Pallas program, modes "full" and "full+diag") and its leaf
 `_factor_diag_fast`.  K5 (`chol_inv_block`, the leaf of
 ops/evidence_fast.py's leafinv="pallas") runs on the same leaf routine and
 lives in ops/chol_pallas.py, gpc_tpu's module for it; it is re-exported
-here.  The CUDA sources are `csrc/chol_panel.cu` and `csrc/leaf.cuh`
+here.  The CUDA sources are `csrc/chol_panel.cu` and `csrc/chol_tiles.cuh`
 (design and bounds noted there).  K3 is a host loop
 over 128-wide column panels, three steps per panel (Gram fill minus the
 split-K bf16 Schur correction; the K2 leaf with the forward-solve step; the
@@ -32,6 +32,7 @@ import torch
 
 from gpc_tpu_torch.ops import cuda_lib
 from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain  # noqa: F401
+from gpc_tpu_torch.ops.chol_pallas import launch_blocked
 from gpc_tpu_torch.ops.gram import dist_gram_plain
 
 LEAF = 128   # the leaf width; the CUDA panel width b is LEAF
@@ -49,7 +50,9 @@ def factor_diag_plain(A: torch.Tensor):
 
 def factor_diag(A: torch.Tensor):
     """(L⁻¹, log|A|) of a batch of PD blocks A (B, b, b), b a multiple of 128.
-    CPU: the plain version.  CUDA: the K2 leaf kernel, one block per entry."""
+    CPU: the plain version.  CUDA: K2, the blocked factorization with its
+    inverse (ops/chol_pallas.launch_blocked) on all B blocks at once: one
+    128-leaf launch when b = 128."""
     if A.device.type == "cpu":
         return factor_diag_plain(A)
     cuda_lib.require_cuda("factor_diag", A)
@@ -57,13 +60,10 @@ def factor_diag(A: torch.Tensor):
         raise ValueError(f"factor_diag: want (B, b, b) with b % {LEAF} == 0, "
                          f"got {tuple(A.shape)}")
     batch, b, _ = A.shape
-    work = A.clone()                         # the kernel overwrites its input
     M = torch.empty_like(A)
     Lw = torch.empty_like(A)
     ld = torch.empty(batch, dtype=torch.float32, device=A.device)
-    cuda_lib.launch("factor_diag", "gpc_factor_diag", work.data_ptr(), batch,
-                    b, M.data_ptr(), Lw.data_ptr(), ld.data_ptr(),
-                    cuda_lib.stream_of(A))
+    launch_blocked("factor_diag", A, b, batch, True, Lw, M, ld)
     return M, ld
 
 

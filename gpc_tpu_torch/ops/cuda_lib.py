@@ -36,10 +36,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
-    "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
-    "gpc_factor_diag": [_P, _I, _I, _P, _P, _P, _P],
-    "gpc_chol_block": [_P, _I, _I, _P, _P, _P, _I, _P],
+    "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
+    "gpc_chol_blocked": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     "gpc_panel_fill": [_P, _I, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P],
     "gpc_panel_leaf": [_P, _F, _P, _P, _I, _I, _I, _P, _P, _P],
     "gpc_panel_solve": [_P, _P, _P, _P, _I, _I, _I, _P],

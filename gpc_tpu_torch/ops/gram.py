@@ -6,8 +6,10 @@ inner-product family: lin, poly, mlp).  `dist_gram` / `inner_gram` launch
 the CUDA kernel of `csrc/gram.cu` for a CUDA tensor and take the plain
 version (the same math: dist2 or X1·X2ᵀ, then the map) for a CPU tensor.
 Both kernels are bound by their n·m·4-byte output on the H100; the design
-note is in the source.  Their autograd wrappers launch the kernel forward
-and recompute the plain map under autograd in the backward.
+note is in the source.  They read their parameters from the device
+(`kernel_params`), so a launch never syncs the host and can be captured in
+a CUDA graph.  Their autograd wrappers launch the kernel forward and
+recompute the plain map under autograd in the backward.
 
 params follow gpc_tpu.kernels: rbf/exp → [inverseWidth, variance],
 ratquad → [alpha, lengthScale, variance], matern32/52 → [lengthScale,
@@ -106,24 +108,33 @@ class _DistGram(torch.autograd.Function):
                                      ctx.saved_tensors, ctx.needs_input_grad[1:], Kbar))
 
 
+def kernel_params(params, X1: torch.Tensor) -> torch.Tensor:
+    """The parameters a Gram kernel reads: float32 on X1's device, padded
+    with zeros to 3 in gpc_tpu.kernels' order.  Built on the device from
+    the device tensor the model passes (`_padded_params`; a contiguous
+    float32 vector of three is used as it is), never read back to the host,
+    so a launch does not wait for the device."""
+    p = torch.as_tensor(params, dtype=torch.float32, device=X1.device).reshape(-1)
+    return p.contiguous() if p.shape[0] == 3 else _padded_params(p, torch.float32, X1.device)
+
+
 def _kernel_args(name, params, X1, X2):
-    """Checks of a Gram kernel's inputs; (n, m, q, the three params as
-    floats, the output)."""
+    """Checks of a Gram kernel's inputs; (n, m, q, the padded parameters on
+    the device, the output)."""
     cuda_lib.require_cuda(name, X1, X2)
     if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
         raise ValueError(f"{name}: shapes {tuple(X1.shape)}, {tuple(X2.shape)}")
     n, q = X1.shape
     m = X2.shape[0]
-    p = [float(v) for v in torch.as_tensor(params).reshape(-1).tolist()]
-    p += [0.0] * (3 - len(p))
-    return n, m, q, p, torch.empty((n, m), dtype=torch.float32, device=X1.device)
+    return n, m, q, kernel_params(params, X1), torch.empty((n, m), dtype=torch.float32,
+                                                           device=X1.device)
 
 
 def dist_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
     """K1 itself on CUDA tensors (float32, contiguous), no autograd."""
     n, m, q, p, out = _kernel_args("dist_gram", params, X1, X2)
     cuda_lib.launch("dist_gram", "gpc_dist_gram", X1.data_ptr(), X2.data_ptr(),
-                    n, m, q, FAMILIES.index(family), p[0], p[1], p[2],
+                    n, m, q, FAMILIES.index(family), p.data_ptr(),
                     out.data_ptr(), cuda_lib.stream_of(X1))
     return out
 
@@ -178,11 +189,19 @@ class _InnerGram(torch.autograd.Function):
                                            ctx.needs_input_grad[2:], Kbar))
 
 
+def whole_degree(degree: float) -> int:
+    """poly's degree as the kernel's multiply count when it is a whole
+    number 0 … 16, else −1 (the kernel then calls powf)."""
+    return int(degree) if float(degree).is_integer() and 0 <= degree <= 16 else -1
+
+
 def inner_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
                       degree: float = 2.0):
-    """K4 itself on CUDA tensors (float32, contiguous), no autograd."""
+    """K4 itself on CUDA tensors (float32, contiguous), no autograd; degree
+    is a Python number."""
     n, m, q, p, out = _kernel_args("inner_gram", params, X1, X2)
     cuda_lib.launch("inner_gram", "gpc_inner_gram", X1.data_ptr(), X2.data_ptr(),
-                    n, m, q, INNER_FAMILIES.index(family), p[0], p[1], p[2],
-                    float(degree), out.data_ptr(), cuda_lib.stream_of(X1))
+                    n, m, q, INNER_FAMILIES.index(family), p.data_ptr(),
+                    float(degree), whole_degree(degree), out.data_ptr(),
+                    cuda_lib.stream_of(X1))
     return out

@@ -9,8 +9,8 @@ machine run it as
 
 Tolerances: K1, K2, K4 and K5 compute in float32 like their plain
 versions and differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet,
-on K1's and K4's gradients and of the output's scale for K4's power and
-arcsin maps; 1e-3 on ‖ML − I‖ and of max|L| for K5); K3 and the slice carry
+on K1's and K4's gradients, of the output's scale for K4's power and
+arcsin maps and for every map at the ragged widths (q up to 130); 1e-3 on ‖ML − I‖ and of max|L| for K5); K3 and the slice carry
 the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own bound; 2e-2 of
 their max on T's diagonal blocks; 8e-2 relative L2 on panel gradients) or
 float32 against the CPU's float64 (1e-4 on predictions, 2e-3 on the
@@ -70,6 +70,56 @@ def test_dist_gram_kernel_matches_plain(dev, family):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1.3e-6)
 
 
+@pytest.mark.parametrize("m", [1, 3, 63, 65, 777])
+@pytest.mark.parametrize("q", [1, 3, 8, 17, 40, 130])
+def test_gram_kernels_at_ragged_widths(dev, m, q):
+    """K1 and K4 at ragged column counts (rows that start misaligned when m
+    % 4 != 0, the stripe's ragged edge) and input widths (q exactly; above
+    96 the stripe is staged in chunks), n = 130: every family against its
+    plain version, one launch each."""
+    rng = np.random.default_rng(100 * m + q)
+    X1, X2 = _randn(rng, (130, q), dev) / q ** 0.5, _randn(rng, (m, q), dev) / q ** 0.5
+    for family, p in {**PARAMS, **INNER}.items():
+        inner = family in INNER
+        name = "inner_gram" if inner else "dist_gram"
+        before = LAUNCHES[name]
+        if inner:
+            got = TG.inner_gram(family, p, X1, X2, 3.0)
+            want = TG.inner_gram_plain(family, p, X1, X2, 3.0)
+        else:
+            got = TG.dist_gram(family, p, X1, X2)
+            want = TG.dist_gram_plain(family, p, X1, X2)
+        assert LAUNCHES[name] == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("family", ["rbf", "matern52", "poly", "mlp"])
+def test_gram_launch_captures_in_a_cuda_graph(dev, family):
+    """A K1/K4 launch inside torch.cuda.graph capture (which fails on any
+    host read of the parameters): replayed after the parameters changed on
+    the device, the graph's output is the new parameters' Gram."""
+    rng = np.random.default_rng(41)
+    X1, X2 = _randn(rng, (300, 5), dev), _randn(rng, (211, 5), dev)
+    inner = family in INNER
+    p = torch.tensor({**PARAMS, **INNER}[family], dtype=torch.float32, device=dev)
+    run = ((lambda: TG.inner_gram_kernel(family, p, X1, X2, 3.0)) if inner
+           else (lambda: TG.dist_gram_kernel(family, p, X1, X2)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                              # warm up (and build) outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    p.mul_(0.8)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = (TG.inner_gram_plain(family, p, X1, X2, 3.0) if inner
+            else TG.dist_gram_plain(family, p, X1, X2))
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     X = torch.zeros((8, 2), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="dtype"):
@@ -81,7 +131,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         TCP.panel_state_rbf(Xf, Xf[:, :1].contiguous(), 1.0, 1.0, 0.1)
 
 
-@pytest.mark.parametrize("b", [128, 256])
+@pytest.mark.parametrize("b", [128, 256, 512])
 def test_factor_diag_kernel_matches_plain(dev, b):
     rng = np.random.default_rng(b)
     Z = _randn(rng, (4, b, b), dev)
@@ -290,7 +340,7 @@ def test_chol_inv_block_kernel_matches_plain(dev, n):
         TCP.chol_inv_block(A.clone().requires_grad_(True))
 
 
-@pytest.mark.parametrize("n", [96, 157, 192, 1000, 1024])
+@pytest.mark.parametrize("n", [1, 2, 96, 127, 128, 129, 157, 192, 255, 257, 1000, 1024])
 def test_chol_block_and_ragged_chol_inv_block_match_plain(dev, n):
     """K6 (L alone) and K5 at ragged and whole sizes: L within 1e-3 of the
     plain version's largest entry, zeros above the diagonal, ‖ML − I‖ ≤ 1e-3."""
@@ -306,6 +356,27 @@ def test_chol_block_and_ragged_chol_inv_block_match_plain(dev, n):
     assert not bool(L.triu(1).any())
     with pytest.raises(ValueError, match="n <= 1024"):
         TCPL.chol_block(torch.eye(1152, device=dev))
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_chol_kernels_take_an_unaligned_input(dev, n):
+    """A contiguous input that does not start 16-byte aligned (the kernels
+    read 16-byte rows) is copied first: K5, K6 and K2 (two batch entries)
+    against their plain versions."""
+    rng = np.random.default_rng(n + 3)
+    Z = _randn(rng, (2, n, n), dev)
+    A = Z @ Z.mT / n + 0.5 * torch.eye(n, device=dev)
+    buf = torch.empty(2 * n * n + 1, device=dev)
+    Au = buf[1:].view(2, n, n)
+    Au.copy_(A)
+    assert Au.is_contiguous() and Au.data_ptr() % 16 != 0
+    _check_chol_inv(Au[0])
+    L = TCPL.chol_block(Au[0])
+    assert float((L - TCPL.chol_block_plain(A[0])).abs().max()) < 1e-3 * float(L.abs().max())
+    M, ld = TCP.factor_diag(Au)
+    _, ld_want = TCP.factor_diag_plain(A)
+    torch.testing.assert_close(ld, ld_want, rtol=1e-4, atol=0.0)
+    assert float((M @ torch.linalg.cholesky(A) - torch.eye(n, device=dev)).abs().max()) < 1e-3
 
 
 def test_evidence_mega_kernel_matches_plain(dev):

@@ -6,7 +6,10 @@ they differ only in summation order: rtol/atol 2e-5 for K1 and 2e-4 for K4
 (the power and arcsin maps), as tests/test_gram_pallas.py holds the Pallas
 kernels to gpc_tpu's kernels.  The CUDA kernels are compared with the plain
 versions on the card in tests/test_torch_cuda.py; their autograd wrappers
-run here with the launch swapped for the plain version.
+run here with the launch swapped for the plain version.  The kernels' launch
+path runs here too, with the CUDA checks and the launch recorded: it must
+hand the kernel a device pointer to gpc_tpu's parameters padded to 3 and
+read no tensor back to the host.
 """
 
 import numpy as np
@@ -150,3 +153,64 @@ def test_inner_autograd_wrapper_matches_native(monkeypatch, family, same):
     assert torch.equal(K_w, K_n)
     for a, b in zip(g_w, g_n):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14)
+
+
+GK_CLASS = {"rbf": GK.Rbf, "exp": GK.Exp, "ratquad": GK.RatQuad, "matern32": GK.Matern32,
+            "matern52": GK.Matern52, "lin": GK.Lin, "poly": GK.Poly, "mlp": GK.Mlp}
+HOST_READS = ("tolist", "item", "__float__", "__int__", "__bool__", "cpu", "numpy")
+
+
+def _host_read(*args, **kwargs):
+    raise AssertionError("a Gram launch read a tensor back to the host")
+
+
+@pytest.mark.parametrize("family", TG.FAMILIES + TG.INNER_FAMILIES)
+def test_kernel_launch_takes_device_parameters(monkeypatch, family):
+    """K1/K4's launch path (dist_gram_kernel / inner_gram_kernel) on CPU
+    stand-ins: the kernel gets a pointer to the float32 parameters padded
+    with zeros to 3, in gpc_tpu's order (gpc_tpu's own kernel at those
+    parameters equals the plain map of the packed vector), and no
+    Tensor.tolist / item / float / int / bool / cpu / numpy is called."""
+    inner = family in TG.INNER_FAMILIES
+    params = np.asarray({**PARAMS, **INNER}[family], np.float32)
+    rng = np.random.default_rng(31)
+    X1 = torch.from_numpy(rng.standard_normal((30, 3)).astype(np.float32))
+    X2 = torch.from_numpy(rng.standard_normal((20, 3)).astype(np.float32))
+    p = torch.from_numpy(params)
+    launched, packed = [], []
+    pack = TG.kernel_params
+    monkeypatch.setattr(TG.cuda_lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(TG.cuda_lib, "launch", lambda *a: launched.append(a))
+    monkeypatch.setattr(TG.cuda_lib, "stream_of", lambda t: 0)
+    monkeypatch.setattr(TG, "kernel_params", lambda *a: packed.append(pack(*a)) or packed[-1])
+    with monkeypatch.context() as m:
+        for name in HOST_READS:
+            m.setattr(torch.Tensor, name, _host_read)
+        if inner:
+            out = TG.inner_gram_kernel(family, p, X1, X2, 3.0)
+        else:
+            out = TG.dist_gram_kernel(family, p, X1, X2)
+    (args,) = launched
+    assert args[:2] == (("inner_gram", "gpc_inner_gram") if inner else ("dist_gram", "gpc_dist_gram"))
+    (dev_params,) = packed
+    assert args[2:8] == (X1.data_ptr(), X2.data_ptr(), 30, 20, 3,
+                         (TG.INNER_FAMILIES if inner else TG.FAMILIES).index(family))
+    assert args[8] == dev_params.data_ptr()
+    if inner:
+        assert args[9:11] == (3.0, 3)   # poly's whole degree goes as a multiply count
+    assert args[-2] == out.data_ptr() and out.shape == (30, 20)
+    assert dev_params.dtype == torch.float32 and dev_params.device == X1.device
+    want = np.zeros(3, np.float32)
+    want[:params.size] = params
+    assert torch.equal(dev_params, torch.from_numpy(want))
+    gk = GK_CLASS[family](input_dim=3, **({"degree": 3.0} if family == "poly" else {}))
+    ref = np.asarray(gk.compute(jnp.asarray(params), jnp.asarray(X1.numpy()),
+                                jnp.asarray(X2.numpy())))
+    plain = (TG.inner_gram_plain(family, dev_params, X1, X2, 3.0) if inner
+             else TG.dist_gram_plain(family, dev_params, X1, X2))
+    np.testing.assert_allclose(plain.numpy(), ref, rtol=2e-4, atol=2e-5)
+
+
+def test_whole_degree():
+    assert [TG.whole_degree(d) for d in (0.0, 2.0, 3, 16.0)] == [0, 2, 3, 16]
+    assert [TG.whole_degree(d) for d in (2.5, -1.0, 17.0)] == [-1, -1, -1]
