@@ -32,8 +32,11 @@ register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
 time them in rounds (median and spread), K2 at b = 128, 256 and 512, K5
 and K6 beside their kernels' device time under torch.profiler, K6 beside
-torch.linalg.cholesky and cholesky_ex; phase 4 also holds K3 at N = 32768
-to the dense f32 and f64 routes.  Each path runs with the launch counts
+torch.linalg.cholesky and cholesky_ex; phase 4 also holds K3's wgmma/TMA
+correction kernel alone to the float32 product of its bf16 operands, prints
+K3's device time by part (correction, leaf, solve, reduce) against its
+wall and the correction's byte floor, and holds K3 at N = 32768 to the dense
+f32 and f64 routes.  Each path runs with the launch counts
 set to 0 just before it and read just after.  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
@@ -132,6 +135,12 @@ def k3_bound(n, q, d, b=128):
                           "f32": n * n / 2 * (2 * q + 6) + (n // b) * 2 * b ** 3 / 3 + d * n * n})
 
 
+def k3_byte_floor(n, b=128):
+    """Bytes K3's correction streams at panel width b: T[jb:n, :jb] (bf16)
+    once per panel, the floor of a correction that does not keep T on chip."""
+    return sum(2 * (n - jb) * jb for jb in range(0, n, b))
+
+
 def k8b_bound(k, b, reps, a_copies=1):
     """Σ of reps (k, b)-contraction bf16 products: the operands (a_copies
     of A, and B) in, (b, b) float32 out; 2 k b² operations a product on
@@ -202,19 +211,22 @@ def paired_stats(kernel, plain, reps, rounds):
 
 def kernel_breakdown(fn, reps=3):
     """{kernel name: (device µs per call, launches per call)} of fn under
-    torch.profiler, after one warm-up call."""
-    from torch.autograd import DeviceType
+    torch.profiler, after one warm-up call, from the profiler's trace."""
     from torch.profiler import ProfilerActivity, profile
+
+    from gpc_tpu_torch.profile_slice import trace_kernels
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0][-40:]:
-            (e.self_device_time_total / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    out = {}
+    for (key, _), us in trace_kernels(prof).items():
+        name = key.replace("(anonymous namespace)::", "").split("(")[0][-40:]
+        t, c = out.get(name, (0.0, 0.0))
+        out[name] = (t + sum(us) / reps, c + len(us) / reps)
+    return out
 
 
 def check(cond, what):
@@ -435,15 +447,50 @@ def phase_panel(dev):
     check(bool(torch.isfinite(v).all()), "K3 v not finite")
     log(f"phase 4 K3 N={N} D=2: logdet {float(ld)} vs {float(ld_p)} "
         f"(rel {ld_rel}), diag(G) rel {g_rel}")
-    del _T, _Tp, v, v_p
+    del _Tp, v, v_p
+    phase_corr(dev, _T)
+    del _T
     ms, plain_ms = paired_ms(lambda: panel_state_rbf(*args),
                              lambda: panel_state_rbf_plain(*args), 3)
     log(f"phase 4 K3 N={N}: kernel {ms} ms, plain {plain_ms} ms")
-    log(f"phase 4 K3 N={N} device time by kernel (us a call, launches a call): "
-        f"{kernel_breakdown(lambda: panel_state_rbf(*args), 1)}")
+    by_kernel = kernel_breakdown(lambda: panel_state_rbf(*args), 1)
+    log(f"phase 4 K3 N={N} device time by kernel (us a call, launches a call): {by_kernel}")
+    parts = {part: sum(us for name, (us, _) in by_kernel.items() if kern in name) / 1e3
+             for part, kern in (("correction", "panel_corr"), ("leaf", "panel_leaf"),
+                                ("solve", "panel_solve"), ("reduce", "panel_gram"),
+                                ("finish", "panel_finish"))}
+    busy = sum(us for us, _ in by_kernel.values()) / 1e3
+    log(f"phase 4 K3 N={N} device ms by part: {parts}; kernels {busy} ms in a {ms} ms call "
+        f"(sum / wall {busy / ms}: above 1 is overlap)")
     bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
+    floor = k3_byte_floor(N)
+    log(f"phase 4 K3 N={N}: correction byte floor at b=128 {floor / 1e9} GB = "
+        f"{floor / HBM_BPS * 1e3} ms; k3_bound {bound_ms} ms ({bound_by}); "
+        f"correction {parts['correction']} ms = {floor / parts['correction'] / 1e9} TB/s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def phase_corr(dev, T):
+    """K3's correction kernel alone on the T of phase 4's K3 call (the bf16
+    factor), at the plan's splits and grid for the middle panel's diagonal
+    rows and rows below, against the float32 product of the same bf16
+    operands: within 1e-4 of Σ|a||b| (the tensor cores' truncating f32 sums
+    over the 256 k between register-sum flushes)."""
+    from gpc_tpu_torch.ops import chol_panel as CP
+    steps = CP.panel_plan(N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    j = N // 256
+    for st in (s for s in steps if s.kind == CP.FILL and s.j == j):
+        args = (T, j * 128, st.row0, st.row1, st.splits)
+        got = CP.panel_corr(*args, st.grid)
+        want = CP.panel_corr_plain(*args)
+        excess = float(((got - want).abs() - 1e-4 * CP.panel_corr_plain(T.abs(), *args[1:]))
+                       .max())
+        check(excess <= 0, f"K3 correction rows [{st.row0}, {st.row1}) of panel {j}: "
+                           f"error above 1e-4 of sum|a||b| by {excess}")
+        log(f"phase 4 K3 correction panel {j} rows [{st.row0}, {st.row1}), {st.splits} splits "
+            f"on {st.grid} blocks: max abs err {float((got - want).abs().max())} "
+            f"(max |want| {float(want.abs().max())})")
 
 
 N_DRIFT = 32768     # K3's drift check: twice the slice's N; T is 2 GiB of bf16
@@ -480,7 +527,8 @@ def phase_panel_drift(dev):
     for name in ("K3 vs f64", "K3 vs f32"):
         check(max(out[name]) < 2e-3, f"K3 at N={N_DRIFT}, {name}: (logdet, diag G) drift {out[name]}")
     log(f"phase 4 K3 drift N={N_DRIFT} (logdet rel, max diag(G) rel): {out}; K3 {ms} ms "
-        f"(first call)")
+        f"(first call); the WMMA correction before the wgmma one drifted (1.30e-5, 2.60e-4) "
+        f"from f64 (PERF.md §7)")
     return out
 
 
@@ -1287,7 +1335,7 @@ def main():
         phase_slice(dev, workdir)
         launches = dict(cuda_lib.LAUNCHES)
         log(f"inference-path launches: {launches}")
-        for name in ("dist_gram", "factor_diag", "panel_state_rbf"):
+        for name in ("dist_gram", "factor_diag", "panel_state_rbf", "panel_corr"):
             check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the inference path")
         torch.cuda.empty_cache()
 
@@ -1295,7 +1343,7 @@ def main():
         train = phase_train_cli(dev, workdir)
         train_launches = dict(cuda_lib.LAUNCHES)
         log(f"training-path launches: {train_launches}")
-        for name in ("dist_gram", "panel_leaf_diag"):
+        for name in ("dist_gram", "panel_leaf_diag", "panel_corr"):
             check(train_launches.get(name, 0) > 0, f"kernel {name} was not launched on the training path")
         torch.cuda.empty_cache()
 
@@ -1330,7 +1378,8 @@ def main():
     torch.cuda.empty_cache()
     vpu_launches, k8d, vpu = phase_vpu(dev)
     log("launches in the kernels line count wrapper calls; a K5 or K6 call launches several "
-        "kernels (phase 3 prints how many), a K3 call 3 a panel plus 1")
+        "kernels (phase 3 prints how many); a K3 call is one walk of its plan, N/128 fills and "
+        "leaves, N/128 - 1 solves, and corr_launches counts its wgmma correction launches")
     log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7_ms_by_mode=mega_modes,
                                      k3_drift_n32768=drift,
                                      k3_ms=k3["ms"], **probes, k8bc=dots, k8d=vpu)))
@@ -1342,10 +1391,11 @@ def main():
              replaces="gpc_tpu/ops/chol_panel.py:209", launches=launches["factor_diag"], **k2),
         dict(name="panel_state_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:790",
-             launches=launches["panel_state_rbf"], **k3),
+             launches=launches["panel_state_rbf"], corr_launches=launches["panel_corr"], **k3),
         dict(name="panel_state_rbf_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:598",
-             launches=train_launches["panel_leaf_diag"], **k3d),
+             launches=train_launches["panel_leaf_diag"],
+             corr_launches=train_launches["panel_corr"], **k3d),
         dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",

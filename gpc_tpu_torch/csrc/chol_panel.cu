@@ -8,28 +8,39 @@
 //
 // The TPU kernel was ONE program whose grid ran in order, so it carried the
 // factor across columns in VMEM scratch.  Blocks on the H100 run in no
-// order, so the column loop moves to the host (PyTorch wrapper), and each
-// 128-wide column panel j is three launches on one stream:
+// order, so the column loop is a plan of launches (ops/chol_panel.py::
+// panel_plan) that one C entry, gpc_panel_state, walks on two streams of its
+// own, forked from and joined to the caller's.  Each 128-wide column panel j
+// (jb = 128 j) is, with acc = rbf(X[jb:], X[jb:jb+b]) - L[jb:, :jb] L[jb:jb+b, :jb]^T:
 //
-//   panel_fill   acc = rbf(X[jb:], X[jb:jb+b]) - L[jb:, :jb] L[jb:jb+b, :jb]^T
-//                as two kernels: the split-K correction GEMM (bf16 inputs,
-//                f32 accumulation on the tensor cores through WMMA, as
-//                _dot_kk did on the MXU), then the Gram map minus the sum of
-//                the split partials (pad rows >= n_valid carry no mass)
-//   panel_leaf   K2 on acc[:b] + noise I -> (L_jj^-1, logdet_j) and the
-//                forward-solve step v_j = v[:, jb:jb+b] L_jj^-T
-//   panel_solve  Lp = acc[b:] L_jj^-T -> bf16 into T, v[:, rows] -= v_j Lp^T
+//   fill (diagonal)  acc[:b]: the correction of the 128 x 128 diagonal block,
+//                    K = jb split across the SMs, then the Gram map minus the
+//                    split sum; it runs alone                  (chain stream)
+//   leaf             K2 on acc[:b] + noise I -> (L_jj^-1, logdet_j) and the
+//                    forward-solve step v_j = v[:, jb:jb+b] L_jj^-T
+//                                            (chain stream, highest priority)
+//   fill (below)     acc[b:], the rows below, at the same time as the leaf, on
+//                    one SM fewer than the card has   (second stream, lowest)
+//   solve            Lp = acc[b:] L_jj^-T -> bf16 into T, v[:, rows] -= v_j Lp^T,
+//                    after both                                (chain stream)
 //
-// and one panel_finish launch forms G = v v^T and sums the per-panel
-// logdets (no atomics: the result is deterministic).
+// and one last launch forms G = v v^T and sums the per-panel logdets (no
+// atomics: the result is deterministic).  The critical chain per panel is
+// fill (diagonal) + max(leaf, fill (below)) + solve, not their sum, and
+// while the leaf is the longer it holds no wait across streams.
 //
-// What bounds it on the H100: the Schur correction GEMMs, N^3/3 FLOPs in
-// all (1.5 TFLOP at N = 16384), read from the bf16 L buffer; then the serial
-// chain of N/128 leaves, each one block.  This first version is simple and
-// right: WMMA 16x16x16 bf16 fragments with a register-prefetched k loop, no
-// TMA, no wgmma.  Late columns have few 64-row tiles and long k loops, so
-// the correction splits k across blocks (partials reduced in fixed order,
-// no atomics) to keep every SM busy.
+// What bounds it on the H100: the Schur correction, N^3/3 bf16 FLOPs in all
+// (1.466 TFLOP at N = 16384, 1.5 ms of the tensor cores) that re-stream
+// T[jb:N, :jb] from HBM for every panel: 11.45 GB at N = 16384, 3.42 ms at
+// 3.35 TB/s, so the correction is bound by bytes (64 FLOP a byte of A with
+// b = 128).  panel_corr_kernel feeds wgmma from a ring of TMA stages (one
+// producer thread, two consumer warpgroups of 64 rows x 128 columns) so the
+// T stream never waits on the tensor cores, and adds the float32
+// accumulators into a separate float32 register sum every 256 k.  Late
+// panels have few 128-row tiles and long k loops, so it splits k (partials
+// reduced in a fixed order, no atomics) and each block walks several
+// (tile, split) units.  Then the serial chain of N/128 leaves (~40 us
+// each), which the lookahead above hides under the correction.
 //
 // K2, the leaf (chol_tiles.cuh::leaf128), factors one 128 x 128 PD block by
 // 32-wide sub-panels in shared memory and returns (L^-1, logdet); the logdet
@@ -57,6 +68,7 @@
 // bound: 2 n^3 / 3 f32 operations (K5) at n = 1000 is 10 us of the card's
 // 67 TFLOP/s, but the critical path is the chain of n / 128 leaves, each
 // followed by two dependent tile GEMMs; chol_tiles.cuh notes the design.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -71,14 +83,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int FT_M = 64;             // panel rows per block
-constexpr int FT_K = 64;             // k chunk staged per step
-constexpr int FT_LD = FT_K + 8;      // padded bf16 smem row
-constexpr int CS_LD = LEAF + 4;      // padded f32 smem row of the result tile
-constexpr int GEMM_THREADS = 256;    // 8 warps: 2 (rows) x 4 (cols) of 32x32
-constexpr int STAGE_BYTES = (FT_M + LEAF) * FT_LD * (int)sizeof(bf16);
-constexpr int CS_BYTES = FT_M * CS_LD * (int)sizeof(float);
-constexpr int TILE_SMEM = STAGE_BYTES > CS_BYTES ? STAGE_BYTES : CS_BYTES;
 
 // ---------------------------------------------------------------------------
 // K2, K5 and K6: the blocked factorization's steps
@@ -186,247 +190,446 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K3: the per-panel launches
+// K3: the Schur correction on wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
-// 64 x 128 tile of a bf16 GEMM on WMMA fragments: warps 2 x 4, each 32 x 32.
-struct TileAcc {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
-};
+constexpr int CW_BM = 128;                    // rows of a unit's tile: two consumer warpgroups of 64
+constexpr int CW_BK = 64;                     // k chunk: one 128-byte swizzle row of bf16
+constexpr int CW_STAGES = 4;                  // shared-memory ring
+constexpr int CW_TILE = CW_BM * CW_BK * 2;    // 16 KB: the A tile; the B tile (LEAF rows) is the same
+constexpr int CW_STAGE = 2 * CW_TILE;
+constexpr int CW_SMEM = CW_STAGES * CW_STAGE + 1024;   // + slack to align the ring to 1024 bytes
+constexpr int CW_THREADS = 384;               // warpgroups 0-1 consume, warpgroup 2 produces
+constexpr int CW_FLUSH = 4;                   // chunks (256 k) between float32 register-sum flushes
 
-__device__ __forceinline__ void tile_zero(TileAcc& acc) {
-#pragma unroll
-  for (int x = 0; x < 2; ++x)
-#pragma unroll
-    for (int y = 0; y < 2; ++y) wmma::fill_fragment(acc.f[x][y], 0.0f);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc += As (FT_M x FT_K, row-major) * Bs^T (Bs: LEAF x FT_K, row-major)
-__device__ __forceinline__ void tile_mma(TileAcc& acc, const bf16* As,
-                                         const bf16* Bs) {
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / 4;
-  const int wc = warp % 4;
+// Programmatic dependent launch: a K3 kernel launched with it may start
+// while the kernel before it on its stream finishes (the gap between two
+// dependent launches sits on K3's critical chain); pdl_wait() then holds it
+// until that kernel's results are visible.  Without it both are no-ops.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_release() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One TMA box (CW_BK columns x 128 rows of T, 128-byte swizzled) into dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile under the 128-byte swizzle: 8-row
+// groups 1024 bytes apart (SBO), the leading offset unused (1).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence_operands(float (&d)[64]) {
 #pragma unroll
-  for (int kk = 0; kk < FT_K; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf[2];
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-      wmma::load_matrix_sync(af[x], As + (wr * 32 + x * 16) * FT_LD + kk, FT_LD);
-#pragma unroll
-    for (int y = 0; y < 2; ++y)
-      wmma::load_matrix_sync(bf[y], Bs + (wc * 32 + y * 16) * FT_LD + kk, FT_LD);
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int y = 0; y < 2; ++y)
-        wmma::mma_sync(acc.f[x][y], af[x], bf[y], acc.f[x][y]);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, K-major) B^T (B: 128 x 16, K-major); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0; }"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Split-K Schur correction: for the units u = (tile t, split s) of this
+// launch, part[s, t*128 + i, c] = sum over the split's k range of [0, jb)
+// of T[row0 + t*128 + i, k] T[jb + c, k] (i, c < 128).  Split s covers the
+// chunks [s kc / splits, (s + 1) kc / splits) of kc = jb / 64.  Each block
+// walks units blockIdx.x, + gridDim.x, ...: the grid may be smaller than
+// the units (K3 leaves an SM free for the leaf).  Warp 8 (one thread)
+// keeps TMA loads of A = T[rows, k chunk] and B = T[jb:jb+128, k chunk] in
+// flight through a ring of CW_STAGES stages; warpgroups 0 and 1 each
+// multiply 64 rows of A by B with wgmma into float32 registers and add
+// them to a separate float32 sum every CW_FLUSH chunks (the tensor cores'
+// own accumulation truncates).  Every partial has one writer and the
+// reduction (panel_gram_kernel) sums them in a fixed order: deterministic.
+__global__ void __launch_bounds__(CW_THREADS, 1)
+    panel_corr_kernel(__grid_constant__ const CUtensorMap tmap, int row0, int tiles, int jb,
+                      int splits, float* __restrict__ part) {
+  pdl_wait();
+  pdl_release();
+  extern __shared__ unsigned char cw_raw[];
+  __shared__ __align__(8) uint64_t full[CW_STAGES];
+  __shared__ __align__(8) uint64_t empty[CW_STAGES];
+  const uint32_t ring = (smem_u32(cw_raw) + 1023u) & ~1023u;
+  const int wg = threadIdx.x / 128;
+  const int kc = jb / CW_BK;
+  const int units = tiles * splits;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < CW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
-
-__device__ __forceinline__ void tile_store(const TileAcc& acc, float* Cs) {
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / 4;
-  const int wc = warp % 4;
-#pragma unroll
-  for (int x = 0; x < 2; ++x)
-#pragma unroll
-    for (int y = 0; y < 2; ++y)
-      wmma::store_matrix_sync(Cs + (wr * 32 + x * 16) * CS_LD + wc * 32 + y * 16,
-                              acc.f[x][y], CS_LD, wmma::mem_row_major);
-}
-
-// Split-K Schur correction: part[s, r - jb, c] = sum over split s of the k
-// range [0, jb) of T[r, k] T[jb + c, k], for the panel rows r in [jb, N).
-// grid = ((N - jb) / FT_M, splits).  The next k chunk is fetched into
-// registers while the tensor cores work on the current one.
-constexpr int A_VECS = FT_M * FT_K / 8 / GEMM_THREADS;   // uint4 per thread
-constexpr int B_VECS = LEAF * FT_K / 8 / GEMM_THREADS;
-constexpr int KVECS = FT_K / 8;                          // uint4 per row chunk
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-    panel_corr_kernel(const bf16* __restrict__ T, int N, int jb, int splits,
-                      float* __restrict__ part) {
-  __shared__ __align__(128) unsigned char raw[TILE_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(raw);
-  bf16* Bs = As + FT_M * FT_LD;
-  float* Cs = reinterpret_cast<float*>(raw);  // reused after the k loop
-  const int tid = threadIdx.x;
-  const int r0 = jb + blockIdx.x * FT_M;
-  const int split = blockIdx.y;
-  const int ksteps = jb / FT_K;
-  const int k_begin = split * ksteps / splits * FT_K;
-  const int k_end = (split + 1) * ksteps / splits * FT_K;
-
-  uint4 ra[A_VECS], rb[B_VECS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < A_VECS; ++v) {
-      const int e = tid + v * GEMM_THREADS;
-      ra[v] = *reinterpret_cast<const uint4*>(
-          T + (size_t)(r0 + e / KVECS) * N + k0 + (e % KVECS) * 8);
-    }
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int e = tid + v * GEMM_THREADS;
-      rb[v] = *reinterpret_cast<const uint4*>(
-          T + (size_t)(jb + e / KVECS) * N + k0 + (e % KVECS) * 8);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int v = 0; v < A_VECS; ++v) {
-      const int e = tid + v * GEMM_THREADS;
-      *reinterpret_cast<uint4*>(As + (e / KVECS) * FT_LD + (e % KVECS) * 8) = ra[v];
-    }
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int e = tid + v * GEMM_THREADS;
-      *reinterpret_cast<uint4*>(Bs + (e / KVECS) * FT_LD + (e % KVECS) * 8) = rb[v];
-    }
-  };
-
-  TileAcc ta;
-  tile_zero(ta);
-  if (k_begin < k_end) {
-    fetch(k_begin);
-    stage();
-    __syncthreads();
-    for (int k0 = k_begin; k0 < k_end; k0 += FT_K) {
-      const bool more = k0 + FT_K < k_end;
-      if (more) fetch(k0 + FT_K);
-      tile_mma(ta, As, Bs);
-      __syncthreads();
-      if (more) stage();
-      __syncthreads();
-    }
-  }
-  tile_store(ta, Cs);
   __syncthreads();
-
-  const size_t nrem = (size_t)(N - jb);
-  float* out = part + ((size_t)split * nrem + (r0 - jb)) * LEAF;
-  for (int e = tid; e < FT_M * LEAF; e += GEMM_THREADS)
-    out[e] = Cs[(e / LEAF) * CS_LD + e % LEAF];
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int t = u / splits;
+        const int s = u % splits;
+        const int k1 = (s + 1) * kc / splits;
+        for (int k = s * kc / splits; k < k1; ++k, ++it) {
+          const int st = it % CW_STAGES;
+          mbar_wait(&empty[st], ((it / CW_STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[st], CW_STAGE);
+          const uint32_t a = ring + st * CW_STAGE;
+          tma_load(a, &tmap, &full[st], k * CW_BK, row0 + t * CW_BM);
+          tma_load(a + CW_TILE, &tmap, &full[st], k * CW_BK, jb);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    float d[64], sum[64];
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int t = u / splits;
+      const int s = u % splits;
+      const int k0 = s * kc / splits;
+      const int k1 = (s + 1) * kc / splits;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] = 0.0f;
+      for (int k = k0; k < k1; ++k, ++it) {
+        const int st = it % CW_STAGES;
+        mbar_wait(&full[st], (it / CW_STAGES) & 1);
+        const uint32_t a = ring + st * CW_STAGE + wg * 64 * CW_BK * 2;
+        const uint32_t b = ring + st * CW_STAGE + CW_TILE;
+        const int fresh = (k - k0) % CW_FLUSH == 0;
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        wg_fence_operands(d);
+#pragma unroll
+        for (int kk = 0; kk < CW_BK / 16; ++kk)
+          wgmma_64x128(d, wg_desc(a + 32 * kk), wg_desc(b + 32 * kk), !(fresh && kk == 0));
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        wg_fence_operands(d);
+        if (lane == 0) mbar_arrive(&empty[st]);
+        if ((k - k0) % CW_FLUSH == CW_FLUSH - 1 || k + 1 == k1) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) sum[i] += d[i];
+        }
+      }
+      // accumulator layout of m64nNk16: register 4n + 2h + e holds row
+      // 16 warp + lane / 4 + 8 h, column 8 n + 2 (lane % 4) + e
+      float* out = part + ((size_t)s * tiles * CW_BM + t * CW_BM + wg * 64 + warp * 16 +
+                           lane / 4) * LEAF + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < LEAF / 8; ++n) {
+        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(sum[4 * n], sum[4 * n + 1]);
+        *reinterpret_cast<float2*>(out + 8 * LEAF + 8 * n) =
+            make_float2(sum[4 * n + 2], sum[4 * n + 3]);
+      }
+    }
+  }
 }
 
-// acc[r - jb, c] = rbf(x_r, x_{jb+c}) - sum_s part[s, r - jb, c] (fixed
-// order: deterministic); rows or columns >= nv carry no kernel mass.
+// ---------------------------------------------------------------------------
+// K3: the Gram map and split reduction, the leaf, the panel solve, G
+// ---------------------------------------------------------------------------
+
+// acc[r - jb, c] = rbf(x_r, x_{jb+c}) - sum_s part[s, r - row0, c] for the
+// rows r in [row0, row0 + rows); rows or columns >= nv carry no kernel mass.
+// splits = 0: no correction (jb = 0).  A warp takes one row, each lane four
+// columns (float4 partials and stores); x_r is read by broadcast and the
+// panel's columns from XT = X^T (q x N) as float4, so every load is
+// coalesced.  subs (1, 2, 4 or 8) warps share a row: warp i sums the splits
+// i, i + subs, ... in ascending order, their loads issued GRAM_BATCH at a
+// time, and the warps' sums meet in shared memory in a fixed order
+// (deterministic).  The diagonal block's fill has many splits and 128 rows,
+// so it takes several warps a row.
 constexpr int GRAM_THREADS = 256;
+constexpr int GRAM_WARPS = GRAM_THREADS / 32;
+constexpr int GRAM_BATCH = 8;
+
+__host__ __device__ __forceinline__ int gram_subs(int splits) {
+  int subs = 1;
+  while (subs < GRAM_WARPS && subs * GRAM_BATCH < splits) subs *= 2;
+  return subs;
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
 
 __global__ void __launch_bounds__(GRAM_THREADS)
-    panel_gram_kernel(const float* __restrict__ X, int q, int N, int jb,
-                      int nv, float gamma, float var,
-                      const float* __restrict__ part, int splits,
+    panel_gram_kernel(const float* __restrict__ X, const float* __restrict__ XT, int q, int N,
+                      int jb, int row0, int rows, int nv, float gamma, float var,
+                      const float* __restrict__ part, int splits, int subs,
                       float* __restrict__ acc) {
-  const size_t nrem = (size_t)(N - jb);
-  const size_t e = (size_t)blockIdx.x * GRAM_THREADS + threadIdx.x;
-  if (e >= nrem * LEAF) return;
-  const int r = jb + (int)(e / LEAF);
-  const int col = jb + (int)(e % LEAF);
-  float g = 0.0f;
-  if (r < nv && col < nv) {
-    float n1 = 0.0f, n2 = 0.0f, cr = 0.0f;
+  pdl_wait();
+  pdl_release();
+  __shared__ float4 red[GRAM_WARPS][32];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = warp % subs;
+  const int rb = GRAM_WARPS / subs;   // rows a block
+  const size_t n = (size_t)rows * LEAF;
+  const size_t e = (size_t)(blockIdx.x * rb + warp / subs) * LEAF + 4 * lane;
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  float4 corr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int s0 = sub; s0 < splits; s0 += subs * GRAM_BATCH) {
+    float4 p[GRAM_BATCH];
+#pragma unroll
+    for (int u = 0; u < GRAM_BATCH; ++u) {
+      const int sp = s0 + u * subs;
+      p[u] = sp < splits ? p4[((size_t)sp * n + e) / 4] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < GRAM_BATCH; ++u)
+      if (s0 + u * subs < splits) add4(corr, p[u]);
+  }
+  if (subs > 1) {
+    red[warp][lane] = corr;
+    __syncthreads();
+    if (sub != 0) return;
+    for (int w = 1; w < subs; ++w) add4(corr, red[warp + w][lane]);
+  }
+  const int r = row0 + (int)(e / LEAF);
+  const int c = jb + 4 * lane;
+  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (r < nv) {
+    float n1 = 0.0f;
+    float n2[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int k = 0; k < q; ++k) {
       const float a = X[(size_t)r * q + k];
-      const float bv = X[(size_t)col * q + k];
+      const float4 b4 = *reinterpret_cast<const float4*>(XT + (size_t)k * N + c);
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
       n1 += a * a;
-      n2 += bv * bv;
-      cr += a * bv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        n2[i] += b[i] * b[i];
+        cr[i] += a * b[i];
+      }
     }
-    g = dist_map(FAM_RBF, sq_dist(n1, n2, cr), gamma, var, 0.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < nv) g[i] = dist_map(FAM_RBF, sq_dist(n1, n2[i], cr[i]), gamma, var, 0.0f);
   }
-  float corr = 0.0f;
-  for (int s = 0; s < splits; ++s) corr += part[(size_t)s * nrem * LEAF + e];
-  acc[e] = g - corr;
+  *reinterpret_cast<float4*>(acc + (size_t)(row0 - jb) * LEAF + e) =
+      make_float4(g[0] - corr.x, g[1] - corr.y, g[2] - corr.z, g[3] - corr.w);
+}
+
+// v[:, jb:jb+128] (D rows of 128 floats, rows 16-byte aligned) into shared
+// memory by cp.async, issued before the kernel's own work so that its
+// latency hides under it: the leaf and the solve sit on K3's critical chain.
+__device__ __forceinline__ void prefetch_vj(float* dst, const float* v, int D, int N, int jb,
+                                            int nthreads) {
+  for (int e = threadIdx.x; e < D * (LEAF / 4); e += nthreads)
+    cpa16(dst + 4 * e, v + (size_t)(e / (LEAF / 4)) * N + jb + 4 * (e % (LEAF / 4)));
+  cpa_commit();
 }
 
 // K2 (leaf128) on the diagonal block acc[:b] + noise I, then v_j =
-// bf16(v[:, jb:jb+b]) bf16(M)^T written back over v[:, jb:jb+b] (the bf16 policy of _vrow_gemm).
+// bf16(v[:, jb:jb+b]) bf16(M)^T written back over v[:, jb:jb+b] (the bf16
+// policy of _vrow_gemm); v[:, jb:jb+b] is fetched into shared memory past
+// leaf128's storage (LEAF_SMEM + D 512 bytes in all) while the leaf runs.
 // Mode "full+diag" (T not null): M = L_jj^-1 also goes, as bf16, into the
 // lower triangle of T's diagonal block j (_panel_kernel's "diag" residual,
-// which the training backward rebuilds L_jj from).  The leaf runs for every
-// panel, the last included, so every diagonal block is written; the upper
-// triangle keeps the zeros T was allocated with.
+// which the training backward rebuilds L_jj from), zeros above it.  The leaf
+// runs for every panel, the last included, so every diagonal block is
+// written.
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     panel_leaf_kernel(float* acc, float noise, float* Md, float* v, int D,
                       int N, int jb, double* ldj, bf16* T) {
+  pdl_wait();
+  pdl_release();
   extern __shared__ __align__(16) float smem[];
+  float* vj = smem + LEAF_SMEM / sizeof(float);
+  prefetch_vj(vj, v, D, N, jb, TILE_THREADS);
   const double l = leaf128(acc, LEAF, noise, nullptr, 0, Md, LEAF, smem);
   const int t = threadIdx.x;
   if (t == 0) *ldj = l;
-  if (T != nullptr)   // Md is complete: leaf128 ends in a barrier
-    for (int e = t; e < LEAF * LEAF; e += TILE_THREADS) {
-      const int r = e / LEAF;
-      const int c = e % LEAF;
-      if (c <= r)
-        T[(size_t)(jb + r) * N + jb + c] = __float2bfloat16(Md[e]);
-    }
-  float* vin = smem;                          // L's storage is free again
   const float* Ms = smem + LEAF * LDS;        // M = L_jj^-1 stays in shared memory
-  for (int d = 0; d < D; ++d) {
-    __syncthreads();
-    if (t < LEAF) vin[t] = bf16_round(v[(size_t)d * N + jb + t]);
-    __syncthreads();
-    if (t < LEAF) {
-      float s = 0.0f;
-      for (int k = 0; k <= t; ++k) s += vin[k] * bf16_round(Ms[t * LDS + k]);
-      v[(size_t)d * N + jb + t] = s;
+  if (T != nullptr)   // Ms is complete: leaf128 ends in a barrier; 8 values a store
+    for (int e = t; e < LEAF * LEAF / 8; e += TILE_THREADS) {
+      const int r = e / (LEAF / 8);
+      const int c = 8 * (e % (LEAF / 8));
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c0 = c + 2 * q;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(c0 <= r ? Ms[r * LDS + c0] : 0.0f,
+                                                       c0 + 1 <= r ? Ms[r * LDS + c0 + 1] : 0.0f);
+        w[q] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(T + (size_t)(jb + r) * N + jb + c) = make_uint4(w[0], w[1], w[2], w[3]);
     }
+  cpa_wait(false);
+  __syncthreads();
+  for (int e = t; e < D * LEAF; e += TILE_THREADS) vj[e] = bf16_round(vj[e]);
+  __syncthreads();
+  for (int e = t; e < D * LEAF; e += TILE_THREADS) {
+    const int d = e / LEAF;
+    const int r = e % LEAF;
+    float s = 0.0f;
+    for (int k = 0; k <= r; ++k) s += vj[d * LEAF + k] * bf16_round(Ms[r * LDS + k]);
+    v[(size_t)d * N + jb + r] = s;
   }
 }
 
-// Lp = bf16(bf16(acc[r - jb]) bf16(M)^T) for rows r in [jb + b, N): stored
-// into T[r, jb:jb+b]; then v[:, r] -= bf16(v_j) Lp[r]^T.
-// grid = (N - jb - b) / FT_M blocks.
-__global__ void __launch_bounds__(GEMM_THREADS)
+// The panel solve: Lp = bf16(bf16(acc[r - jb]) bf16(M)^T) for the 64 rows
+// r in [r0, r0 + 64), r0 = jb + 128 + 64 blockIdx.x, stored into
+// T[r, jb:jb+128]; then v[:, r] -= bf16(v_j) Lp[r]^T.  It sits on K3's
+// critical chain (after the leaf, before the next panel's fill), so a block
+// issues all its loads (acc's rows and M, 96 KB as float4) before its first
+// store, v_j by cp.async past the operands (SV_SMEM + D 512 bytes in all):
+// one round trip.  WMMA bf16 fragments, warps 2 x 4 of 32 x 32, the whole
+// k = 128 in shared memory.
+constexpr int SV_ROWS = 64;
+constexpr int SV_THREADS = 256;
+constexpr int SV_LD = LEAF + 8;        // padded bf16 row of the operands
+constexpr int CS_LD = LEAF + 4;        // padded f32 row of the result
+constexpr int SV_SMEM = (SV_ROWS + LEAF) * SV_LD * (int)sizeof(bf16);   // 52,224 B
+static_assert(SV_ROWS * CS_LD * sizeof(float) <= SV_SMEM, "the result reuses the operands");
+
+__device__ __forceinline__ void store_bf16x4(bf16* dst, float4 x) {
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+  d[0] = __floats2bfloat162_rn(x.x, x.y);
+  d[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+__global__ void __launch_bounds__(SV_THREADS)
     panel_solve_kernel(const float* __restrict__ acc,
                        const float* __restrict__ Md, bf16* __restrict__ T,
                        float* __restrict__ v, int D, int N, int jb) {
-  __shared__ __align__(128) unsigned char raw[TILE_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(raw);
-  bf16* Bs = As + FT_M * FT_LD;
-  float* Cs = reinterpret_cast<float*>(raw);
-  const int r0 = jb + LEAF + blockIdx.x * FT_M;
+  pdl_wait();
+  pdl_release();
+  extern __shared__ __align__(128) unsigned char sv_raw[];
+  bf16* As = reinterpret_cast<bf16*>(sv_raw);
+  bf16* Bs = As + SV_ROWS * SV_LD;
+  float* Cs = reinterpret_cast<float*>(sv_raw);   // after the products
+  float* vj = reinterpret_cast<float*>(sv_raw + SV_SMEM);
+  const int r0 = jb + LEAF + blockIdx.x * SV_ROWS;
   const int tid = threadIdx.x;
-
-  TileAcc ta;
-  tile_zero(ta);
-  for (int k0 = 0; k0 < LEAF; k0 += FT_K) {
-    for (int e = tid; e < FT_M * FT_K; e += GEMM_THREADS) {
-      const int i = e / FT_K;
-      const int kk = e % FT_K;
-      As[i * FT_LD + kk] =
-          __float2bfloat16(acc[(size_t)(r0 - jb + i) * LEAF + k0 + kk]);
-    }
-    for (int e = tid; e < LEAF * FT_K; e += GEMM_THREADS) {
-      const int c = e / FT_K;
-      const int kk = e % FT_K;
-      Bs[c * FT_LD + kk] = __float2bfloat16(Md[c * LEAF + k0 + kk]);
-    }
-    __syncthreads();
-    tile_mma(ta, As, Bs);
-    __syncthreads();
+  prefetch_vj(vj, v, D, N, jb, SV_THREADS);
+  constexpr int AV = SV_ROWS * LEAF / 4 / SV_THREADS;   // float4 a thread
+  constexpr int BV = LEAF * LEAF / 4 / SV_THREADS;
+  const float4* a4 = reinterpret_cast<const float4*>(acc + (size_t)(r0 - jb) * LEAF);
+  const float4* b4 = reinterpret_cast<const float4*>(Md);
+  float4 ra[AV], rb[BV];
+#pragma unroll
+  for (int u = 0; u < AV; ++u) ra[u] = a4[tid + u * SV_THREADS];
+#pragma unroll
+  for (int u = 0; u < BV; ++u) rb[u] = b4[tid + u * SV_THREADS];
+#pragma unroll
+  for (int u = 0; u < AV; ++u) {
+    const int e = tid + u * SV_THREADS;
+    store_bf16x4(As + (e / (LEAF / 4)) * SV_LD + 4 * (e % (LEAF / 4)), ra[u]);
   }
-  tile_store(ta, Cs);
-  __syncthreads();
-
-  for (int e = tid; e < FT_M * LEAF; e += GEMM_THREADS) {
-    const int i = e / LEAF;
-    const int c = e % LEAF;
-    const bf16 lp = __float2bfloat16(Cs[i * CS_LD + c]);
-    T[(size_t)(r0 + i) * N + jb + c] = lp;
-    Cs[i * CS_LD + c] = __bfloat162float(lp);
+#pragma unroll
+  for (int u = 0; u < BV; ++u) {
+    const int e = tid + u * SV_THREADS;
+    store_bf16x4(Bs + (e / (LEAF / 4)) * SV_LD + 4 * (e % (LEAF / 4)), rb[u]);
   }
   __syncthreads();
 
-  for (int e = tid; e < FT_M * D; e += GEMM_THREADS) {
-    const int i = e % FT_M;
-    const int d = e / FT_M;
-    const float* vj = v + (size_t)d * N + jb;
+  const int warp = tid / 32;
+  const int wr = warp / 4;
+  const int wc = warp % 4;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y) wmma::fill_fragment(f[x][y], 0.0f);
+#pragma unroll
+  for (int kk = 0; kk < LEAF; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      wmma::load_matrix_sync(af[x], As + (wr * 32 + x * 16) * SV_LD + kk, SV_LD);
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      wmma::load_matrix_sync(bfr[y], Bs + (wc * 32 + y * 16) * SV_LD + kk, SV_LD);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y) wmma::mma_sync(f[x][y], af[x], bfr[y], f[x][y]);
+  }
+  __syncthreads();   // the operands are dead: Cs takes their place
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      wmma::store_matrix_sync(Cs + (wr * 32 + x * 16) * CS_LD + wc * 32 + y * 16, f[x][y],
+                              CS_LD, wmma::mem_row_major);
+  __syncthreads();
+
+  // Lp as bf16 into T, 8 values (16 bytes) a store; Cs keeps the rounded values
+  for (int e = tid; e < SV_ROWS * LEAF / 8; e += SV_THREADS) {
+    const int i = e / (LEAF / 8);
+    const int c = 8 * (e % (LEAF / 8));
+    float* cs = Cs + i * CS_LD + c;
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(cs[2 * q], cs[2 * q + 1]);
+      cs[2 * q] = __low2float(h);
+      cs[2 * q + 1] = __high2float(h);
+      w[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(T + (size_t)(r0 + i) * N + jb + c) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  cpa_wait(false);
+  __syncthreads();
+
+  for (int e = tid; e < SV_ROWS * D; e += SV_THREADS) {
+    const int i = e % SV_ROWS;
+    const int d = e / SV_ROWS;
     float s = 0.0f;
-    for (int c = 0; c < LEAF; ++c) s += bf16_round(vj[c]) * Cs[i * CS_LD + c];
+#pragma unroll 8
+    for (int c = 0; c < LEAF; ++c) s += bf16_round(vj[d * LEAF + c]) * Cs[i * CS_LD + c];
     v[(size_t)d * N + r0 + i] -= s;
   }
 }
@@ -439,6 +642,8 @@ __global__ void __launch_bounds__(FIN_THREADS)
     panel_finish_kernel(const float* __restrict__ v, int D, int N,
                         const double* __restrict__ ldj, int nb, float* G,
                         float* ld) {
+  pdl_wait();
+  pdl_release();
   __shared__ double red[FIN_THREADS];
   const int d1 = blockIdx.x / D;
   const int d2 = blockIdx.x % D;
@@ -526,65 +731,223 @@ extern "C" int gpc_chol_blocked(const float* A, int n, int copy, int np, int bat
   return (int)cudaGetLastError();
 }
 
-// The Gram panel minus its Schur correction into acc.  The correction
-// splits its k range so that the late columns, which have few row tiles
-// and long k loops, still occupy about two blocks per SM; part holds
-// part_rows x 128 floats of split partials.
-extern "C" int gpc_panel_fill(const float* X, int q, const void* T, int N,
-                              int jb, int nv, float gamma, float var,
-                              float* part, int part_rows, float* acc,
-                              void* stream) {
-  static int sm_count = 0;
-  if (sm_count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+// ---------------------------------------------------------------------------
+// K3's host side: the tensor map over T, the streams, the plan walker
+// ---------------------------------------------------------------------------
+
+namespace {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  const int nrem = N - jb;
-  const int tiles = nrem / FT_M;
-  const int ksteps = jb / FT_K;
-  int splits = 0;
-  if (ksteps > 0) {
-    splits = (2 * sm_count + tiles - 1) / tiles;
-    if (splits > ksteps) splits = ksteps;
-    if (splits > part_rows / nrem) splits = part_rows / nrem;
-    if (splits < 1) splits = 1;
-    panel_corr_kernel<<<dim3(tiles, splits), GEMM_THREADS, 0,
-                        (cudaStream_t)stream>>>(static_cast<const bf16*>(T),
-                                                N, jb, splits, part);
+  return fn;
+}
+
+// The map of the (N, N) bf16 T: boxes of CW_BK columns x 128 rows, 128-byte
+// swizzle (wgmma's K-major layout).  T is allocated per call, so the map is
+// encoded per call.
+cudaError_t t_map(const void* T, int N, CUtensorMap* map) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * sizeof(bf16)};
+  const cuuint32_t box[2] = {CW_BK, CW_BM};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(T), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+constexpr int MAX_DEVICES = 16;
+// The leaf's and the solve's dynamic shared memory grows with D (v_j's
+// rows): the most a block may take, which bounds D at K3_D_MAX.
+constexpr int K3_SMEM_MAX = 232448;
+static_assert(LEAF_SMEM + 192 * LEAF * sizeof(float) <= K3_SMEM_MAX, "K3_D_MAX in ops/chol_panel.py");
+constexpr int PANEL_EVENTS = 4;
+
+// Per device, once: the kernels' shared-memory limits, the two streams
+// (the leaf chain's at the highest priority, the fills below at the
+// lowest) and the plan's events.
+struct PanelCtx {
+  bool ready = false;
+  cudaStream_t chain = nullptr, below = nullptr;
+  cudaEvent_t ev[PANEL_EVENTS] = {};
+};
+
+cudaError_t panel_ctx(PanelCtx** out) {
+  static PanelCtx ctx[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  PanelCtx& c = ctx[dev];
+  if (!c.ready) {
+    int least = 0, greatest = 0;
+    if ((e = cudaFuncSetAttribute(panel_corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  CW_SMEM)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(panel_leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  K3_SMEM_MAX)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(panel_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  K3_SMEM_MAX)) != cudaSuccess ||
+        (e = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess ||
+        (e = cudaStreamCreateWithPriority(&c.chain, cudaStreamNonBlocking, greatest)) !=
+            cudaSuccess ||
+        (e = cudaStreamCreateWithPriority(&c.below, cudaStreamNonBlocking, least)) != cudaSuccess)
+      return e;
+    for (int i = 0; i < PANEL_EVENTS; ++i)
+      if ((e = cudaEventCreateWithFlags(&c.ev[i], cudaEventDisableTiming)) != cudaSuccess)
+        return e;
+    c.ready = true;
   }
-  const size_t elems = (size_t)nrem * LEAF;
-  panel_gram_kernel<<<(unsigned)((elems + GRAM_THREADS - 1) / GRAM_THREADS),
-                      GRAM_THREADS, 0, (cudaStream_t)stream>>>(
-      X, q, N, jb, nv, gamma, var, part, splits, acc);
+  *out = &c;
+  return cudaSuccess;
+}
+
+// One launch on stream s, with programmatic dependent launch when pdl (the
+// stream's last operation was a kernel of K3: no event wait between).
+template <typename... K, typename... A>
+cudaError_t launch_k3(bool pdl, void (*kernel)(K...), unsigned grid, unsigned block,
+                      size_t smem, cudaStream_t s, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+cudaError_t launch_corr(bool pdl, const CUtensorMap& map, int row0, int rows, int jb,
+                        int splits, int grid, float* part, cudaStream_t s) {
+  return launch_k3(pdl, panel_corr_kernel, grid, CW_THREADS, CW_SMEM, s, map, row0,
+                   rows / CW_BM, jb, splits, part);
+}
+
+// Step kinds and fields of a plan row (ops/chol_panel.py::panel_plan).
+enum PanelStepKind {
+  PSTEP_FILL = 0, PSTEP_LEAF = 1, PSTEP_SOLVE = 2, PSTEP_FINISH = 3, PSTEP_FORK = 4, PSTEP_JOIN = 5
+};
+constexpr int PSTEP_FIELDS = 9;   // kind, stream, j, row0, row1, splits, grid, wait, record
+constexpr int PANEL_STREAMS = 3;  // the caller's, the chain, the fills below
+
+}  // namespace
+
+// K3 alone: one launch of the correction kernel (tests and chip_smoke.py hold
+// it against a float32 product of the same bf16 operands).
+extern "C" int gpc_panel_corr(const void* T, int N, int row0, int row1, int jb, int splits,
+                              int grid, float* part, void* stream) {
+  PanelCtx* ctx = nullptr;
+  cudaError_t e = panel_ctx(&ctx);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map;
+  if ((e = t_map(T, N, &map)) != cudaSuccess) return (int)e;
+  if ((e = launch_corr(false, map, row0, row1 - row0, jb, splits, grid, part,
+                       (cudaStream_t)stream)) != cudaSuccess)
+    return (int)e;
   return (int)cudaGetLastError();
 }
 
-// T is null in mode "full" and the bf16 factor buffer in mode "full+diag".
-extern "C" int gpc_panel_leaf(float* acc, float noise, float* Md, float* v,
-                              int D, int N, int jb, double* ldj, void* T,
-                              void* stream) {
-  cudaFuncSetAttribute(panel_leaf_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)LEAF_SMEM);
-  panel_leaf_kernel<<<1, TILE_THREADS, LEAF_SMEM, (cudaStream_t)stream>>>(
-      acc, noise, Md, v, D, N, jb, ldj, static_cast<bf16*>(T));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gpc_panel_solve(const float* acc, const float* Md, void* T,
-                               float* v, int D, int N, int jb, void* stream) {
-  const int rows = N - jb - LEAF;
-  if (rows > 0)
-    panel_solve_kernel<<<rows / FT_M, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-        acc, Md, static_cast<bf16*>(T), v, D, N, jb);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gpc_panel_finish(const float* v, int D, int N,
-                                const double* ldj, int nb, float* G, float* ld,
-                                void* stream) {
-  panel_finish_kernel<<<D * D, FIN_THREADS, 0, (cudaStream_t)stream>>>(
-      v, D, N, ldj, nb, G, ld);
+// K3: walks the plan (nsteps rows of PSTEP_FIELDS ints) on the caller's
+// stream (0) and the context's two streams, the chain (1) and the fills
+// below (2), waiting on and recording the plan's events: it forks from the
+// caller's stream and ends joined to it.  Per step kind:
+//   FILL   rows [row0, row1) of panel j: the correction (jb > 0) into the
+//          partials (part_d for the diagonal block's rows, part_b below),
+//          then the Gram map minus their split sum into acc
+//   LEAF   K2 on acc[:128] + noise I -> Md = L_jj^-1, ldj[j], v_j; mode
+//          "full+diag" (diag = 1) also writes bf16(Md) into T's block j
+//   SOLVE  rows [row0, row1): Lp -> T, v[:, rows] -= v_j Lp^T
+//   FINISH G = v v^T and the logdet sum
+//   FORK, JOIN  no launch: only their event record or wait
+// Returns the first CUDA error.
+extern "C" int gpc_panel_state(const float* X, const float* XT, int q, float* v, int D, int N, int nv,
+                               float gamma, float var, float noise, void* T, float* acc,
+                               float* part_d, float* part_b, float* Md, double* ldj, float* G,
+                               float* ld, int diag, const int* steps, int nsteps, void* stream) {
+  PanelCtx* ctx = nullptr;
+  cudaError_t e = panel_ctx(&ctx);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map;
+  if ((e = t_map(T, N, &map)) != cudaSuccess) return (int)e;
+  const cudaStream_t st[PANEL_STREAMS] = {(cudaStream_t)stream, ctx->chain, ctx->below};
+  bool chained[PANEL_STREAMS] = {false, false, false};   // last operation a K3 kernel
+  bf16* Tb = static_cast<bf16*>(T);
+  for (int i = 0; i < nsteps; ++i) {
+    const int* f = steps + PSTEP_FIELDS * i;
+    const int kind = f[0], j = f[2], row0 = f[3], row1 = f[4], splits = f[5], grid = f[6];
+    if (f[1] < 0 || f[1] >= PANEL_STREAMS || f[7] >= PANEL_EVENTS || f[8] >= PANEL_EVENTS)
+      return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = st[f[1]];
+    const int jb = j * LEAF;
+    bool& pdl = chained[f[1]];
+    if (f[7] >= 0) {
+      if ((e = cudaStreamWaitEvent(s, ctx->ev[f[7]], 0)) != cudaSuccess) return (int)e;
+      pdl = false;
+    }
+    const size_t vbytes = (size_t)D * LEAF * sizeof(float);
+    switch (kind) {
+      case PSTEP_FILL: {
+        const int rows = row1 - row0;
+        float* part = row0 == jb ? part_d : part_b;
+        if (jb > 0) {
+          if ((e = launch_corr(pdl, map, row0, rows, jb, splits, grid, part, s)) != cudaSuccess)
+            return (int)e;
+          pdl = true;
+        }
+        const int sp = jb > 0 ? splits : 0;
+        const int subs = gram_subs(sp);
+        e = launch_k3(pdl, panel_gram_kernel, (unsigned)(rows / (GRAM_WARPS / subs)), GRAM_THREADS,
+                      0, s, X, XT, q, N, jb, row0, rows, nv, gamma, var, (const float*)part, sp,
+                      subs, acc);
+        break;
+      }
+      case PSTEP_LEAF:
+        e = launch_k3(pdl, panel_leaf_kernel, 1, TILE_THREADS, LEAF_SMEM + vbytes, s, acc, noise,
+                      Md, v, D, N, jb, ldj + j, diag ? Tb : nullptr);
+        break;
+      case PSTEP_SOLVE:
+        e = launch_k3(pdl, panel_solve_kernel, (row1 - row0) / SV_ROWS, SV_THREADS,
+                      SV_SMEM + vbytes, s, (const float*)acc, (const float*)Md, Tb, v, D, N, jb);
+        break;
+      case PSTEP_FINISH:
+        e = launch_k3(pdl, panel_finish_kernel, D * D, FIN_THREADS, 0, s, (const float*)v, D, N,
+                      (const double*)ldj, N / LEAF, G, ld);
+        break;
+      case PSTEP_FORK:
+      case PSTEP_JOIN:
+        e = cudaSuccess;
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    pdl = kind != PSTEP_FORK && kind != PSTEP_JOIN;
+    if (f[8] >= 0 && (e = cudaEventRecord(ctx->ev[f[8]], s)) != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,11 @@ into `gpc_tpu_torch/_build/`, from the sources in the checkout only; the
 library's file name carries a hash of the sources, so an edited source is
 never served by a stale build.
 
-Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `launch` raises on a non-zero code and adds one to the
-kernel's count in `LAUNCHES`, which a run reads to show that its path went
-through the kernels.
+Every C entry point launches on the stream it is given (K3's,
+`gpc_panel_state`, forks two streams of its own from it and joins them back
+before it returns) and returns the first CUDA error; `launch` raises on a
+non-zero code and adds one to the kernel's count in `LAUNCHES`, which a run
+reads to show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -39,10 +40,9 @@ _SIGNATURES = {
     "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
     "gpc_chol_blocked": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
-    "gpc_panel_fill": [_P, _I, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P],
-    "gpc_panel_leaf": [_P, _F, _P, _P, _I, _I, _I, _P, _P, _P],
-    "gpc_panel_solve": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "gpc_panel_finish": [_P, _I, _I, _P, _I, _P, _P, _P],
+    "gpc_panel_state": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I, _P, _I, _P],
+    "gpc_panel_corr": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "gpc_mega_grid": [_I],
     "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],

@@ -10,22 +10,24 @@ and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
 and one value_and_grad with cmpnd(mlp, bias, white) under dense (K4 +
 jitchol) and under lazy (the left-looking sweep with K4 blocks).
 Prints per stage the wall time (host clock around work that ends in a
-synchronize), the device-busy share of that window and the kernels that
-take the most device time; writes the full tables to --out.  Needs CUDA:
+synchronize), the device time of the kernels in that window (from the
+profiler's trace; their sum above the wall is overlap between streams) and
+the kernels that take the most; writes the full tables to --out.  Needs CUDA:
 it exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gpc_tpu_torch import kernels as KM
@@ -35,10 +37,30 @@ from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
 from gpc_tpu_torch.serving import GPServer
 
 
-def _kernel_us(evt):
-    """Device time of a kernel row; 0 for the host-side op rows, whose
-    device time repeats that of the kernels they launch."""
-    return evt.self_device_time_total if evt.device_type == DeviceType.CUDA else 0
+def trace_kernels(prof):
+    """{(kernel name, stream): [device µs of each launch]} from the
+    profiler's trace: every kernel the card ran in the window.
+    key_averages() drops some kernels that the C library launches on its
+    own streams (K3's); the trace keeps them.  A kernel launched early by
+    programmatic dependent launch (K3's) starts while the one before it on
+    its stream runs and waits for it, so each launch's time here starts
+    where the one before it on its stream ended: the kernels of one stream
+    never overlap, and their sum over several streams may exceed the wall by
+    the overlap between streams."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    out, stream_end = {}, {}
+    for e in kernels:
+        stream = e.get("args", {}).get("stream")
+        end = e["ts"] + e["dur"]
+        start = max(e["ts"], stream_end.get(stream, e["ts"]))
+        stream_end[stream] = max(end, stream_end.get(stream, end))
+        out.setdefault((e["name"], stream), []).append(max(end - start, 0.0))
+    return out
 
 
 def stage(name, fn, report):
@@ -49,15 +71,15 @@ def stage(name, fn, report):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(prof.key_averages(), key=_kernel_us, reverse=True)
-    busy_ms = sum(_kernel_us(r) for r in rows) / 1e3
-    print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f} %)")
-    for r in rows[:6]:
-        if _kernel_us(r) > 0:
-            print(f"    {_kernel_us(r) / 1e3:10.3f} ms  x{r.count:<5d} {r.key[:90]}")
-    report.append(f"== {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n"
-                  + prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    rows = sorted(trace_kernels(prof).items(), key=lambda kv: sum(kv[1]), reverse=True)
+    busy_ms = sum(sum(us) for _, us in rows) / 1e3
+    print(f"{name}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} % of the wall)")
+    lines = [f"{sum(us) / 1e3:10.3f} ms  x{len(us):<5d} median {np.median(us):9.2f} us  "
+             f"stream {stream}  {key}" for (key, stream), us in rows]
+    for line in lines[:6]:
+        print("    " + line[:150])
+    report.append(f"== {name}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms\n" + "\n".join(lines))
 
 
 def main(argv=None):

@@ -14,7 +14,10 @@ arcsin maps and for every map at the ragged widths (q up to 130); 1e-3 on ‖ML 
 the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own bound; 2e-2 of
 their max on T's diagonal blocks; 8e-2 relative L2 on panel gradients) or
 float32 against the CPU's float64 (1e-4 on predictions, 2e-3 on the
-evidence, 1e-3 relative L2 on dense and lazy gradients).  The lazy engine's
+evidence, 1e-3 relative L2 on dense and lazy gradients).  K3's correction
+kernel alone is held to the float32 product of its bf16 operands within
+1e-4 of Σ|a||b| (the tensor cores' truncating f32 sums over 256 k), and
+K3's outputs are bit-reproducible.  The lazy engine's
 leaves under K5 are held to its Cholesky leaves at 2e-4
 (tests/test_lazy_evidence.py:185-187).  K6 is held to K5's bounds.  The
 probes: K7 to its plain version (the same bf16 policy) at 2e-4 and to the
@@ -159,6 +162,103 @@ def test_panel_state_kernel_matches_plain(dev, N, n_valid):
         128, 0).repeat_interleave(128, 1).bool()
     diff = (T.float() - T_want.float())[below].abs().max()
     assert float(diff) < 2e-2 * float(T_want.float().abs().max())
+
+
+CORR_SIZES = [128, 256, 384, 4096, 16384]
+
+
+@pytest.mark.parametrize("N", CORR_SIZES)
+@pytest.mark.parametrize("which", ["first", "middle", "last"])
+@pytest.mark.parametrize("split", ["one", "max"])
+def test_panel_corr_kernel_matches_float32_product(dev, N, which, split):
+    """K3's wgmma/TMA correction alone, on the diagonal block's rows and on
+    the rows below, against the float32 product of the same bf16 operands
+    per split: within 1e-4 of Σ|a||b| (the tensor cores truncate their f32
+    sums, ≤ 1 ulp an add over the 256 k between register-sum flushes).
+    Split "one" runs on 7 blocks (each walks several units), "max" on one
+    block per unit up to the SMs.  At N = 128 the plan has no correction."""
+    nb = N // 128
+    if nb == 1:
+        assert "panel_corr" not in TCP.plan_launches(TCP.panel_plan(N), False)
+        return
+    j = {"first": 1, "middle": max(1, nb // 2), "last": nb - 1}[which]
+    jb = 128 * j
+    kc = jb // TCP.CORR_BK
+    rng = np.random.default_rng(N + j)
+    T = _randn(rng, (N, N), dev).to(torch.bfloat16)
+    before = LAUNCHES["panel_corr"]
+    ranges = [(jb, jb + 128)] + ([(jb + 128, N)] if jb + 128 < N else [])
+    for row0, row1 in ranges:
+        splits, grid = (1, 7) if split == "one" else (kc, 0)
+        got = TCP.panel_corr(T, jb, row0, row1, splits, grid)
+        want = TCP.panel_corr_plain(T, jb, row0, row1, splits)
+        bound = TCP.panel_corr_plain(T.abs(), jb, row0, row1, splits)
+        assert got.shape == want.shape == (splits, row1 - row0, 128)
+        assert bool(((got - want).abs() <= 1e-4 * bound + 1e-30).all())
+    torch.cuda.synchronize()
+    assert LAUNCHES["panel_corr"] == before + len(ranges)
+
+
+@pytest.mark.parametrize("N,n_valid,D", [(128, 100, 1), (256, 200, 3), (384, 383, 2),
+                                         (4096, 4000, 1), (4096, 3000, 3)])
+def test_panel_state_kernel_at_ragged_n_valid_and_widths(dev, N, n_valid, D):
+    """K3 against the plain version with n_valid < N and D = 1, 2, 3
+    (gpc_tpu's 2e-3 panel bound on the logdet and diag(G)).  The pad rows of
+    m are zero, as the panel engine pads them (ops/panel_engine.py): a pad
+    row's m²/noise would otherwise dominate G and carry bf16(v)'s rounding."""
+    rng = np.random.default_rng(N + D)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, D), dev)
+    m[n_valid:] = 0.0
+    ld, G, v, _ = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=n_valid)
+    ld_want, G_want, _, _ = TCP.panel_state_rbf_plain(X, m, 1.0, 1.0, 0.1, n_valid=n_valid)
+    assert G.shape == (D, D) and v.shape == (D, N)
+    assert abs(float(ld) - float(ld_want)) <= 2e-3 * abs(float(ld_want))
+    g, g_want = torch.diagonal(G), torch.diagonal(G_want)
+    assert bool(((g - g_want).abs() <= 2e-3 * g_want.abs()).all())
+
+
+@pytest.mark.parametrize("mode", TCP.MODES)
+def test_panel_state_is_bit_reproducible_across_t_allocations(dev, mode):
+    """Two K3 calls, the second with T at another address (the tensor map
+    is encoded per call), give bit-identical (logdet, G, v, T); modes
+    "full" and "full+diag" agree bit for bit outside T's diagonal blocks."""
+    N = 4096
+    rng = np.random.default_rng(21)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, 2), dev)
+    first = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=4000, mode=mode)
+    hold = torch.empty((N, N), dtype=torch.bfloat16, device=dev)   # T's old slot is taken
+    second = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=4000, mode=mode)
+    assert first[3].data_ptr() != second[3].data_ptr()
+    del hold
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    other = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=4000,
+                                mode="full" if mode == "full+diag" else "full+diag")
+    for a, b in zip(first[:3], other[:3]):
+        assert torch.equal(a, b)
+    Ta, Tb = first[3].clone(), other[3].clone()
+    TCP.diag_blocks(Ta).zero_()
+    TCP.diag_blocks(Tb).zero_()
+    assert torch.equal(Ta, Tb)
+
+
+@pytest.mark.parametrize("N", [256, 4096])
+def test_panel_state_makes_one_library_call(dev, monkeypatch, N):
+    """A K3 call is one ctypes call whatever N is; LAUNCHES gains the
+    plan's counts."""
+    from gpc_tpu_torch.ops import cuda_lib
+    calls = []
+    real = cuda_lib.launch
+    monkeypatch.setattr(cuda_lib, "launch", lambda *a: (calls.append(a[1]), real(*a)))
+    rng = np.random.default_rng(22)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, 1), dev)
+    before = dict(LAUNCHES)
+    TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1)
+    assert calls == ["gpc_panel_state"]
+    want = TCP.plan_launches(TCP.panel_plan(N, torch.cuda.get_device_properties(dev)
+                                            .multi_processor_count), False)
+    want["panel_state_rbf"] = 1
+    assert {k: LAUNCHES[k] - before.get(k, 0) for k in want} == want
 
 
 @pytest.mark.parametrize("evidence", ["dense", "panel"])
