@@ -39,8 +39,11 @@
 // accumulators into a separate float32 register sum every 256 k.  Late
 // panels have few 128-row tiles and long k loops, so it splits k (partials
 // reduced in a fixed order, no atomics) and each block walks several
-// (tile, split) units.  Then the serial chain of N/128 leaves (~40 us
-// each), which the lookahead above hides under the correction.
+// (tile, split) units.  Then the serial chain of N/128 leaves (~37 us each
+// alone): with the correction beside it, the chain of leaves is K3's length
+// (PERF.md), and a leaf's few trips to memory queue behind the correction's
+// TMA loads.  Kernels of one stream use programmatic dependent launch, so a
+// kernel's launch overlaps the end of the one before it.
 //
 // K2, the leaf (chol_tiles.cuh::leaf128), factors one 128 x 128 PD block by
 // 32-wide sub-panels in shared memory and returns (L^-1, logdet); the logdet
@@ -788,7 +791,10 @@ constexpr int PANEL_EVENTS = 4;
 
 // Per device, once: the kernels' shared-memory limits, the two streams
 // (the leaf chain's at the highest priority, the fills below at the
-// lowest) and the plan's events.
+// lowest) and the plan's events.  The streams and events are shared by
+// every K3 call on the device, so calls must come from one host thread;
+// calls in sequence are ordered by the fork and join on the caller's
+// stream.
 struct PanelCtx {
   bool ready = false;
   cudaStream_t chain = nullptr, below = nullptr;
