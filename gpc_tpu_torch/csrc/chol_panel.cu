@@ -78,6 +78,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "chol_tiles.cuh"
 #include "gram.cuh"
 
@@ -463,20 +465,32 @@ __global__ void __launch_bounds__(GRAM_THREADS)
       make_float4(g[0] - corr.x, g[1] - corr.y, g[2] - corr.z, g[3] - corr.w);
 }
 
-// v[:, jb:jb+128] (D rows of 128 floats, rows 16-byte aligned) into shared
-// memory by cp.async, issued before the kernel's own work so that its
-// latency hides under it: the leaf and the solve sit on K3's critical chain.
-__device__ __forceinline__ void prefetch_vj(float* dst, const float* v, int D, int N, int jb,
-                                            int nthreads) {
-  for (int e = threadIdx.x; e < D * (LEAF / 4); e += nthreads)
-    cpa16(dst + 4 * e, v + (size_t)(e / (LEAF / 4)) * N + jb + 4 * (e % (LEAF / 4)));
+// v_j's rows pass through shared memory VJ_ROWS at a time: the leaf's and
+// the solve's storage plus one chunk fits a block's 227 KB, so D is not
+// bounded.  The first chunk is fetched before the kernel's own work, so that
+// its latency hides under it (the leaf and the solve sit on K3's critical
+// chain); a wider D fetches each further chunk after the one before it.
+constexpr int VJ_ROWS = 192;
+constexpr int K3_SMEM_MAX = 232448;   // the most shared memory a block may take
+static_assert(LEAF_SMEM + VJ_ROWS * LEAF * sizeof(float) <= K3_SMEM_MAX, "leaf + v_j chunk");
+
+__host__ __device__ __forceinline__ int vj_rows(int D) { return D < VJ_ROWS ? D : VJ_ROWS; }
+
+// Rows [d0, d0 + vj_rows(D - d0)) of v[:, jb:jb+128] (rows of 128 floats,
+// 16-byte aligned) into shared memory by cp.async, as one group.
+__device__ __forceinline__ void prefetch_vj(float* dst, const float* v, int D, int d0, int N,
+                                            int jb, int nthreads) {
+  const int rows = vj_rows(D - d0);
+  for (int e = threadIdx.x; e < rows * (LEAF / 4); e += nthreads)
+    cpa16(dst + 4 * e, v + (size_t)(d0 + e / (LEAF / 4)) * N + jb + 4 * (e % (LEAF / 4)));
   cpa_commit();
 }
 
 // K2 (leaf128) on the diagonal block acc[:b] + noise I, then v_j =
 // bf16(v[:, jb:jb+b]) bf16(M)^T written back over v[:, jb:jb+b] (the bf16
-// policy of _vrow_gemm); v[:, jb:jb+b] is fetched into shared memory past
-// leaf128's storage (LEAF_SMEM + D 512 bytes in all) while the leaf runs.
+// policy of _vrow_gemm); v[:, jb:jb+b] passes through shared memory past
+// leaf128's storage (LEAF_SMEM + vj_rows(D) 512 bytes in all), its first
+// chunk fetched while the leaf runs.
 // Mode "full+diag" (T not null): M = L_jj^-1 also goes, as bf16, into the
 // lower triangle of T's diagonal block j (_panel_kernel's "diag" residual,
 // which the training backward rebuilds L_jj from), zeros above it.  The leaf
@@ -489,7 +503,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
   pdl_release();
   extern __shared__ __align__(16) float smem[];
   float* vj = smem + LEAF_SMEM / sizeof(float);
-  prefetch_vj(vj, v, D, N, jb, TILE_THREADS);
+  prefetch_vj(vj, v, D, 0, N, jb, TILE_THREADS);
   const double l = leaf128(acc, LEAF, noise, nullptr, 0, Md, LEAF, smem);
   const int t = threadIdx.x;
   if (t == 0) *ldj = l;
@@ -508,16 +522,23 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       }
       *reinterpret_cast<uint4*>(T + (size_t)(jb + r) * N + jb + c) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-  cpa_wait(false);
-  __syncthreads();
-  for (int e = t; e < D * LEAF; e += TILE_THREADS) vj[e] = bf16_round(vj[e]);
-  __syncthreads();
-  for (int e = t; e < D * LEAF; e += TILE_THREADS) {
-    const int d = e / LEAF;
-    const int r = e % LEAF;
-    float s = 0.0f;
-    for (int k = 0; k <= r; ++k) s += vj[d * LEAF + k] * bf16_round(Ms[r * LDS + k]);
-    v[(size_t)d * N + jb + r] = s;
+  for (int d0 = 0; d0 < D; d0 += VJ_ROWS) {
+    const int rows = vj_rows(D - d0);
+    if (d0 > 0) {
+      __syncthreads();   // the chunk before is consumed
+      prefetch_vj(vj, v, D, d0, N, jb, TILE_THREADS);
+    }
+    cpa_wait(false);
+    __syncthreads();
+    for (int e = t; e < rows * LEAF; e += TILE_THREADS) vj[e] = bf16_round(vj[e]);
+    __syncthreads();
+    for (int e = t; e < rows * LEAF; e += TILE_THREADS) {
+      const int d = e / LEAF;
+      const int r = e % LEAF;
+      float s = 0.0f;
+      for (int k = 0; k <= r; ++k) s += vj[d * LEAF + k] * bf16_round(Ms[r * LDS + k]);
+      v[(size_t)(d0 + d) * N + jb + r] = s;
+    }
   }
 }
 
@@ -526,8 +547,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 // T[r, jb:jb+128]; then v[:, r] -= bf16(v_j) Lp[r]^T.  It sits on K3's
 // critical chain (after the leaf, before the next panel's fill), so a block
 // issues all its loads (acc's rows and M, 96 KB as float4) before its first
-// store, v_j by cp.async past the operands (SV_SMEM + D 512 bytes in all):
-// one round trip.  WMMA bf16 fragments, warps 2 x 4 of 32 x 32, the whole
+// store, v_j by cp.async past the operands (SV_SMEM + vj_rows(D) 512 bytes
+// in all): one round trip while D fits one chunk.  WMMA bf16 fragments, warps 2 x 4 of 32 x 32, the whole
 // k = 128 in shared memory.
 constexpr int SV_ROWS = 64;
 constexpr int SV_THREADS = 256;
@@ -535,6 +556,7 @@ constexpr int SV_LD = LEAF + 8;        // padded bf16 row of the operands
 constexpr int CS_LD = LEAF + 4;        // padded f32 row of the result
 constexpr int SV_SMEM = (SV_ROWS + LEAF) * SV_LD * (int)sizeof(bf16);   // 52,224 B
 static_assert(SV_ROWS * CS_LD * sizeof(float) <= SV_SMEM, "the result reuses the operands");
+static_assert(SV_SMEM + VJ_ROWS * LEAF * sizeof(float) <= K3_SMEM_MAX, "solve + v_j chunk");
 
 __device__ __forceinline__ void store_bf16x4(bf16* dst, float4 x) {
   __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
@@ -555,7 +577,7 @@ __global__ void __launch_bounds__(SV_THREADS)
   float* vj = reinterpret_cast<float*>(sv_raw + SV_SMEM);
   const int r0 = jb + LEAF + blockIdx.x * SV_ROWS;
   const int tid = threadIdx.x;
-  prefetch_vj(vj, v, D, N, jb, SV_THREADS);
+  prefetch_vj(vj, v, D, 0, N, jb, SV_THREADS);
   constexpr int AV = SV_ROWS * LEAF / 4 / SV_THREADS;   // float4 a thread
   constexpr int BV = LEAF * LEAF / 4 / SV_THREADS;
   const float4* a4 = reinterpret_cast<const float4*>(acc + (size_t)(r0 - jb) * LEAF);
@@ -624,16 +646,21 @@ __global__ void __launch_bounds__(SV_THREADS)
     }
     *reinterpret_cast<uint4*>(T + (size_t)(r0 + i) * N + jb + c) = make_uint4(w[0], w[1], w[2], w[3]);
   }
-  cpa_wait(false);
-  __syncthreads();
-
-  for (int e = tid; e < SV_ROWS * D; e += SV_THREADS) {
-    const int i = e % SV_ROWS;
-    const int d = e / SV_ROWS;
-    float s = 0.0f;
+  for (int d0 = 0; d0 < D; d0 += VJ_ROWS) {
+    if (d0 > 0) {
+      __syncthreads();   // the chunk before is consumed
+      prefetch_vj(vj, v, D, d0, N, jb, SV_THREADS);
+    }
+    cpa_wait(false);
+    __syncthreads();
+    for (int e = tid; e < SV_ROWS * vj_rows(D - d0); e += SV_THREADS) {
+      const int i = e % SV_ROWS;
+      const int d = e / SV_ROWS;
+      float s = 0.0f;
 #pragma unroll 8
-    for (int c = 0; c < LEAF; ++c) s += bf16_round(vj[d * LEAF + c]) * Cs[i * CS_LD + c];
-    v[(size_t)d * N + r0 + i] -= s;
+      for (int c = 0; c < LEAF; ++c) s += bf16_round(vj[d * LEAF + c]) * Cs[i * CS_LD + c];
+      v[(size_t)(d0 + d) * N + r0 + i] -= s;
+    }
   }
 }
 
@@ -783,31 +810,28 @@ cudaError_t t_map(const void* T, int N, CUtensorMap* map) {
 }
 
 constexpr int MAX_DEVICES = 16;
-// The leaf's and the solve's dynamic shared memory grows with D (v_j's
-// rows): the most a block may take, which bounds D at K3_D_MAX.
-constexpr int K3_SMEM_MAX = 232448;
-static_assert(LEAF_SMEM + 192 * LEAF * sizeof(float) <= K3_SMEM_MAX, "K3_D_MAX in ops/chol_panel.py");
 constexpr int PANEL_EVENTS = 4;
 
-// Per device, once: the kernels' shared-memory limits, the two streams
+// Per device, once: the kernels' shared-memory limits and the two streams
 // (the leaf chain's at the highest priority, the fills below at the
-// lowest) and the plan's events.  The streams and events are shared by
-// every K3 call on the device, so calls must come from one host thread;
-// calls in sequence are ordered by the fork and join on the caller's
-// stream.
+// lowest), shared by every K3 call on the device.  Each call records and
+// waits on events of its own (gpc_panel_state), so calls from several host
+// threads interleave on the shared streams without crossing each other's
+// waits.
 struct PanelCtx {
   bool ready = false;
   cudaStream_t chain = nullptr, below = nullptr;
-  cudaEvent_t ev[PANEL_EVENTS] = {};
 };
 
 cudaError_t panel_ctx(PanelCtx** out) {
   static PanelCtx ctx[MAX_DEVICES];
+  static std::mutex init;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   PanelCtx& c = ctx[dev];
+  const std::lock_guard<std::mutex> hold(init);
   if (!c.ready) {
     int least = 0, greatest = 0;
     if ((e = cudaFuncSetAttribute(panel_corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -821,9 +845,6 @@ cudaError_t panel_ctx(PanelCtx** out) {
             cudaSuccess ||
         (e = cudaStreamCreateWithPriority(&c.below, cudaStreamNonBlocking, least)) != cudaSuccess)
       return e;
-    for (int i = 0; i < PANEL_EVENTS; ++i)
-      if ((e = cudaEventCreateWithFlags(&c.ev[i], cudaEventDisableTiming)) != cudaSuccess)
-        return e;
     c.ready = true;
   }
   *out = &c;
@@ -858,8 +879,31 @@ cudaError_t launch_corr(bool pdl, const CUtensorMap& map, int row0, int rows, in
 enum PanelStepKind {
   PSTEP_FILL = 0, PSTEP_LEAF = 1, PSTEP_SOLVE = 2, PSTEP_FINISH = 3, PSTEP_FORK = 4, PSTEP_JOIN = 5
 };
-constexpr int PSTEP_FIELDS = 9;   // kind, stream, j, row0, row1, splits, grid, wait, record
+// kind, stream, j, row0, row1, splits, grid, buf, wait, record
+constexpr int PSTEP_FIELDS = 10;
 constexpr int PANEL_STREAMS = 3;  // the caller's, the chain, the fills below
+// The launches gpc_panel_state counts, by kernel (ops/chol_panel.py::K3_COUNTS).
+enum PanelCount {
+  PCOUNT_CORR = 0, PCOUNT_FILL_DIAG, PCOUNT_FILL_BELOW, PCOUNT_LEAF, PCOUNT_SOLVE, PCOUNT_FINISH,
+  PANEL_COUNTS
+};
+
+// The events of one K3 call, destroyed when the call returns (a pending
+// record or wait keeps its event alive until the device is past it).
+struct PanelEvents {
+  cudaEvent_t ev[PANEL_EVENTS] = {};
+  cudaError_t create() {
+    for (int i = 0; i < PANEL_EVENTS; ++i) {
+      const cudaError_t e = cudaEventCreateWithFlags(&ev[i], cudaEventDisableTiming);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+  ~PanelEvents() {
+    for (int i = 0; i < PANEL_EVENTS; ++i)
+      if (ev[i] != nullptr) cudaEventDestroy(ev[i]);
+  }
+};
 
 }  // namespace
 
@@ -880,24 +924,29 @@ extern "C" int gpc_panel_corr(const void* T, int N, int row0, int row1, int jb, 
 
 // K3: walks the plan (nsteps rows of PSTEP_FIELDS ints) on the caller's
 // stream (0) and the context's two streams, the chain (1) and the fills
-// below (2), waiting on and recording the plan's events: it forks from the
-// caller's stream and ends joined to it.  Per step kind:
-//   FILL   rows [row0, row1) of panel j: the correction (jb > 0) into the
-//          partials (part_d for the diagonal block's rows, part_b below),
-//          then the Gram map minus their split sum into acc
+// below (2), waiting on and recording the plan's events (the call's own):
+// it forks from the caller's stream and ends joined to it.  Per step kind:
+//   FILL   rows [row0, row1) of panel j: the correction (splits > 0) into
+//          the partials buffer buf (0: part_d, 1: part_b), then the Gram
+//          map minus their split sum into acc
 //   LEAF   K2 on acc[:128] + noise I -> Md = L_jj^-1, ldj[j], v_j; mode
 //          "full+diag" (diag = 1) also writes bf16(Md) into T's block j
 //   SOLVE  rows [row0, row1): Lp -> T, v[:, rows] -= v_j Lp^T
 //   FINISH G = v v^T and the logdet sum
 //   FORK, JOIN  no launch: only their event record or wait
+// counts (PANEL_COUNTS ints) gains one for each kernel launched, by kind.
 // Returns the first CUDA error.
 extern "C" int gpc_panel_state(const float* X, const float* XT, int q, float* v, int D, int N, int nv,
                                float gamma, float var, float noise, void* T, float* acc,
                                float* part_d, float* part_b, float* Md, double* ldj, float* G,
-                               float* ld, int diag, const int* steps, int nsteps, void* stream) {
+                               float* ld, int diag, const int* steps, int nsteps, void* stream,
+                               int* counts) {
   PanelCtx* ctx = nullptr;
   cudaError_t e = panel_ctx(&ctx);
   if (e != cudaSuccess) return (int)e;
+  PanelEvents events;
+  if ((e = events.create()) != cudaSuccess) return (int)e;
+  cudaEvent_t* ev = events.ev;
   CUtensorMap map;
   if ((e = t_map(T, N, &map)) != cudaSuccess) return (int)e;
   const cudaStream_t st[PANEL_STREAMS] = {(cudaStream_t)stream, ctx->chain, ctx->below};
@@ -906,43 +955,51 @@ extern "C" int gpc_panel_state(const float* X, const float* XT, int q, float* v,
   for (int i = 0; i < nsteps; ++i) {
     const int* f = steps + PSTEP_FIELDS * i;
     const int kind = f[0], j = f[2], row0 = f[3], row1 = f[4], splits = f[5], grid = f[6];
-    if (f[1] < 0 || f[1] >= PANEL_STREAMS || f[7] >= PANEL_EVENTS || f[8] >= PANEL_EVENTS)
+    const int buf = f[7], wait = f[8], record = f[9];
+    if (f[1] < 0 || f[1] >= PANEL_STREAMS || buf < 0 || buf > 1 || wait >= PANEL_EVENTS ||
+        record >= PANEL_EVENTS)
       return (int)cudaErrorInvalidValue;
     const cudaStream_t s = st[f[1]];
     const int jb = j * LEAF;
     bool& pdl = chained[f[1]];
-    if (f[7] >= 0) {
-      if ((e = cudaStreamWaitEvent(s, ctx->ev[f[7]], 0)) != cudaSuccess) return (int)e;
+    if (wait >= 0) {
+      if ((e = cudaStreamWaitEvent(s, ev[wait], 0)) != cudaSuccess) return (int)e;
       pdl = false;
     }
-    const size_t vbytes = (size_t)D * LEAF * sizeof(float);
+    const size_t vbytes = (size_t)vj_rows(D) * LEAF * sizeof(float);
+    int counted = -1;
     switch (kind) {
       case PSTEP_FILL: {
         const int rows = row1 - row0;
-        float* part = row0 == jb ? part_d : part_b;
-        if (jb > 0) {
-          if ((e = launch_corr(pdl, map, row0, rows, jb, splits, grid, part, s)) != cudaSuccess)
+        float* part = buf ? part_b : part_d;
+        if (splits > 0) {
+          if ((e = launch_corr(pdl, map, row0, rows, jb, splits, grid, part, s)) != cudaSuccess ||
+              (e = cudaGetLastError()) != cudaSuccess)
             return (int)e;
+          ++counts[PCOUNT_CORR];
           pdl = true;
         }
-        const int sp = jb > 0 ? splits : 0;
-        const int subs = gram_subs(sp);
+        const int subs = gram_subs(splits);
         e = launch_k3(pdl, panel_gram_kernel, (unsigned)(rows / (GRAM_WARPS / subs)), GRAM_THREADS,
-                      0, s, X, XT, q, N, jb, row0, rows, nv, gamma, var, (const float*)part, sp,
+                      0, s, X, XT, q, N, jb, row0, rows, nv, gamma, var, (const float*)part, splits,
                       subs, acc);
+        counted = buf ? PCOUNT_FILL_BELOW : PCOUNT_FILL_DIAG;
         break;
       }
       case PSTEP_LEAF:
         e = launch_k3(pdl, panel_leaf_kernel, 1, TILE_THREADS, LEAF_SMEM + vbytes, s, acc, noise,
                       Md, v, D, N, jb, ldj + j, diag ? Tb : nullptr);
+        counted = PCOUNT_LEAF;
         break;
       case PSTEP_SOLVE:
         e = launch_k3(pdl, panel_solve_kernel, (row1 - row0) / SV_ROWS, SV_THREADS,
                       SV_SMEM + vbytes, s, (const float*)acc, (const float*)Md, Tb, v, D, N, jb);
+        counted = PCOUNT_SOLVE;
         break;
       case PSTEP_FINISH:
         e = launch_k3(pdl, panel_finish_kernel, D * D, FIN_THREADS, 0, s, (const float*)v, D, N,
                       (const double*)ldj, N / LEAF, G, ld);
+        counted = PCOUNT_FINISH;
         break;
       case PSTEP_FORK:
       case PSTEP_JOIN:
@@ -952,8 +1009,9 @@ extern "C" int gpc_panel_state(const float* X, const float* XT, int q, float* v,
         return (int)cudaErrorInvalidValue;
     }
     if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (counted >= 0) ++counts[counted];
     pdl = kind != PSTEP_FORK && kind != PSTEP_JOIN;
-    if (f[8] >= 0 && (e = cudaEventRecord(ctx->ev[f[8]], s)) != cudaSuccess) return (int)e;
+    if (record >= 0 && (e = cudaEventRecord(ev[record], s)) != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

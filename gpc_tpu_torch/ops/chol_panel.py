@@ -37,6 +37,7 @@ The inputs are NOT pre-scaled: the rbf map takes γ as rbf's inverseWidth.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -47,7 +48,6 @@ from gpc_tpu_torch.ops.chol_pallas import launch_blocked
 from gpc_tpu_torch.ops.gram import dist_gram_plain
 
 LEAF = 128   # the leaf width; the CUDA panel width b is LEAF
-K3_D_MAX = 192   # K3's widest right-hand side: v_j's rows share the leaf's shared memory
 
 
 def factor_diag_plain(A: torch.Tensor):
@@ -131,7 +131,7 @@ UNIT_COST = 2                 # a unit's pipeline fill and partials store, in ch
 PART_COST = 0.04              # a split's reduction, in chunk-times per 128-row tile
 
 PanelStep = collections.namedtuple(
-    "PanelStep", "kind stream j row0 row1 splits grid wait record")
+    "PanelStep", "kind stream j row0 row1 splits grid buf wait record")
 
 
 def corr_split(tiles: int, kc: int, grid: int):
@@ -151,8 +151,9 @@ def corr_split(tiles: int, kc: int, grid: int):
 
 def panel_plan(N: int, sms: int = 132):
     """K3's launches in host order, as PanelSteps (kind, stream, panel j,
-    rows [row0, row1), splits and grid of the correction, the event waited
-    on before and recorded after, -1 for none).  FORK records FORKED on the
+    rows [row0, row1), splits and grid of the correction, the partials
+    buffer it writes, the event waited on before and recorded after, -1 for
+    none).  FORK records FORKED on the
     caller's stream.  Per panel j, on CHAIN: the fill of the diagonal
     block's rows (records DIAG_READY), the leaf, and unless j is the last
     panel the solve, which waits BELOW_DONE; on BELOW, unless j is the last
@@ -161,64 +162,54 @@ def panel_plan(N: int, sms: int = 132):
     records BELOW_DONE).  The diagonal fill thus runs alone, after the
     solve before it.  FINISH on CHAIN records DONE, and JOIN waits for it
     on the caller's stream.  A fill at jb = 0 has no correction (splits 0);
-    the diagonal fills and the fills below write their partials to separate
-    buffers."""
+    the diagonal fills write their partials to buffer 0, the fills below
+    to buffer 1."""
     nb = N // LEAF
-    steps = [PanelStep(FORK, CALLER, 0, 0, 0, 0, 0, -1, FORKED)]
+    steps = [PanelStep(FORK, CALLER, 0, 0, 0, 0, 0, 0, -1, FORKED)]
     for j in range(nb):
         jb = j * LEAF
         kc = jb // CORR_BK
         split = corr_split(1, kc, sms) if kc else (0, 0)
-        steps.append(PanelStep(FILL, CHAIN, j, jb, jb + LEAF, *split, FORKED if j == 0 else -1,
-                               DIAG_READY))
+        steps.append(PanelStep(FILL, CHAIN, j, jb, jb + LEAF, *split, 0,
+                               FORKED if j == 0 else -1, DIAG_READY))
         if j + 1 < nb:
             split = corr_split(nb - j - 1, kc, sms - 1) if kc else (0, 0)
-            steps.append(PanelStep(FILL, BELOW, j, jb + LEAF, N, *split, DIAG_READY, BELOW_DONE))
-        steps.append(PanelStep(LEAF_STEP, CHAIN, j, jb, jb + LEAF, 0, 0, -1, -1))
+            steps.append(PanelStep(FILL, BELOW, j, jb + LEAF, N, *split, 1, DIAG_READY,
+                                   BELOW_DONE))
+        steps.append(PanelStep(LEAF_STEP, CHAIN, j, jb, jb + LEAF, 0, 0, 0, -1, -1))
         if j + 1 < nb:
-            steps.append(PanelStep(SOLVE, CHAIN, j, jb + LEAF, N, 0, 0, BELOW_DONE, -1))
-    steps.append(PanelStep(FINISH, CHAIN, nb, 0, N, 0, 0, -1, DONE))
-    steps.append(PanelStep(JOIN, CALLER, nb, 0, 0, 0, 0, DONE, -1))
+            steps.append(PanelStep(SOLVE, CHAIN, j, jb + LEAF, N, 0, 0, 0, BELOW_DONE, -1))
+    steps.append(PanelStep(FINISH, CHAIN, nb, 0, N, 0, 0, 0, -1, DONE))
+    steps.append(PanelStep(JOIN, CALLER, nb, 0, 0, 0, 0, 0, DONE, -1))
     return steps
 
 
-def plan_launches(steps, diag: bool) -> dict:
-    """LAUNCHES' counts for one walk of a plan: panel_fill one per panel,
-    the leaf (factor_diag, or panel_leaf_diag in mode "full+diag") one per
-    leaf, panel_solve one per solve, panel_corr one per correction launch."""
-    n = collections.Counter()
-    for st in steps:
-        if st.kind == FILL:
-            n["panel_fill"] += st.row0 == st.j * LEAF
-            n["panel_corr"] += st.splits > 0
-        elif st.kind == LEAF_STEP:
-            n["panel_leaf_diag" if diag else "factor_diag"] += 1
-        elif st.kind == SOLVE:
-            n["panel_solve"] += 1
-    return {k: c for k, c in n.items() if c}
-
-
 def part_floats(steps):
-    """(diagonal, below): floats of the split partials the plan's largest
-    correction of each kind writes (at least 1)."""
+    """Floats of the split partials the plan's largest correction writes
+    into each buffer (at least 1)."""
     sizes = ([1], [1])
     for st in steps:
         if st.kind == FILL:
-            sizes[st.row0 != st.j * LEAF].append(st.splits * (st.row1 - st.row0) * LEAF)
+            sizes[st.buf].append(st.splits * (st.row1 - st.row0) * LEAF)
     return max(sizes[0]), max(sizes[1])
 
+
+# the launches gpc_panel_state counts, by kernel, in its order (csrc's
+# PanelCount), under LAUNCHES' names; None: the leaf's, which is
+# factor_diag, or panel_leaf_diag in mode "full+diag"
+K3_COUNTS = ("panel_corr", "panel_fill", "panel_fill_below", None, "panel_solve",
+             "panel_finish")
 
 _PANEL_PLANS: dict = {}
 
 
 def _packed_panel_plan(N: int, sms: int):
-    """(host int32 rows for the C walker, the partials' floats, launch
-    counts by mode), built once per (N, sms)."""
+    """(host int32 rows for the C walker, the partials' floats), built once
+    per (N, sms)."""
     key = (N, sms)
     if key not in _PANEL_PLANS:
         steps = panel_plan(N, sms)
-        _PANEL_PLANS[key] = (np.ascontiguousarray(steps, dtype=np.int32), part_floats(steps),
-                             {d: plan_launches(steps, d) for d in (False, True)})
+        _PANEL_PLANS[key] = (np.ascontiguousarray(steps, dtype=np.int32), part_floats(steps))
     return _PANEL_PLANS[key]
 
 
@@ -267,7 +258,8 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
     """Panel evidence state (logdet, G, v, T), module docstring.  CPU: the
     plain version.  CUDA: X (N, q) and m (N, D) float32 with N % 128 == 0,
     b = 128: one walk of panel_plan(N) in C; mode "full+diag" also has each
-    leaf store bf16(L_jj⁻¹) into T's diagonal block."""
+    leaf store bf16(L_jj⁻¹) into T's diagonal block.  LAUNCHES gains the
+    launches the walk counted, by kernel (K3_COUNTS)."""
     if mode not in MODES:
         raise ValueError(f"panel_state_rbf: mode {mode!r} (want one of {MODES})")
     if X.device.type == "cpu":
@@ -276,13 +268,13 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
     N, q = X.shape
     D = m.shape[1]
     nv = n_valid or N
-    if b != LEAF or N % LEAF or m.shape[0] != N or not 0 < nv <= N or not 0 < D <= K3_D_MAX:
+    if b != LEAF or N % LEAF or m.shape[0] != N or not 0 < nv <= N or D < 1:
         raise ValueError(f"panel_state_rbf: need b={LEAF}, N % {LEAF} == 0, "
-                         f"0 < n_valid <= N, 0 < D <= {K3_D_MAX} (got b={b}, "
+                         f"0 < n_valid <= N, D >= 1 (got b={b}, "
                          f"X {tuple(X.shape)}, m {tuple(m.shape)}, n_valid={n_valid})")
     diag = mode == "full+diag"
     dev = X.device
-    rows, (n_diag, n_below), counts = _packed_panel_plan(N, _sm_count(dev))
+    rows, (n_diag, n_below) = _packed_panel_plan(N, _sm_count(dev))
     T = torch.zeros((N, N), dtype=torch.bfloat16, device=dev)
     acc = torch.empty((N, LEAF), dtype=torch.float32, device=dev)
     part = torch.empty(n_diag + n_below, dtype=torch.float32, device=dev)
@@ -292,12 +284,14 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
     G = torch.empty((D, D), dtype=torch.float32, device=dev)
     ld = torch.empty((), dtype=torch.float32, device=dev)
     XT = X.T.contiguous()   # the Gram fill reads the panel's columns as float4
+    counts = (ctypes.c_int * len(K3_COUNTS))()
     cuda_lib.launch("panel_state_rbf", "gpc_panel_state", X.data_ptr(), XT.data_ptr(), q,
                     v.data_ptr(), D, N,
                     nv, float(inv_width), float(variance), float(noise), T.data_ptr(),
                     acc.data_ptr(), part.data_ptr(), part[n_diag:].data_ptr(), Md.data_ptr(),
                     ldj.data_ptr(),
                     G.data_ptr(), ld.data_ptr(), int(diag), rows.ctypes.data, rows.shape[0],
-                    cuda_lib.stream_of(X))
-    cuda_lib.LAUNCHES.update(counts[diag])
+                    cuda_lib.stream_of(X), counts)
+    leaf = "panel_leaf_diag" if diag else "factor_diag"
+    cuda_lib.LAUNCHES.update({name or leaf: n for name, n in zip(K3_COUNTS, counts) if n})
     return ld, G, v, T

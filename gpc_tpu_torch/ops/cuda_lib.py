@@ -11,7 +11,9 @@ Every C entry point launches on the stream it is given (K3's,
 `gpc_panel_state`, forks two streams of its own from it and joins them back
 before it returns) and returns the first CUDA error; `launch` raises on a
 non-zero code and adds one to the kernel's count in `LAUNCHES`, which a run
-reads to show that its path went through the kernels.
+reads to show that its path went through the kernels.  `gpc_panel_state`
+also counts each kernel it launches, by kind, into an array the caller
+passes (ops/chol_panel.py adds those counts to `LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ _SIGNATURES = {
     "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
     "gpc_chol_blocked": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     "gpc_panel_state": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _P, _I, _P],
+                        _P, _I, _P, _I, _P, _P],
     "gpc_panel_corr": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "gpc_mega_grid": [_I],
     "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,

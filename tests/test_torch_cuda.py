@@ -179,7 +179,7 @@ def test_panel_corr_kernel_matches_float32_product(dev, N, which, split):
     block per unit up to the SMs.  At N = 128 the plan has no correction."""
     nb = N // 128
     if nb == 1:
-        assert "panel_corr" not in TCP.plan_launches(TCP.panel_plan(N), False)
+        assert all(st.splits == 0 for st in TCP.panel_plan(N) if st.kind == TCP.FILL)
         return
     j = {"first": 1, "middle": max(1, nb // 2), "last": nb - 1}[which]
     jb = 128 * j
@@ -217,6 +217,28 @@ def test_panel_state_kernel_at_ragged_n_valid_and_widths(dev, N, n_valid, D):
     assert bool(((g - g_want).abs() <= 2e-3 * g_want.abs()).all())
 
 
+@pytest.mark.parametrize("N,n_valid,D", [(384, 300, 193), (1024, 1000, 400)])
+def test_panel_state_wide_rhs_matches_narrow_calls(dev, N, n_valid, D):
+    """v_j's rows pass through the leaf's and the solve's shared memory 192
+    at a time, and each row of v is computed on its own: a K3 call with D
+    above 192 gives bit for bit the logdet, T, v and G of calls on groups of
+    at most 100 of its columns, and its logdet holds gpc_tpu's 2e-3 panel
+    bound against the plain version."""
+    rng = np.random.default_rng(N + D)
+    X, m = _randn(rng, (N, 8), dev), _randn(rng, (N, D), dev)
+    m[n_valid:] = 0.0
+    ld, G, v, T = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1, n_valid=n_valid)
+    assert G.shape == (D, D) and v.shape == (D, N)
+    for d0 in range(0, D, 100):
+        cols = slice(d0, min(d0 + 100, D))
+        ld_n, G_n, v_n, T_n = TCP.panel_state_rbf(X, m[:, cols].contiguous(), 1.0, 1.0, 0.1,
+                                                  n_valid=n_valid)
+        assert torch.equal(ld_n, ld) and torch.equal(T_n, T)
+        assert torch.equal(v_n, v[cols]) and torch.equal(G_n, G[cols, cols])
+    ld_want = TCP.panel_state_rbf_plain(X, m[:, :1], 1.0, 1.0, 0.1, n_valid=n_valid)[0]
+    assert abs(float(ld) - float(ld_want)) <= 2e-3 * abs(float(ld_want))
+
+
 @pytest.mark.parametrize("mode", TCP.MODES)
 def test_panel_state_is_bit_reproducible_across_t_allocations(dev, mode):
     """Two K3 calls, the second with T at another address (the tensor map
@@ -245,7 +267,9 @@ def test_panel_state_is_bit_reproducible_across_t_allocations(dev, mode):
 @pytest.mark.parametrize("N", [256, 4096])
 def test_panel_state_makes_one_library_call(dev, monkeypatch, N):
     """A K3 call is one ctypes call whatever N is; LAUNCHES gains the
-    plan's counts."""
+    launches the C walker counted: a diagonal fill and a leaf a panel, a
+    fill below and a solve for every panel but the last, a correction in
+    every fill but panel 0's, one finish."""
     from gpc_tpu_torch.ops import cuda_lib
     calls = []
     real = cuda_lib.launch
@@ -255,9 +279,10 @@ def test_panel_state_makes_one_library_call(dev, monkeypatch, N):
     before = dict(LAUNCHES)
     TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1)
     assert calls == ["gpc_panel_state"]
-    want = TCP.plan_launches(TCP.panel_plan(N, torch.cuda.get_device_properties(dev)
-                                            .multi_processor_count), False)
-    want["panel_state_rbf"] = 1
+    nb = N // 128
+    want = {"panel_fill": nb, "factor_diag": nb, "panel_fill_below": nb - 1,
+            "panel_solve": nb - 1, "panel_corr": 2 * nb - 3, "panel_finish": 1,
+            "panel_state_rbf": 1}
     assert {k: LAUNCHES[k] - before.get(k, 0) for k in want} == want
 
 
