@@ -26,7 +26,17 @@ at the TPU probe's shapes; K8b and K8c, the chained bf16 dots of the TPU
 probes in three operand forms and four read patterns, beside one
 torch.matmul a dot (phase 15); and K8d, the exp tile, the rbf Gram tile,
 the matvec chain and the staged bf16 store in its bulk and direct modes
-(phase 16).  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+(phase 16).  Phase 17, the sparse slice at gpc_tpu's geometry (N = 16384,
+M = 1024, q = 8): DTC, DTCVAR, FITC and PITC (blocks of 1024 and of 1000)
+at β = 1, and DTC and FITC at β = 1e3, against the CPU float64 route
+(beside a TF32 control), their gradients at N = 2048, M = 128, evidence and
+value_and_grad timings, learn -A dtc|fitc -a 1024, display,
+log-likelihood, predict and relearn -O quasinew through the CLI (the
+learned models against the CPU float64 route), a sparse GPServer, gp
+gnuplot on a 1-D DTC model and a -k mlp DTC evidence (K4); then, on a path
+of their own, learn -O conjgrad|graddesc|quasinew at N = 4096 (FTC); then
+K1, K4 and the batched K1 of PITC's blocks at the sparse shapes against
+their plain versions.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
@@ -730,7 +740,7 @@ def value_and_grad_split(model):
     from gpc_tpu_torch.models.gp import make_objective
     _, X, y, bias, scales = model._args()
     theta = as_tensor(model.theta, model.device).requires_grad_(True)
-    nlml = make_objective(model.spec, X, y, bias, scales)
+    nlml = make_objective(model.spec, X, y, bias, scales, model._xu_fixed())
     f, fwd_ms = timed(lambda: nlml(theta))
     (g,), bwd_ms = timed(lambda: torch.autograd.grad(f, theta))
     return float(f.detach()), g.cpu().numpy().astype(np.float64), fwd_ms, bwd_ms
@@ -900,7 +910,7 @@ def phase_zoo(dev, workdir):
     server, factor_ms = timed(lambda: GPServer(model, chunk=CHUNK, explicit_inverse=True))
     requests = [rng.standard_normal((t, Q)) for t in (CHUNK, 1000, 37)]
     served, serve_ms = timed(lambda: [server.predict(r) for r in requests])
-    kp, _ = model.spec.unpack(as_tensor(model.theta, model.device))
+    _, kp, _, _ = model.spec.unpack(as_tensor(model.theta, model.device))
     for Xt, (mu, var) in zip(requests, served):
         want_mu, want_var = model.predict(Xt)
         check(np.isfinite(mu).all() and np.isfinite(var).all(), "mlp server output not finite")
@@ -934,6 +944,365 @@ def phase_zoo(dev, workdir):
         f"({ard_ms} ms CLI wall), log-likelihood {ll_ard}")
     return dict(learn_cli_ms=learn_ms, final=final, ll=ll, ll_cli_ms=wall,
                 factor_ms=factor_ms, predictions_per_s=n_pred / serve_ms * 1e3)
+
+
+M_SPARSE = 1024      # gpc_tpu's sparse geometry (bench.py:277-303): N = 16384, M = 1024
+# f32 on the card against the CPU's float64 at the same θ, relative: the
+# evidence at β = 1 (SPARSE_TOL) and at any other β (SPARSE_TOL_BETA: the
+# error grows with cond(Am)), θ̄ in L2 (SPARSE_GRAD_TOL) and its X_u block
+# (SPARSE_XU_TOL).  Each limit sits between the worst reading of the f32
+# route and the least of the same route with TF32 products (the control),
+# both printed by phase 17 (PERF.md §6); on an H100 80GB HBM3 at 700 W:
+# evidence 5.0e-8 / 8.2e-7 at β = 1, 3.5e-7 / 2.5e-6 at other β (1e3 and the
+# relearned models); θ̄ 2.1e-7 / 2.0e-5; X_u 2.4e-6 / 8.1e-4.
+SPARSE_TOL = 2e-7
+SPARSE_TOL_BETA = 1.5e-6
+SPARSE_GRAD_TOL = 2e-6
+SPARSE_XU_TOL = 4e-5
+BETA_LARGE = 1e3     # a noise variance of 1e-3: Am = I/β + V·Vᵀ nearly singular
+SPARSE = ("dtc", "dtcvar", "fitc", "pitc")
+SPARSE_CASES = ([(a, 0, 1.0) for a in SPARSE] + [("pitc", 1000, 1.0)]
+                + [(a, 0, BETA_LARGE) for a in ("dtc", "fitc")])
+
+
+def sparse_model(X, y, approx, dev, lead="rbf", pitc_block=0, M=M_SPARSE, beta=1.0):
+    """A sparse GP at `gp learn`'s start (β = 1 unless given, inducing
+    inputs the sorted seeded subset of X) on `dev`."""
+    from gpc_tpu_torch.models.gp import GP
+    return GP(default_kern(X.shape[1], lead), X, y, approx=approx, num_active=M, seed=SEED,
+              pitc_block=pitc_block, beta=beta, device=dev)
+
+
+def sparse_tol(beta):
+    return SPARSE_TOL if beta == 1.0 else SPARSE_TOL_BETA
+
+
+def sparse_tag(approx, block, beta):
+    return (approx + (str(block) if block else "")
+            + ("" if beta == 1.0 else f"_beta{beta:g}"))
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """The precision control: TF32 for cuBLAS matrix products, which the
+    port keeps off (gpc_tpu_torch/__init__.py)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def plain_gram_calls():
+    """Counts the plain Gram versions' calls on CUDA tensors (a list of one
+    count): 0 on a path that launches K1/K4 for every Gram; the backward of
+    K1/K4 recomputes the plain map by design (ops/gram.py)."""
+    from gpc_tpu_torch.ops import gram as G
+    count = [0]
+    saved = G.dist_gram_plain, G.inner_gram_plain
+
+    def counted(fn):
+        def wrapper(family, params, X1, *rest):
+            count[0] += X1.device.type == "cuda"
+            return fn(family, params, X1, *rest)
+        return wrapper
+    G.dist_gram_plain, G.inner_gram_plain = counted(saved[0]), counted(saved[1])
+    try:
+        yield count
+    finally:
+        G.dist_gram_plain, G.inner_gram_plain = saved
+
+
+def phase_sparse(dev, workdir):
+    """Phase 17, the sparse slice at gpc_tpu's geometry: N = 16384, M =
+    1024, q = 8, cmpnd(rbf, bias, white) at `gp learn`'s start.  Each
+    approximation's f32 evidence against the CPU float64 route at the same
+    θ (sparse_tol), PITC in blocks of 1024 and of 1000 (a ragged last
+    block of 384), DTC and FITC also at β = 1e3, each beside the TF32
+    control; evidence ms and value_and_grad ms (forward / backward, median
+    of 3) and peak GiB; the gradient in θ, X_u and β against the CPU float64
+    route at N = 2048, M = 128 in the same cases (SPARSE_GRAD_TOL and
+    SPARSE_XU_TOL relative L2, beside the control's); no plain Gram runs on
+    the forward paths (evidence, log-likelihood, predict, serving; the
+    backward of K1/K4 recomputes the plain map by design).  Through the
+    CLI: learn -A dtc|fitc -a 1024 -# 3, display, log-likelihood (= −final
+    objective within 1e-4), predict, relearn -# 1 -O quasinew (the native
+    L-BFGS engine), and the relearned model (its learned β) on the card
+    against the CPU float64 route (sparse_tol); a sparse GPServer (factor ms, predictions/s
+    at 8192, 1000 and 37 rows, against GP.predict within 1e-4); gp gnuplot
+    on a 1-D DTC model at N = 16384; and one DTC evaluation with -k mlp
+    (K4)."""
+    from gpc_tpu_torch.io import model_io
+    from gpc_tpu_torch.io.svml import write_svml
+    from gpc_tpu_torch.optim.lbfgs import ENGINE_RUNS
+    from gpc_tpu_torch.serving import GPServer
+    X, y, rng = slice_data()
+    out = {}
+    with plain_gram_calls() as plain:
+        for approx, block, beta in SPARSE_CASES:
+            tag = sparse_tag(approx, block, beta)
+            card = sparse_model(X, y, approx, dev, pitc_block=block, beta=beta)
+            ref, cpu_ms = timed(sparse_model(X, y, approx, "cpu", pitc_block=block,
+                                             beta=beta).log_likelihood)
+            runs = [timed(card.log_likelihood) for _ in range(3)]
+            ll = runs[0][0]
+            rel = abs(ll - ref) / abs(ref)
+            with tf32_products():
+                rel_tf32 = abs(card.log_likelihood() - ref) / abs(ref)
+            check(np.isfinite(ll) and rel < sparse_tol(beta),
+                  f"{tag} evidence on the card {ll} vs CPU f64 {ref}: rel {rel}")
+            fwd_plain = plain[0]
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            vg = [value_and_grad_split(card) for _ in range(3)]
+            peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            check(all(np.isfinite(r[0]) and np.isfinite(r[1]).all() for r in vg),
+                  f"{tag} value_and_grad not finite")
+            out[tag] = dict(ll=ll, ll_cpu_f64=ref, rel=rel, rel_tf32_control=rel_tf32,
+                            cpu_f64_ms=cpu_ms,
+                            evidence_ms=float(np.median([r[1] for r in runs])),
+                            forward_ms=float(np.median([r[2] for r in vg])),
+                            backward_ms=float(np.median([r[3] for r in vg])),
+                            peak_gib=peak_gib, plain_calls_forward=fwd_plain,
+                            plain_calls_backward=plain[0] - fwd_plain)
+            plain[0] = 0
+            log(f"phase 17 {tag} N={N} M={M_SPARSE}: evidence {ll} vs CPU f64 {ref} (rel {rel}; "
+                f"TF32 control {rel_tf32}); {json.dumps(out[tag])}")
+            del card
+            torch.cuda.empty_cache()
+        check(all(out[t]["plain_calls_forward"] == 0 for t in out),
+              "a plain Gram ran on the sparse evidence path")
+
+        Xs, ys = X[:2048], y[:2048]
+        grads = {}
+        for approx, block, beta in SPARSE_CASES:
+            block = 100 if block else 0
+            tag = sparse_tag(approx, block, beta)
+            cpu = sparse_model(Xs, ys, approx, "cpu", pitc_block=block, M=128, beta=beta)
+            card = sparse_model(Xs, ys, approx, dev, pitc_block=block, M=128, beta=beta)
+            f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+            f, g = card.value_and_grad_fn()(card.theta)
+            with tf32_products():
+                _, g_tf32 = card.value_and_grad_fn()(card.theta)
+            rel, rel_xu = rel_l2(g, g_ref), rel_l2(g[:-5], g_ref[:-5])
+            grads[tag] = dict(rel=rel, rel_xu=rel_xu, rel_tf32_control=rel_l2(g_tf32, g_ref),
+                              rel_xu_tf32_control=rel_l2(g_tf32[:-5], g_ref[:-5]))
+            check(np.isfinite(g).all() and rel < SPARSE_GRAD_TOL and rel_xu < SPARSE_XU_TOL,
+                  f"{tag} gradient N=2048 M=128 vs CPU f64: rel L2 {rel}, X_u {rel_xu}")
+            log(f"phase 17 gradient {tag} N=2048 M=128: θ̄ rel L2 {rel} (X_u {rel_xu}, kernel "
+                f"{rel_l2(g[-5:-1], g_ref[-5:-1])}, β {g[-1]} vs {g_ref[-1]}); nlml {f} vs "
+                f"{f_ref}; TF32 control {json.dumps(grads[tag])}")
+        out["gradients_n2048"] = grads
+
+        data = os.path.join(workdir, "train.svml")         # written by phase_slice
+        cli = {}
+        for approx in ("dtc", "fitc"):
+            model_file = os.path.join(workdir, f"{approx}_model")
+            text, learn_ms = timed(lambda: run_cli(
+                ["-s", str(SEED), "learn", "-A", approx, "-a", str(M_SPARSE), "-#", "3",
+                 data, model_file]))
+            final, iters = learned(text)
+            check(iters == 3 and np.isfinite(final), f"learn -A {approx}: {iters}, {final}")
+            shown = run_cli(["display", model_file])
+            check(f"Approximation type: {approx}" in shown and "beta: " in shown
+                  and shown.splitlines()[-5:] == text.splitlines()[-6:-1],
+                  f"display of the learned {approx} model disagrees with learn's summary")
+            plain[0] = 0
+            ll, ll_ms = timed(lambda: float(run_cli(["log-likelihood", data, model_file])
+                                             .split(":")[-1]))
+            check(abs(ll + final) <= 1e-4 * abs(final),
+                  f"{approx} log-likelihood of the learned model {ll} vs -{final}")
+            preds = os.path.join(workdir, f"{approx}_preds")
+            run_cli(["predict", data, model_file, preds])
+            mu_file = np.loadtxt(preds).reshape(-1, 1)
+            check(mu_file.shape == (N, 1) and np.isfinite(mu_file).all(), f"{approx} predict")
+            check(plain[0] == 0, f"a plain Gram ran in log-likelihood or predict -A {approx}")
+            native = ENGINE_RUNS["native"]
+            text2, relearn_ms = timed(lambda: run_cli(
+                ["relearn", "-#", "1", "-O", "quasinew", data, model_file, model_file + "_re"]))
+            final2, _ = learned(text2)
+            check(ENGINE_RUNS["native"] == native + 1, "relearn -O quasinew: native L-BFGS not used")
+            check(np.isfinite(final2) and final2 <= final + 1e-5 * abs(final),
+                  f"relearn -O quasinew {approx}: {final} -> {final2}")
+            learned_card = model_io.read_gp(model_file + "_re", X=X, y=y, device=dev)
+            beta = learned_card.beta()
+            ll_card = learned_card.log_likelihood()
+            with tf32_products():
+                ll_tf32 = learned_card.log_likelihood()
+            ll_f64 = model_io.read_gp(model_file + "_re", X=X, y=y,
+                                      device="cpu").log_likelihood()
+            rel = abs(ll_card - ll_f64) / abs(ll_f64)
+            rel_tf32 = abs(ll_tf32 - ll_f64) / abs(ll_f64)
+            check(np.isfinite(ll_card) and rel < sparse_tol(beta),
+                  f"learned {approx} model (β {beta}) on the card {ll_card} vs CPU f64 {ll_f64}")
+            del learned_card
+            cli[approx] = dict(learn_cli_ms=learn_ms, final=final, ll=ll, ll_cli_ms=ll_ms,
+                               relearn_quasinew_cli_ms=relearn_ms, after_relearn=final2,
+                               relearned_beta=beta, relearned_ll_cpu_f64=ll_f64,
+                               relearned_rel=rel, relearned_rel_tf32_control=rel_tf32)
+            log(f"phase 17 CLI -A {approx} -a {M_SPARSE}: {json.dumps(cli[approx])}")
+        out["cli"] = cli
+
+        model = model_io.read_gp(os.path.join(workdir, "dtc_model"), X=X, y=y, device=dev)
+        plain[0] = 0
+        server, factor_ms = timed(lambda: GPServer(model, chunk=CHUNK))
+        requests = [rng.standard_normal((t, Q)) for t in (CHUNK, 1000, 37)]
+        served, serve_ms = timed(lambda: [server.predict(r) for r in requests])
+        for Xt, (mu, var) in zip(requests, served):
+            want_mu, want_var = model.predict(Xt)
+            check(np.isfinite(mu).all() and (var >= 0).all(), "sparse server output")
+            for name, got, want in (("mean", mu, want_mu), ("variance", var, want_var)):
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                check(err < 1e-4, f"sparse server {name} vs GP.predict: rel {err}")
+        n_pred = sum(r.shape[0] for r in requests)
+        out["server"] = dict(factor_ms=factor_ms, serve_ms=serve_ms,
+                             predictions_per_s=n_pred / serve_ms * 1e3)
+        log(f"phase 17 GPServer DTC N={N} M={M_SPARSE}: factor {factor_ms} ms, {n_pred} "
+            f"predictions in {serve_ms} ms = {n_pred / serve_ms * 1e3} predictions/s")
+        check(plain[0] == 0, "a plain Gram ran on the sparse serving path")
+        del server, model
+        torch.cuda.empty_cache()
+
+    rng1 = np.random.default_rng(SEED + 2)
+    X1 = rng1.uniform(-3.0, 3.0, (N, 1))
+    y1 = np.sinc(X1) + 0.1 * rng1.standard_normal((N, 1))
+    data1 = os.path.join(workdir, "train1d.svml")
+    write_svml(data1, X1, y1)
+    model1 = os.path.join(workdir, "dtc1d_model")
+    run_cli(["-s", str(SEED), "learn", "-A", "dtc", "-a", str(M_SPARSE), "-#", "3", data1,
+             model1])
+    name = os.path.join(workdir, "sinc")
+    _, gnuplot_ms = timed(lambda: run_cli(["gnuplot", data1, model1, name]))
+    line = np.loadtxt(name + "_line_data.dat")
+    bars = np.loadtxt(name + "_error_bar_data.dat")
+    active = np.loadtxt(name + "_active_set.dat")
+    scatter = np.loadtxt(name + "_scatter_data.dat")
+    script = open(name + "_plot.gp").read()
+    check(line.shape == (80, 2) and bars.shape == (160, 2) and active.shape == (M_SPARSE, 2)
+          and scatter.shape == (N, 2) and np.isfinite(line).all() and np.isfinite(bars).all()
+          and (bars[:80, 1] >= line[:, 1]).all() and "sinc_active_set.dat" in script,
+          "gnuplot artifacts of the 1-D DTC model")
+    out["gnuplot_cli_ms"] = gnuplot_ms
+    log(f"phase 17 gnuplot 1-D DTC N={N} M={M_SPARSE}: 5 files in {gnuplot_ms} ms CLI wall; "
+        f"mean at the ends {line[0, 1]} .. {line[-1, 1]}")
+
+    mlp = sparse_model(X, y, "dtc", dev, lead="mlp")
+    ll, mlp_ms = timed(mlp.log_likelihood)
+    ref = sparse_model(X, y, "dtc", "cpu", lead="mlp").log_likelihood()
+    rel = abs(ll - ref) / abs(ref)
+    check(np.isfinite(ll) and rel < SPARSE_TOL, f"mlp DTC evidence {ll} vs CPU f64 {ref}")
+    out["mlp_dtc"] = dict(ll=ll, ll_cpu_f64=ref, rel=rel, evidence_ms=mlp_ms)
+    log(f"phase 17 -k mlp DTC N={N} M={M_SPARSE}: evidence {ll} vs CPU f64 {ref} (rel {rel}), "
+        f"{mlp_ms} ms (first call)")
+    return out
+
+
+def phase_ftc_optimisers(workdir):
+    """learn -# 3 -O conjgrad|graddesc|quasinew on the FTC default at N =
+    4096 through the CLI (dense evidence); -O quasinew runs the native
+    L-BFGS engine."""
+    from gpc_tpu_torch.optim.lbfgs import ENGINE_RUNS
+    small = os.path.join(workdir, "train4096.svml")     # written by phase_zoo
+    opt = {}
+    for optimiser in ("conjgrad", "graddesc", "quasinew"):
+        native = ENGINE_RUNS["native"]
+        model_file = os.path.join(workdir, f"ftc_{optimiser}")
+        text, ms = timed(lambda: run_cli(["learn", "-O", optimiser, "-#", "3", small, model_file],
+                                         "dense"))
+        final, iters = learned(text)
+        check(np.isfinite(final) and 1 <= iters <= 3, f"learn -O {optimiser}: {iters}, {final}")
+        if optimiser == "quasinew":
+            check(ENGINE_RUNS["native"] == native + 1, "learn -O quasinew: native L-BFGS not used")
+        opt[optimiser] = dict(learn_cli_ms=ms, final=final, iters=iters)
+    log(f"phase 17 optimisers N=4096 FTC: {json.dumps(opt)}")
+    return opt
+
+
+def graph_paired_ms(kernel, plain, calls=20, rounds=5):
+    """(median, min, max) ms a call of kernel and of plain: `calls` calls of
+    each captured in one CUDA graph, replayed in `rounds` rounds of plain,
+    kernel, kernel, plain, each replay timed by CUDA events."""
+    graphs = []
+    for fn in (kernel, plain):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                                  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+
+    def replay_ms(g):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+    ks, ps = [], []
+    for _ in range(rounds):
+        ps.append(replay_ms(graphs[1]))
+        ks += [replay_ms(graphs[0]), replay_ms(graphs[0])]
+        ps.append(replay_ms(graphs[1]))
+    stat = lambda xs: (float(np.median(xs)), min(xs), max(xs))   # noqa: E731
+    return stat(ks), stat(ps)
+
+
+def phase_sparse_kernels(dev, rng):
+    """K1 and K4 (mlp) at the sparse path's cross-Gram K_uf, 1024 × 16384, q
+    = 8, and the batched K1 of PITC's 16 blocks of 1024: against their plain
+    versions (rtol 1e-5, as phase 2), and timed as 20 calls captured in one
+    CUDA graph, replayed in 5 rounds of plain, kernel, kernel, plain (the
+    kernels line's ms: every kernel of a call, the parameters' padding
+    included, without the host's enqueue of ≈ 60 µs a call, which outlasts
+    these kernels); and as 20 calls timed by CUDA events (the host's
+    enqueue included)."""
+    from gpc_tpu_torch.ops.gram import (dist_gram_kernel, dist_gram_plain, inner_gram_kernel,
+                                        inner_gram_plain)
+    Xu = torch.tensor(rng.standard_normal((M_SPARSE, Q)), dtype=torch.float32, device=dev)
+    X = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
+    Xb = X.reshape(N // M_SPARSE, M_SPARSE, Q)
+    rbf = torch.tensor([0.7, 1.3], dtype=torch.float32, device=dev)
+    mlp = torch.tensor([10.0, 10.0, 1.3], dtype=torch.float32, device=dev)
+    P = N // M_SPARSE
+    cases = {
+        "dist_gram": (lambda: dist_gram_kernel("rbf", rbf, Xu, X),
+                      lambda: dist_gram_plain("rbf", rbf, Xu, X), k1_bound(M_SPARSE, N, Q)),
+        "inner_gram": (lambda: inner_gram_kernel("mlp", mlp, Xu, X),
+                       lambda: inner_gram_plain("mlp", mlp, Xu, X), k4_bound(M_SPARSE, N, Q)),
+        "dist_gram_batched": (lambda: dist_gram_kernel("rbf", rbf, Xb, Xb),
+                              lambda: dist_gram_plain("rbf", rbf, Xb, Xb),
+                              bound(4 * (2 * N * Q + P * M_SPARSE * M_SPARSE),
+                                    {"f32": P * M_SPARSE * M_SPARSE * (2 * Q + 6)})),
+    }
+    res = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in cases.items():
+        got, want = kernel(), plain()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max())),
+              f"{name} at the sparse shape disagrees with its plain version (max abs {err})")
+        if name == "dist_gram_batched":
+            check(all(torch.equal(got[b], dist_gram_kernel("rbf", rbf, Xb[b], Xb[b]))
+                      for b in range(P)), "batched K1 differs from its 2-D launches")
+        del got, want
+        (ev_ms, _, _), (ev_plain_ms, _, _) = paired_stats(kernel, plain, 20, 5)
+        (ms, lo, hi), (plain_ms, _, _) = graph_paired_ms(kernel, plain)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, events_ms=ev_ms, events_plain_ms=ev_plain_ms)
+        log(f"phase 17 {name} at the sparse shape: CUDA graph of 20 calls, median {ms} ms a "
+            f"call (min {lo}, max {hi}), plain {plain_ms} ms; CUDA events (host enqueue "
+            f"included) {ev_ms} ms, plain {ev_plain_ms} ms; bound {bound_ms} ms ({bound_by}); "
+            f"max abs err {err}")
+        torch.cuda.empty_cache()
+    return res
+
 
 
 def k5_path_args(dev, n=N):
@@ -1354,6 +1723,26 @@ def main():
         check(zoo_launches.get("inner_gram", 0) > 0, "kernel inner_gram was not launched "
                                                      "on the kernel-zoo path")
         torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        sparse = phase_sparse(dev, workdir)
+        sparse_launches = dict(cuda_lib.LAUNCHES)
+        log(f"sparse-path launches: {sparse_launches}")
+        for name in ("dist_gram", "dist_gram_batched", "inner_gram"):
+            check(sparse_launches.get(name, 0) > 0, f"kernel {name} was not launched on the "
+                                                    "sparse path")
+        log("sparse: " + json.dumps(sparse))
+        torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        phase_ftc_optimisers(workdir)
+        opt_launches = dict(cuda_lib.LAUNCHES)
+        log(f"FTC optimiser-path launches: {opt_launches}")
+        check(opt_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on the "
+                                                   "FTC optimiser path")
+        torch.cuda.empty_cache()
+    sparse_k = phase_sparse_kernels(dev, rng)
+    torch.cuda.empty_cache()
     cuda_lib.LAUNCHES.clear()
     phase_k5_path(dev)
     k5_launches = dict(cuda_lib.LAUNCHES)
@@ -1384,9 +1773,19 @@ def main():
                                      k3_drift_n32768=drift,
                                      k3_ms=k3["ms"], **probes, k8bc=dots, k8d=vpu)))
 
+    at_sparse = {name: dict(sparse_launches=sparse_launches[name], sparse_ms=r["ms"],
+                            sparse_plain_ms=r["plain_ms"], sparse_bound_ms=r["bound_ms"],
+                            sparse_max_abs_err=r["max_abs_err"])
+                 for name, r in sparse_k.items() if name != "dist_gram_batched"}
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
-             replaces="gpc_tpu/ops/gram_pallas.py:89", launches=launches["dist_gram"], **k1),
+             replaces="gpc_tpu/ops/gram_pallas.py:89", launches=launches["dist_gram"], **k1,
+             **at_sparse["dist_gram"], ftc_optimiser_launches=opt_launches["dist_gram"]),
+        dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
+             replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
+                      "K1's batch axis)",
+             launches=sparse_launches["dist_gram_batched"], library_ms=None,
+             **sparse_k["dist_gram_batched"]),
         dict(name="factor_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:209", launches=launches["factor_diag"], **k2),
         dict(name="panel_state_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
@@ -1397,7 +1796,8 @@ def main():
              launches=train_launches["panel_leaf_diag"],
              corr_launches=train_launches["panel_corr"], **k3d),
         dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
-             replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4),
+             replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4,
+             **at_sparse["inner_gram"]),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
              launches=ragged_launches["chol_inv_block"], **k5),

@@ -1,10 +1,12 @@
 """`gp` command-line tool on PyTorch (counterpart of gpc_tpu/cli/gp.py).
 
-Ported commands: learn / relearn / display / test / predict /
-log-likelihood, with the same flags, arguments and output as gpc_tpu's, for
-FTC with every kernel type of gpc_tpu's gp CLI (-k lin|poly|rbf|exp|ratquad|
-mlp|matern32|matern52, ARD under -i 1).  gnuplot, the sparse approximations
-and the optimisers other than scg exit "not yet ported".  Usage:
+Commands: learn / relearn / display / gnuplot / test / predict /
+log-likelihood, with the same flags, arguments, output and files as
+gpc_tpu's: FTC and the sparse approximations (-A dtc|dtcvar|fitc|pitc with
+-a M), every kernel type of gpc_tpu's gp CLI (-k lin|poly|rbf|exp|ratquad|
+mlp|matern32|matern52, ARD under -i 1) and the optimisers -O scg|conjgrad|
+graddesc|quasinew.  gnuplot's classification branch (a model with probit or
+ncnm noise) and -f 1 exit "not yet ported".  Usage:
 
     python -m gpc_tpu_torch.cli.gp [-v verbosity] [-s seed] [--device cpu|cuda] COMMAND ...
 
@@ -21,7 +23,7 @@ import numpy as np
 
 from gpc_tpu_torch import NoDeviceError
 from gpc_tpu_torch.cli.common import (CommandLine, ExitError, KernelSpecParser,
-                                      load_data, not_ported, write_unheaded)
+                                      load_data, write_unheaded)
 from gpc_tpu_torch.io import model_io
 from gpc_tpu_torch.models.gp import GP
 
@@ -35,17 +37,19 @@ def _help():
           "  gp learn [options] data.svml [model]    train a GP\n"
           "  gp relearn [options] data.svml model [new_model]  continue training\n"
           "  gp display [model]                      show a stored model\n"
+          "  gp gnuplot [options] data.svml [model] [name]  plot artifacts\n"
           "  gp test data.svml [model]               MSE against targets\n"
           "  gp predict data.svml [model] [out]      posterior means to file\n"
           "  gp log-likelihood data.svml [model]     marginal likelihood\n"
           "Global options: -v verbosity -s seed --device cpu|cuda (default cuda)\n"
           "Learn options: -C centre (1) -S scale (0) -L learn-scales (0)\n"
-          "  -A ftc  -k kernel (rbf|lin|mlp|poly|exp|ratquad|matern32|matern52)\n"
+          "  -A ftc|dtc|dtcvar|fitc|pitc  -a active-set-size\n"
+          "  -k kernel (rbf|lin|mlp|poly|exp|ratquad|matern32|matern52)\n"
           "  -g gamma -@ alpha -v variance -w weight-var -b bias-var -d degree\n"
-          "  -i input-select  -O scg  -# iters  -f format\n"
+          "  -i input-select  -O scg|conjgrad|graddesc|quasinew  -# iters  -f format\n"
           "  -c ckpt-file [--checkpoint-every N] [-r resume]  SCG checkpoints\n"
-          "Not yet ported: gnuplot; -A dtc|dtcvar|fitc|pitc;\n"
-          "  -O conjgrad|graddesc|quasinew; -f 1.")
+          "Gnuplot options: -p point-size (2) -r resolution (80) -l labels (unused)\n"
+          "Not yet ported: -f 1; gnuplot of a classification model.")
 
 
 def _report_and_write(cl, model, res, model_file):
@@ -60,7 +64,7 @@ def learn(cl: CommandLine):
     cl.advance()
     ks = KernelSpecParser()
     centre, scale_data, learn_scales = True, False, False
-    approx = "ftc"
+    approx, active = "ftc", -1
     iters = 1000
     optimiser = "scg"
     model_file = "gp_model"
@@ -83,7 +87,7 @@ def learn(cl: CommandLine):
         elif arg in ("-S", "--Scale-data"):
             scale_data = cl.get_bool(); cl.advance()
         elif arg in ("-a", "--active-set-size"):
-            cl.get_int(); cl.advance()        # FTC has no active set
+            active = cl.get_int(); cl.advance()
         elif arg in ("-A", "--Approximation-type"):
             approx = cl.get_string(); cl.advance()
         elif arg in ("-O", "--optimiser"):
@@ -99,20 +103,28 @@ def learn(cl: CommandLine):
     data_file = cl.current()
     if cl.pos + 1 < len(cl.argv):
         model_file = cl.argv[cl.pos + 1]
-    if approx in SPARSE:
-        raise not_ported(f"approximation {approx}", "queue 1 item 7")
-    if approx != "ftc":
+    if approx == "ftc":
+        active = 0
+    elif approx == "dtcvar":
+        print("Warning: numerical stabilities exist in DTCVAR approximation.")
+    elif approx not in SPARSE:
         raise ExitError(f"Unknown sparse approximation type: {approx}.")
+    # fitc and pitc too: gpc_tpu implements both, though the reference CLI
+    # blocks FITC (gp.cpp:363-366) and stubs PITC (CGp.cpp:862-871)
+    if approx != "ftc" and active <= 0:
+        raise ExitError("You must choose an active set size (option -a) for the command learn.")
     if optimiser not in OPTIMISERS:
         raise ExitError(f"Unrecognised optimiser type: {optimiser}")
 
     X, y = load_data(data_file, cl.file_format)
     kern, kern_params = ks.build(X.shape[1])
-    model = GP(kern, X, y, learn_scales=learn_scales, centre=centre,
-               scale_data=scale_data, device=cl.device)
+    model = GP(kern, X, y, approx=approx, num_active=active, learn_scales=learn_scales,
+               centre=centre, scale_data=scale_data, beta=1.0, seed=cl.seed,
+               device=cl.device)
     # the CLI-specified kernel parameters replace the kernel defaults
-    model.theta = model.spec.pack(kern_params,
-                                  scales=model.fixed_scales if learn_scales else None)
+    model.theta = model.spec.pack(kern_params, X_u=model.inducing(),
+                                  scales=model.fixed_scales if learn_scales else None,
+                                  beta=1.0 if model.spec.sparse else None)
     res = model.optimise(iters=iters, optimiser=optimiser, verbose=cl.verbosity,
                          ckpt_path=ckpt_path, ckpt_every=ckpt_every, resume=resume)
     _report_and_write(cl, model, res, model_file)
@@ -141,8 +153,97 @@ def relearn(cl: CommandLine):
     _report_and_write(cl, model, res, new_model_file)
 
 
+def _write_grid(path, xs, ys, Z):
+    """x y z rows of a gnuplot grid, a blank line after each row of y."""
+    with open(path, "w") as f:
+        f.write("# Prepared plot of model file \n")
+        for i in range(len(ys)):
+            for j in range(len(xs)):
+                f.write(f"{xs[j]:.17e} {ys[i]:.17e} {Z[i, j]:.17e}\n")
+            f.write("\n")
+
+
 def gnuplot(cl: CommandLine):
-    raise not_ported("gp gnuplot", "queue 1 item 5")
+    """Plot artifacts of a regression model (gp.cpp:567-906): the data
+    scatter, a sparse model's active set at its posterior means, and for
+    q = 1 the mean line with ±2σ bars or for q = 2 the mean on a grid, with
+    the driving script `name`_plot.gp.  Files and their text are gpc_tpu's
+    (gpc_tpu/cli/gp.py:281-377).  A classification model's branch needs the
+    IVM's noise models: reading its file exits "not yet ported"."""
+    cl.advance()
+    resolution = 80
+    point_size, line_width = 2.0, 2.0
+    name = "gp"
+    model_file = "gp_model"
+    while cl.is_flag():
+        arg = cl.current()
+        if arg in ("-p", "--point-size"):
+            point_size = cl.get_double(); cl.advance()
+        elif arg in ("-r", "--resolution"):
+            resolution = cl.get_int(); cl.advance()
+        elif arg in ("-l", "--labels"):
+            # parsed and unused, as in the reference (gp.cpp:586-588)
+            cl.get_string(); cl.advance()
+        else:
+            raise ExitError(f"Unrecognised flag: {cl.current()}")
+    data_file = cl.current()
+    if cl.pos + 1 < len(cl.argv):
+        model_file = cl.argv[cl.pos + 1]
+    if cl.pos + 2 < len(cl.argv):
+        name = cl.argv[cl.pos + 2]
+
+    X, y = load_data(data_file, cl.file_format)
+    try:
+        model = model_io.read_gp(model_file, X=X, y=y, device=cl.device)
+    except model_io.DataDimensionError:
+        raise ExitError("Incorrect dimension of input data.")
+    q = model.spec.input_dim
+    if q > 2:                                   # gp.cpp:624-631
+        raise ExitError("Incorrect number of model inputs.")
+    sigma2 = float(model.noise_params[-1])
+    sparse = model.spec.sparse
+    if sparse:
+        Xu = model.inducing()
+        mu_u, _ = model.predict(Xu)
+        write_unheaded(f"{name}_active_set.dat", np.hstack([Xu, mu_u[:, :1]]))
+    write_unheaded(f"{name}_scatter_data.dat", np.hstack([X, y[:, :1]]))
+
+    mins, maxs = X.min(axis=0), X.max(axis=0)
+    if q == 2:
+        xs = np.linspace(mins[0], maxs[0], resolution)
+        ys = np.linspace(mins[1], maxs[1], resolution)
+        XX, YY = np.meshgrid(xs, ys)
+        mu, _ = model.predict(np.column_stack([XX.ravel(), YY.ravel()]))
+        _write_grid(f"{name}_output_matrix.dat", xs, ys,
+                    mu[:, 0].reshape(resolution, resolution))
+        with open(f"{name}_plot.gp", "w") as f:
+            f.write(f'splot "{name}_output_matrix.dat"  with lines lw {line_width}'
+                    f', "{name}_scatter_data.dat" with points ps {point_size}')
+            if sparse:
+                f.write(f', "{name}_active_set.dat" with points ps {point_size}\n')
+            f.write("pause -1")
+        return
+    overlap = 0.25
+    span = maxs[0] - mins[0]
+    xs = np.linspace(mins[0] - overlap * span, maxs[0] + overlap * span, resolution)
+    mu, var = model.predict(xs.reshape(-1, 1))
+    mu = mu[:, 0]
+    std = np.sqrt(var[:, 0] + sigma2)
+    write_unheaded(f"{name}_line_data.dat", np.column_stack([xs, mu]))
+    with open(f"{name}_error_bar_data.dat", "w") as f:
+        f.write("# Prepared plot of model file \n")
+        for xv, m, s in zip(xs, mu, std):
+            f.write(f"{xv:.17e} {m + 2 * s:.17e}\n")
+        f.write("\n")
+        for xv, m, s in zip(xs, mu, std):
+            f.write(f"{xv:.17e} {m - 2 * s:.17e}\n")
+    with open(f"{name}_plot.gp", "w") as f:
+        f.write(f'plot "{name}_line_data.dat" with lines lw {line_width}'
+                f', "{name}_scatter_data.dat" with points ps {point_size}')
+        if sparse:
+            f.write(f', "{name}_active_set.dat" with points ps {point_size}')
+        f.write(f', "{name}_error_bar_data.dat" with lines lw {line_width}\n')
+        f.write("pause -1")
 
 
 def display(cl: CommandLine):

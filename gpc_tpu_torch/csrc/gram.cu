@@ -33,6 +33,17 @@
 // stripe is staged in chunks of QCH per row group, behind block barriers.
 // poly at a whole degree 0..16 multiplies (ideg >= 0) instead of powf: a
 // deviation from gram.cuh's map, within a few ulp of it.
+//
+// A leading batch axis (PITC's block Grams, gpc_tpu's vmapped kern.gram),
+// compiled apart (BATCHED) so that the 2-D kernel stays as it was: the
+// grid's z index is the batch, whose X1, X2 and out start at z*n*q, z*m*q
+// and z*n*m, and a row takes the 16-byte store when its address is
+// aligned; everything else is the 2-D kernel's, so each batch's values are
+// bit for bit those of its own 2-D launch.  The row blocks a stripe gets
+// shrink with the batch so that the grid stays about four blocks an SM.
+// One kernel for both (2-D as a batch of one) ran 2-D calls 3-6 % slower
+// (K1 rbf, K4 poly and mlp at 16384 x 8192, q = 8; H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 2 alternated with the single-variant kernel).
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -62,13 +73,19 @@ __device__ __forceinline__ float gram_map(float cross, float n1, float n2, float
   return dist_map(FAM, sq_dist(n1, n2, cross), p0, p1, p2);
 }
 
-template <bool INNER, int FAM>
+template <bool INNER, int FAM, bool BATCHED>
 __global__ void __launch_bounds__(GT)
     gram_stripe_kernel(const float* __restrict__ X1, const float* __restrict__ X2,
                        int n, int m, int q, const float* __restrict__ params,
                        float degree, int ideg, float* __restrict__ out) {
   constexpr bool NORMS = !INNER || FAM == FAM_MLP;
   extern __shared__ __align__(16) float xs[];   // xs[k * STRIPE + c]
+  const size_t z = BATCHED ? blockIdx.z : 0;
+  if (BATCHED) {
+    X1 += z * n * q;
+    X2 += z * m * q;
+  }
+  const size_t zout = z * n * m;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int col0 = blockIdx.x * STRIPE;
@@ -151,9 +168,11 @@ __global__ void __launch_bounds__(GT)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         v[e] = gram_map<INNER, FAM>(acc[i][e], n1[i], n2[e], p0, p1, p2, degree, ideg);
-      const size_t o = (size_t)r * m + c;
+      const size_t o = zout + (size_t)r * m + c;
       float* dst = out + o;
-      if (c + 3 < m && (o & 3) == 0) {
+      const bool aligned =
+          BATCHED ? (reinterpret_cast<size_t>(dst) & 15) == 0 : (o & 3) == 0;
+      if (c + 3 < m && aligned) {
         __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
       } else {
 #pragma unroll
@@ -165,7 +184,7 @@ __global__ void __launch_bounds__(GT)
 }
 
 template <bool INNER, int FAM>
-int launch_stripes(const float* X1, const float* X2, int n, int m, int q,
+int launch_stripes(int batch, const float* X1, const float* X2, int n, int m, int q,
                    const float* params, float degree, int ideg, float* out,
                    cudaStream_t stream) {
   static int sm_count = 0;
@@ -176,14 +195,62 @@ int launch_stripes(const float* X1, const float* X2, int n, int m, int q,
   }
   const int stripes = (m + STRIPE - 1) / STRIPE;
   const int groups = (n + RPT - 1) / RPT;
-  int rows = (BLOCKS_PER_SM * sm_count + stripes - 1) / stripes;
+  const long long spread = (long long)stripes * batch;
+  int rows = (int)((BLOCKS_PER_SM * sm_count + spread - 1) / spread);
   const int most = (groups + WARPS - 1) / WARPS;
   if (rows > most) rows = most;
   if (rows < 1) rows = 1;
   const size_t smem = (size_t)(q < QCH ? q : QCH) * STRIPE * sizeof(float);
-  gram_stripe_kernel<INNER, FAM><<<dim3(stripes, rows), GT, smem, stream>>>(
-      X1, X2, n, m, q, params, degree, ideg, out);
+  if (batch == 1) {
+    gram_stripe_kernel<INNER, FAM, false><<<dim3(stripes, rows), GT, smem, stream>>>(
+        X1, X2, n, m, q, params, degree, ideg, out);
+    return (int)cudaGetLastError();
+  }
+  constexpr int ZMAX = 65535;     // the grid's z limit
+  for (int b0 = 0; b0 < batch; b0 += ZMAX) {
+    const int nb = batch - b0 < ZMAX ? batch - b0 : ZMAX;
+    gram_stripe_kernel<INNER, FAM, true><<<dim3(stripes, rows, nb), GT, smem, stream>>>(
+        X1 + (size_t)b0 * n * q, X2 + (size_t)b0 * m * q, n, m, q, params, degree, ideg,
+        out + (size_t)b0 * n * m);
+  }
   return (int)cudaGetLastError();
+}
+
+int dist_gram(int batch, const float* X1, const float* X2, int n, int m, int q,
+              int family, const float* params, float* out, void* stream) {
+  if (n <= 0 || m <= 0 || batch <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (family) {
+    case FAM_RBF:
+      return launch_stripes<false, FAM_RBF>(batch, X1, X2, n, m, q, params, 0.0f, -1, out, s);
+    case FAM_EXP:
+      return launch_stripes<false, FAM_EXP>(batch, X1, X2, n, m, q, params, 0.0f, -1, out, s);
+    case FAM_RATQUAD:
+      return launch_stripes<false, FAM_RATQUAD>(batch, X1, X2, n, m, q, params, 0.0f, -1, out,
+                                                s);
+    case FAM_MATERN32:
+      return launch_stripes<false, FAM_MATERN32>(batch, X1, X2, n, m, q, params, 0.0f, -1, out,
+                                                 s);
+    case FAM_MATERN52:
+      return launch_stripes<false, FAM_MATERN52>(batch, X1, X2, n, m, q, params, 0.0f, -1, out,
+                                                 s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int inner_gram(int batch, const float* X1, const float* X2, int n, int m, int q, int family,
+               const float* params, float degree, int ideg, float* out, void* stream) {
+  if (n <= 0 || m <= 0 || batch <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (family) {
+    case FAM_LIN:
+      return launch_stripes<true, FAM_LIN>(batch, X1, X2, n, m, q, params, degree, ideg, out, s);
+    case FAM_POLY:
+      return launch_stripes<true, FAM_POLY>(batch, X1, X2, n, m, q, params, degree, ideg, out, s);
+    case FAM_MLP:
+      return launch_stripes<true, FAM_MLP>(batch, X1, X2, n, m, q, params, degree, ideg, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -192,32 +259,25 @@ int launch_stripes(const float* X1, const float* X2, int n, int m, int q,
 extern "C" int gpc_dist_gram(const float* X1, const float* X2, int n, int m,
                              int q, int family, const float* params,
                              float* out, void* stream) {
-  if (n <= 0 || m <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (family) {
-    case FAM_RBF: return launch_stripes<false, FAM_RBF>(X1, X2, n, m, q, params, 0.0f, -1, out, s);
-    case FAM_EXP: return launch_stripes<false, FAM_EXP>(X1, X2, n, m, q, params, 0.0f, -1, out, s);
-    case FAM_RATQUAD:
-      return launch_stripes<false, FAM_RATQUAD>(X1, X2, n, m, q, params, 0.0f, -1, out, s);
-    case FAM_MATERN32:
-      return launch_stripes<false, FAM_MATERN32>(X1, X2, n, m, q, params, 0.0f, -1, out, s);
-    case FAM_MATERN52:
-      return launch_stripes<false, FAM_MATERN52>(X1, X2, n, m, q, params, 0.0f, -1, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dist_gram(1, X1, X2, n, m, q, family, params, out, stream);
 }
 
 // ideg: poly's degree when it is a whole number 0..16, else -1 (powf).
 extern "C" int gpc_inner_gram(const float* X1, const float* X2, int n, int m,
                               int q, int family, const float* params,
                               float degree, int ideg, float* out, void* stream) {
-  if (n <= 0 || m <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (family) {
-    case FAM_LIN: return launch_stripes<true, FAM_LIN>(X1, X2, n, m, q, params, degree, ideg, out, s);
-    case FAM_POLY:
-      return launch_stripes<true, FAM_POLY>(X1, X2, n, m, q, params, degree, ideg, out, s);
-    case FAM_MLP: return launch_stripes<true, FAM_MLP>(X1, X2, n, m, q, params, degree, ideg, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return inner_gram(1, X1, X2, n, m, q, family, params, degree, ideg, out, stream);
+}
+
+// The batched Grams: X1 (batch, n, q), X2 (batch, m, q), out (batch, n, m).
+extern "C" int gpc_dist_gram_batched(int batch, const float* X1, const float* X2, int n,
+                                     int m, int q, int family, const float* params,
+                                     float* out, void* stream) {
+  return dist_gram(batch, X1, X2, n, m, q, family, params, out, stream);
+}
+
+extern "C" int gpc_inner_gram_batched(int batch, const float* X1, const float* X2, int n,
+                                      int m, int q, int family, const float* params,
+                                      float degree, int ideg, float* out, void* stream) {
+  return inner_gram(batch, X1, X2, n, m, q, family, params, degree, ideg, out, stream);
 }

@@ -1,12 +1,14 @@
 """Carry a gpc_tpu model's parameters into the port.
 
-`from_jax(kern_desc, theta, X, y, bias, fixed_scales)` rebuilds a
-gpc_tpu_torch FTC `GP` from gpc_tpu's pieces as numpy arrays.  The
-unconstrained theta layout is shared (gpc_tpu/models/gp.py:11-15), so this
-is a structural map of the kernel tree: `kern_desc` is a gpc_tpu kernel
-object, read only through its attributes (kind, input_dim, components,
-fixed_variance, degree, priors), so this module imports neither jax nor
-gpc_tpu.
+`from_jax(kern_desc, theta, X, y, bias, fixed_scales, ...)` rebuilds a
+gpc_tpu_torch `GP` from gpc_tpu's pieces as numpy arrays, FTC or sparse
+(the approximation, the active-set size, PITC's block size and the fixed
+inducing inputs, if any, as keywords).  The unconstrained theta layout is shared
+(gpc_tpu/models/gp.py:11-15: X_u column-major, the kernel, the scales,
+log β), so this is a structural map of the kernel tree: `kern_desc` is a
+gpc_tpu kernel object, read only through its attributes (kind, input_dim,
+components, fixed_variance, degree, priors), so this module imports neither
+jax nor gpc_tpu.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from gpc_tpu_torch import kernels as KM
-from gpc_tpu_torch.models.gp import GP
+from gpc_tpu_torch.models.gp import FTC, GP
 from gpc_tpu_torch.priors import Prior
 
 
@@ -37,16 +39,23 @@ def kern_from_desc(desc) -> KM.Kern:
 
 
 def from_jax(kern_desc, theta, X, y, bias, fixed_scales,
-             learn_scales: bool = False, device=None) -> GP:
-    """A port GP holding gpc_tpu's FTC parameters and data, on `device`
-    (None: the card, and an error without one; "cpu" for the CPU)."""
+             learn_scales: bool = False, approx: str = FTC, num_active: int = 0,
+             pitc_block: int = 0, inducing_fixed: bool = False, X_u_fixed=None,
+             device=None) -> GP:
+    """A port GP holding gpc_tpu's parameters and data, on `device` (None:
+    the card, and an error without one; "cpu" for the CPU)."""
     kern = kern_from_desc(kern_desc)
-    model = GP(kern, X, y, learn_scales=learn_scales, centre=False,
-               device=device)
+    model = GP(kern, X, y, approx=approx, num_active=num_active,
+               learn_scales=learn_scales, centre=False, inducing_fixed=inducing_fixed,
+               pitc_block=pitc_block, device=device)
     theta = np.asarray(theta, dtype=np.float64).reshape(-1)
     if theta.shape[0] != model.spec.n_params():
-        raise ValueError(f"theta has {theta.shape[0]} entries, the FTC model "
+        raise ValueError(f"theta has {theta.shape[0]} entries, the {approx} model "
                          f"{model.spec.n_params()}")
+    if inducing_fixed:
+        if X_u_fixed is None:
+            raise ValueError("inducing_fixed needs X_u_fixed")
+        model.X_u_fixed = np.asarray(X_u_fixed, dtype=np.float64)
     model.theta = theta.copy()
     model.bias = np.asarray(bias, dtype=np.float64).reshape(-1)
     model.fixed_scales = np.asarray(fixed_scales, dtype=np.float64).reshape(-1)

@@ -3,9 +3,9 @@
 Counterpart of gpc_tpu/io/model_io.py for GP models: the stream Reader and
 Writer, prior blocks, kernels of every kind (poly's degree field, cmpnd and
 tensor), the Gaussian noise block
-and read_gp/write_gp.  Files are byte-compatible with gpc_tpu's: each
-package loads what the other writes.  Sparse approximations are not ported
-yet and raise.
+and read_gp/write_gp with the sparse blocks (β as an N × D matrix,
+fixInducing and the inducing inputs).  Files are byte-compatible with
+gpc_tpu's: each package loads what the other writes.
 """
 
 from __future__ import annotations
@@ -216,7 +216,7 @@ def read_noise(r: Reader):
     ntype = r.field("type")
     if ntype != "gaussian":
         raise NotImplementedError(
-            f"noise type {ntype!r} is not ported to gpc_tpu_torch yet "
+            f"noise type {ntype!r} is not yet ported to gpc_tpu_torch "
             f"(ROADMAP.md, queue 1 item 8)")
     output_dim = r.int_("outputDim")
     n = r.int_("numParams")
@@ -247,7 +247,9 @@ def write_gp(path, model, comment: str = ""):
     w.field("outputDim", spec.output_dim)
     w.field("inputDim", spec.input_dim)
     w.field("sparseApproximation", APPROX_CODE[spec.approx])
-    w.field("numActive", 0)
+    w.field("numActive", spec.num_active)
+    if spec.sparse:
+        w.matrix(np.full((spec.n_data, spec.output_dim), model.beta()))
     w.field("learnScale", spec.learn_scales)
     w.field("learnBias", False)
     w.matrix(np.asarray(model.scales()).reshape(1, -1))
@@ -257,6 +259,9 @@ def write_gp(path, model, comment: str = ""):
     if noise_params is None:
         noise_params = np.concatenate([np.zeros(spec.output_dim), [1e-6]])
     write_noise(w, "gaussian", noise_params, spec.output_dim)
+    if spec.sparse:
+        w.field("fixInducing", spec.inducing_fixed)
+        w.matrix(np.asarray(model.inducing()))
     with open(path, "w") as f:
         f.write(w.text())
 
@@ -274,17 +279,19 @@ def read_gp(path, X=None, y=None, device=None):
     output_dim = r.int_("outputDim")
     input_dim = r.int_("inputDim")
     approx = APPROX_NAME[r.int_("sparseApproximation")]
-    if approx != "ftc":
-        raise NotImplementedError(
-            f"approximation {approx!r} is not ported to gpc_tpu_torch yet "
-            f"(ROADMAP.md, queue 1 item 7)")
-    r.int_("numActive")
+    num_active = r.int_("numActive")
+    beta = float(r.matrix()[0, 0]) if approx != "ftc" else None
     learn_scale = r.bool_("learnScale")
     r.bool_("learnBias")
     scales = r.matrix().reshape(-1)
     bias = r.matrix().reshape(-1)
     kern, kern_params = read_kern(r)
     _, noise_params, _ = read_noise(r)
+    X_u = None
+    inducing_fixed = False
+    if approx != "ftc":
+        inducing_fixed = r.bool_("fixInducing")
+        X_u = r.matrix()
 
     if X is not None and np.asarray(X).shape[1] != input_dim:
         raise DataDimensionError(
@@ -293,10 +300,14 @@ def read_gp(path, X=None, y=None, device=None):
         X = np.zeros((n_data, input_dim))
     if y is None:
         y = np.zeros((n_data, output_dim))
-    model = GP(kern, X, y, learn_scales=learn_scale, centre=False, device=device)
+    model = GP(kern, X, y, approx=approx, num_active=num_active,
+               learn_scales=learn_scale, centre=False, inducing_fixed=inducing_fixed,
+               device=device)
     model.bias = bias
     model.fixed_scales = scales
     model.noise_params = noise_params
-    model.theta = model.spec.pack(kern_params,
-                                  scales=scales if learn_scale else None)
+    if inducing_fixed:
+        model.X_u_fixed = X_u
+    model.theta = model.spec.pack(kern_params, X_u=None if inducing_fixed else X_u,
+                                  scales=scales if learn_scale else None, beta=beta)
     return model

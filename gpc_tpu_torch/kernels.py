@@ -12,6 +12,9 @@ parameter tensor p:
                       diag(p, X) — white enters only there;
   white(p)            the white variance on the kernel's own diagonal.
 
+compute, diag and gram also take inputs with leading batch axes, (..., n,
+q), as gpc_tpu's vmapped Grams do: PITC's blocks go to K1/K4 in one launch.
+
 Parameter layouts, defaults and transform codes are gpc_tpu's, so a theta
 vector means the same in both packages.  The distance family (rbf, exp,
 ratquad, matern32/52) computes through K1 (ops/gram.dist_gram) and the
@@ -77,7 +80,8 @@ class Kern:
         """Symmetric Gram: compute + diagonal overwrite (CKern.h:128-144).
         The diagonal goes in out of place, so autograd may save compute's
         output for its backward."""
-        return torch.diagonal_scatter(self.compute(p, X, X), self.diag(p, X))
+        return torch.diagonal_scatter(self.compute(p, X, X), self.diag(p, X),
+                                      dim1=-2, dim2=-1)
 
     def with_priors(self, priors):
         return dataclasses.replace(self, priors=tuple(priors))
@@ -93,7 +97,12 @@ class Kern:
 
 
 def _ones(X, p):
-    return torch.ones(X.shape[0], dtype=p.dtype, device=X.device)
+    return torch.ones(X.shape[:-1], dtype=p.dtype, device=X.device)
+
+
+def _cross_shape(X1, X2):
+    """The shape of compute(p, X1, X2): (..., n1, n2)."""
+    return (*X1.shape[:-1], X2.shape[-2])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +127,7 @@ class White(Kern):
         return np.array([tr.EXP])
 
     def compute(self, p, X1, X2):
-        return torch.zeros((X1.shape[0], X2.shape[0]), dtype=p.dtype, device=X1.device)
+        return torch.zeros(_cross_shape(X1, X2), dtype=p.dtype, device=X1.device)
 
     def diag(self, p, X):
         return _ones(X, p) * p[0]
@@ -151,10 +160,10 @@ class WhiteFixed(Kern):
         return np.zeros((0,), dtype=np.int32)
 
     def compute(self, p, X1, X2):
-        return torch.zeros((X1.shape[0], X2.shape[0]), dtype=X1.dtype, device=X1.device)
+        return torch.zeros(_cross_shape(X1, X2), dtype=X1.dtype, device=X1.device)
 
     def diag(self, p, X):
-        return torch.full((X.shape[0],), self.fixed_variance, dtype=X.dtype,
+        return torch.full(X.shape[:-1], self.fixed_variance, dtype=X.dtype,
                           device=X.device)
 
     def white(self, p):
@@ -183,7 +192,7 @@ class Bias(Kern):
         return np.array([tr.EXP])
 
     def compute(self, p, X1, X2):
-        return torch.ones((X1.shape[0], X2.shape[0]), dtype=p.dtype,
+        return torch.ones(_cross_shape(X1, X2), dtype=p.dtype,
                           device=X1.device) * p[0]
 
     def diag(self, p, X):

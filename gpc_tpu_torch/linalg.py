@@ -125,7 +125,8 @@ def blocked_tri_inv(L: torch.Tensor, block: int = 2048) -> torch.Tensor:
 
 
 def dist2(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared Euclidean distances ‖x‖² + ‖x'‖² − 2x·x', ≥ 0."""
+    """Pairwise squared Euclidean distances ‖x‖² + ‖x'‖² − 2x·x', ≥ 0, of
+    (..., n, q) and (..., m, q) inputs."""
     n1 = torch.sum(X1 * X1, dim=-1, keepdim=True)
     n2 = torch.sum(X2 * X2, dim=-1, keepdim=True)
-    return torch.clamp(n1 + n2.T - 2.0 * (X1 @ X2.T), min=0.0)
+    return torch.clamp(n1 + n2.mT - 2.0 * (X1 @ X2.mT), min=0.0)

@@ -41,6 +41,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gpc_dist_gram": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gpc_inner_gram": [_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
+    "gpc_dist_gram_batched": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gpc_inner_gram_batched": [_I, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P],
     "gpc_chol_blocked": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     "gpc_panel_state": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _P, _I, _P, _P],

@@ -6,7 +6,9 @@ inner-product family: lin, poly, mlp).  `dist_gram` / `inner_gram` launch
 the CUDA kernel of `csrc/gram.cu` for a CUDA tensor and take the plain
 version (the same math: dist2 or X1·X2ᵀ, then the map) for a CPU tensor.
 Both kernels are bound by their n·m·4-byte output on the H100; the design
-note is in the source.  They read their parameters from the device
+note is in the source.  Each also takes a leading batch axis, (P, n, q) ×
+(P, m, q) → (P, n, m), in one launch over the grid's z axis (PITC's block
+Grams; counted as "dist_gram_batched" / "inner_gram_batched").  They read their parameters from the device
 (`kernel_params`), so a launch never syncs the host and can be captured in
 a CUDA graph.  Their autograd wrappers launch the kernel forward and
 recompute the plain map under autograd in the backward.
@@ -119,23 +121,35 @@ def kernel_params(params, X1: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_args(name, params, X1, X2):
-    """Checks of a Gram kernel's inputs; (n, m, q, the padded parameters on
-    the device, the output)."""
+    """Checks of a Gram kernel's inputs, 2-D or with one leading batch axis;
+    (the batch count or None, n, m, q, the padded parameters on the device,
+    the output)."""
     cuda_lib.require_cuda(name, X1, X2)
-    if X1.dim() != 2 or X2.dim() != 2 or X1.shape[1] != X2.shape[1]:
+    if (X1.dim() not in (2, 3) or X2.dim() != X1.dim() or X1.shape[-1] != X2.shape[-1]
+            or X1.shape[:-2] != X2.shape[:-2]):
         raise ValueError(f"{name}: shapes {tuple(X1.shape)}, {tuple(X2.shape)}")
-    n, q = X1.shape
-    m = X2.shape[0]
-    return n, m, q, kernel_params(params, X1), torch.empty((n, m), dtype=torch.float32,
-                                                           device=X1.device)
+    batch = X1.shape[0] if X1.dim() == 3 else None
+    n, q = X1.shape[-2:]
+    m = X2.shape[-2]
+    out = torch.empty((*X1.shape[:-2], n, m), dtype=torch.float32, device=X1.device)
+    return batch, n, m, q, kernel_params(params, X1), out
+
+
+def _launch(name, batch, X1, X2, n, m, q, *rest):
+    """One launch of a Gram entry point, 2-D or batched."""
+    head = (X1.data_ptr(), X2.data_ptr(), n, m, q)
+    if batch is None:
+        cuda_lib.launch(name, f"gpc_{name}", *head, *rest)
+    else:
+        cuda_lib.launch(f"{name}_batched", f"gpc_{name}_batched", batch, *head, *rest)
 
 
 def dist_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor):
-    """K1 itself on CUDA tensors (float32, contiguous), no autograd."""
-    n, m, q, p, out = _kernel_args("dist_gram", params, X1, X2)
-    cuda_lib.launch("dist_gram", "gpc_dist_gram", X1.data_ptr(), X2.data_ptr(),
-                    n, m, q, FAMILIES.index(family), p.data_ptr(),
-                    out.data_ptr(), cuda_lib.stream_of(X1))
+    """K1 itself on CUDA tensors (float32, contiguous), no autograd; 2-D or
+    with one leading batch axis."""
+    batch, n, m, q, p, out = _kernel_args("dist_gram", params, X1, X2)
+    _launch("dist_gram", batch, X1, X2, n, m, q, FAMILIES.index(family), p.data_ptr(),
+            out.data_ptr(), cuda_lib.stream_of(X1))
     return out
 
 
@@ -144,7 +158,7 @@ def inner_gram_plain(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
     """The plain PyTorch version of K4 (gram_pallas._inner_fallback's math
     with gpc_tpu/kernels.py's mlp clamp), in X1's dtype."""
     p = _padded_params(params, X1.dtype, X1.device)
-    cross = X1 @ X2.T
+    cross = X1 @ X2.mT
     if family == "lin":
         return p[0] * cross
     if family == "poly":
@@ -152,9 +166,9 @@ def inner_gram_plain(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
     if family != "mlp":
         raise ValueError(f"unknown inner-product family {family!r}")
     numer = p[0] * cross + p[1]
-    d1 = p[0] * torch.sum(X1 * X1, dim=1) + p[1] + 1.0
-    d2 = p[0] * torch.sum(X2 * X2, dim=1) + p[1] + 1.0
-    arg = numer / torch.sqrt(d1[:, None] * d2[None, :])
+    d1 = p[0] * torch.sum(X1 * X1, dim=-1) + p[1] + 1.0
+    d2 = p[0] * torch.sum(X2 * X2, dim=-1) + p[1] + 1.0
+    arg = numer / torch.sqrt(d1[..., :, None] * d2[..., None, :])
     lim = 1.0 - torch.finfo(arg.dtype).eps / 2      # 1 − epsneg
     return p[2] * torch.asin(torch.clamp(arg, -lim, lim))
 
@@ -197,11 +211,10 @@ def whole_degree(degree: float) -> int:
 
 def inner_gram_kernel(family: str, params, X1: torch.Tensor, X2: torch.Tensor,
                       degree: float = 2.0):
-    """K4 itself on CUDA tensors (float32, contiguous), no autograd; degree
-    is a Python number."""
-    n, m, q, p, out = _kernel_args("inner_gram", params, X1, X2)
-    cuda_lib.launch("inner_gram", "gpc_inner_gram", X1.data_ptr(), X2.data_ptr(),
-                    n, m, q, INNER_FAMILIES.index(family), p.data_ptr(),
-                    float(degree), whole_degree(degree), out.data_ptr(),
-                    cuda_lib.stream_of(X1))
+    """K4 itself on CUDA tensors (float32, contiguous), no autograd; 2-D or
+    with one leading batch axis; degree is a Python number."""
+    batch, n, m, q, p, out = _kernel_args("inner_gram", params, X1, X2)
+    _launch("inner_gram", batch, X1, X2, n, m, q, INNER_FAMILIES.index(family),
+            p.data_ptr(), float(degree), whole_degree(degree), out.data_ptr(),
+            cuda_lib.stream_of(X1))
     return out

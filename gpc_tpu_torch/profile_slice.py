@@ -1,6 +1,6 @@
-"""Where the time of the FTC inference and training slices goes on one NVIDIA GPU.
+"""Where the time of the inference, training and sparse slices goes on one NVIDIA GPU.
 
-    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--out FILE]
+    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse] [--out FILE]
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
@@ -8,7 +8,11 @@ factor (explicit inverse), one served batch of 8192 rows, one
 value_and_grad of the training objective per engine (dense: K1 + jitchol
 and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
 and one value_and_grad with cmpnd(mlp, bias, white) under dense (K4 +
-jitchol) and under lazy (the left-looking sweep with K4 blocks).
+jitchol) and under lazy (the left-looking sweep with K4 blocks); then the
+sparse slice at M = 1024 inducing inputs (gpc_tpu's bench.py:279),
+cmpnd(rbf, bias, white): one value_and_grad under DTC and FITC (K1 for
+K_uu and K_uf, the M × N solve, V·Vᵀ and their backward) and under PITC
+with blocks of M (the batched K1 block Grams, batched Cholesky).  `--sparse` runs the sparse slice alone.
 Prints per stage the wall time (host clock around work that ends in a
 synchronize), the device time of the kernels in that window (from the
 profiler's trace; their sum above the wall is overlap between streams) and
@@ -35,6 +39,8 @@ from gpc_tpu_torch import linalg
 from gpc_tpu_torch.models.gp import GP, make_objective, posterior_apply
 from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
 from gpc_tpu_torch.serving import GPServer
+
+M_SPARSE = 1024     # inducing inputs: gpc_tpu's sparse record (bench.py:279)
 
 
 def trace_kernels(prof):
@@ -86,6 +92,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--q", type=int, default=8)
+    ap.add_argument("--sparse", action="store_true", help="the sparse slice alone")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,13 +105,28 @@ def main(argv=None):
     y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((args.n, 1))
     kern = KM.Cmpnd(input_dim=args.q, components=(
         KM.Rbf(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q)))
+    report = []
+    if not args.sparse:
+        ftc_stages(args, X, y, kern, rng, report)
+    for approx in ("dtc", "fitc", "pitc"):
+        sparse = GP(kern, X, y, approx=approx, num_active=M_SPARSE, device="cuda")
+        vag = sparse.value_and_grad_fn()
+        stage(f"value_and_grad {approx}, M = {M_SPARSE}", lambda: vag(sparse.theta), report)
+        del sparse, vag
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n\n".join(report))
+
+
+def ftc_stages(args, X, y, kern, rng, report):
+    """The FTC stages: evidence, serving and value_and_grad (rbf, mlp)."""
     model = GP(kern, X, y, device="cuda")
     theta, Xd, yd, bias, scales = model._args()
-    kp, _ = model.spec.unpack(theta)
+    _, kp, _, _ = model.spec.unpack(theta)
     m = (yd - bias) / scales
     Xt = torch.tensor(rng.standard_normal((8192, args.q)), dtype=torch.float32,
                       device="cuda")
-    report = []
     stage("panel evidence (K3)", lambda: kern_evidence_panel(kern, kp, Xd, m), report)
     stage("dense evidence", lambda: linalg.evidence_terms(kern.gram(kp, Xd), m), report)
     server = GPServer(model, chunk=8192, explicit_inverse=True)
@@ -133,9 +155,6 @@ def main(argv=None):
     nlml = make_objective(mlp.spec, Xd, yd, bias, scales)
     for engine in ("dense", "lazy"):
         stage(f"value_and_grad {engine}, mlp", lambda: value_and_grad(engine), report)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write("\n\n".join(report))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
 """Batch prediction server: factor once, then answer bucket-padded batches.
 
-Counterpart of gpc_tpu/serving.py::GPServer (FTC).  `refresh` factors the
-posterior state once on the model's device — K's Cholesky, α = K⁻¹m and,
-with `explicit_inverse`, the blocked L⁻¹, so each batch's variance solve is
-a GEMM.  `predict` serves requests in chunks of at most `chunk` rows, each
+Counterpart of gpc_tpu/serving.py::GPServer.  `refresh` factors the
+posterior state once on the model's device: for FTC K's Cholesky, α = K⁻¹m
+and, with `explicit_inverse`, the blocked L⁻¹, so each batch's variance
+solve is a GEMM; for a sparse model (X_u, L_uu, L_m, u), M × M factors.  `predict` serves requests in chunks of at most `chunk` rows, each
 padded to a power-of-two bucket capped at `chunk`: the set of batch shapes
 stays bounded at ~log2(chunk) for any stream of request sizes.  On CUDA the
-Gram of the factor and each batch's cross-Gram run kernel K1 (the distance
+Grams of the factor and each batch's cross-Gram run kernel K1 (the distance
 family) or K4 (lin, poly, mlp).
 """
 
@@ -24,8 +24,8 @@ from gpc_tpu_torch.models.gp import GP, posterior_apply, posterior_state
 class GPServer:
     """One-time-factored predictor for a `models.gp.GP`.
 
-    `explicit_inverse` defaults to on for CUDA and off for the CPU (the f64
-    parity route).  `predict` matches `GP.predict` to numerical precision
+    `explicit_inverse` (FTC only, as in gpc_tpu) defaults to on for CUDA and
+    off for the CPU (the f64 parity route).  `predict` matches `GP.predict` to numerical precision
     for any request size, ragged tails included."""
 
     def __init__(self, model: GP, chunk: int = 8192,
@@ -35,12 +35,12 @@ class GPServer:
         self.chunk = int(chunk)
         if explicit_inverse is None:
             explicit_inverse = self.device.type == "cuda"
-        self.explicit_inverse = bool(explicit_inverse)
+        self.explicit_inverse = bool(explicit_inverse) and not self.spec.sparse
         self.refresh(model)
 
     def refresh(self, model: GP):
         """Re-factor from the model's current parameters, bias and scales."""
-        self.state = posterior_state(self.spec, *model._args(),
+        self.state = posterior_state(self.spec, *model._args(), model._xu_fixed(),
                                      explicit_inverse=self.explicit_inverse)
 
     def _bucket(self, t: int) -> int:

@@ -7,8 +7,12 @@ to float64 rounding (rtol 1e-10).  `learn -# 20` of both packages gives
 hyperparameters within 1e-6 relative after the same number of iterations,
 and each package relearns from the other's model file.  `learn -# 10` with
 each kernel type of the -k grammar (ARD under -i 1) gives hyperparameters
-within 1e-7, and each package reads the other's model file.  The unported
-commands, flags out of place and a missing card exit with an error.
+within 1e-7, and each package reads the other's model file.  The sparse
+approximations (-A with -a) under each optimiser (-O) learn as gpc_tpu's do
+(tolerances at the test), and `gnuplot` writes gpc_tpu's files: the same
+text and names, the posterior's numbers within 1e-12 of the largest.  The
+unported paths (a classification model's noise, -f 1), flags out of place
+and a missing card exit with an error.
 """
 
 import re
@@ -42,6 +46,9 @@ def files(tmp_path, monkeypatch):
     model = JGP(kern, X, y, centre=True)
     model.theta = jnp.asarray(np.array([0.4, -0.2, -1.5, -3.0]))
     JIO.write_gp("gp_model", model)
+    # a classification model's file (its noise models are not ported yet)
+    with open("probit_model", "w") as f:
+        f.write(open("gp_model").read().replace("type=gaussian", "type=probit"))
     return tmp_path
 
 
@@ -85,12 +92,12 @@ def test_panel_log_likelihood_matches_dense_cli(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["gnuplot", "train.svml", "gp_model"], "not yet ported"),
-    (["learn", "-O", "conjgrad", "train.svml"], "not yet ported"),
-    (["learn", "-O", "graddesc", "train.svml"], "not yet ported"),
-    (["learn", "-A", "fitc", "-a", "10", "train.svml"], "not yet ported"),
-    (["learn", "-A", "dtc", "-a", "10", "train.svml"], "not yet ported"),
-    (["learn", "-O", "quasinew", "train.svml"], "not yet ported"),
+    (["gnuplot", "train.svml", "probit_model"], "not yet ported"),
+    (["display", "probit_model"], "not yet ported"),
+    (["log-likelihood", "train.svml", "probit_model"], "not yet ported"),
+    (["test", "train.svml", "probit_model"], "not yet ported"),
+    (["predict", "train.svml", "probit_model"], "not yet ported"),
+    (["relearn", "train.svml", "probit_model"], "not yet ported"),
     (["learn", "-f", "1", "train.svml"], "not yet ported"),
     (["learn", "-k", "foo", "train.svml"], "Unknown covariance function type"),
     (["learn", "-g", "1.0", "train.svml"], "must come after covariance"),
@@ -238,3 +245,107 @@ def test_learn_checkpoint_resume(files, capsys):
     resumed = _params(_run(port_cli.main, CPU + ["display", "m_resumed"], capsys))
     assert len(full) == 4
     np.testing.assert_array_equal(resumed, full)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["learn", "-A", "dtc", "train.svml"], "You must choose an active set size"),
+    (["learn", "-A", "pitc", "-a", "0", "train.svml"], "You must choose an active set size"),
+    (["relearn", "-O", "bogus", "train.svml", "gp_model"], "Unrecognised optimiser"),
+    (["gnuplot", "-x", "train.svml", "gp_model"], "Unrecognised flag"),
+    (["gnuplot", "three.svml", "gp_model"], "Incorrect dimension of input data"),
+    (["gnuplot", "three.svml", "three_model"], "Incorrect number of model inputs"),
+])
+def test_sparse_and_gnuplot_errors_match_jax(files, capsys, argv, message):
+    """The sparse and gnuplot error messages are gpc_tpu's."""
+    rng = np.random.default_rng(2)
+    X3 = rng.standard_normal((20, 3))
+    write_svml("three.svml", X3, X3[:, :1])
+    JIO.write_gp("three_model", JGP(GK.Cmpnd(input_dim=3, components=(
+        GK.Rbf(input_dim=3), GK.White(input_dim=3))), X3, X3[:, :1]))
+    for main, pre in ((port_cli.main, CPU), (jax_cli.main, [])):
+        with pytest.raises(SystemExit) as exc:
+            main(pre + argv)
+        assert message in str(exc.value.code)
+
+
+@pytest.fixture
+def sparse_file(files):
+    """1-D data for the sparse CLI: a sinc-like curve of 80 points."""
+    rng = np.random.default_rng(8)
+    X = rng.uniform(-3.0, 3.0, (80, 1))
+    write_svml("sparse.svml", X, np.sinc(X) + 0.05 * rng.standard_normal((80, 1)))
+    return "sparse.svml"
+
+
+# -O scg amplifies the objectives' last-bit differences through its
+# finite-difference curvature probe (test_learn_matches_jax holds it to 1e-6)
+SPARSE_LEARN = [("dtc", "scg", 1e-6), ("dtcvar", "conjgrad", 1e-8), ("fitc", "quasinew", 1e-8),
+                ("pitc", "graddesc", 1e-10), ("fitc", "scg", 1e-6), ("dtc", "quasinew", 1e-8)]
+
+
+@pytest.mark.parametrize("approx,optimiser,rtol", SPARSE_LEARN)
+def test_sparse_learn_matches_jax(sparse_file, capsys, approx, optimiser, rtol):
+    """learn -A approx -a 8 -O optimiser -# 6: the same printed summary
+    (hyperparameters and β within rtol), the same inducing inputs, and each
+    package reads the other's model file to the same log-likelihood; then
+    relearn -O quasinew from the other package's file."""
+    argv = ["-s", "3", "learn", "-A", approx, "-a", "8", "-O", optimiser, "-#", "6", sparse_file]
+    out_j = _run(jax_cli.main, argv + ["m_jax"], capsys)
+    out_t = _run(port_cli.main, CPU + argv + ["m_port"], capsys)
+    assert ("Warning: numerical stabilities" in out_t) == (approx == "dtcvar")
+    p_j, obj_j, it_j = _learned(out_j)
+    p_t, obj_t, it_t = _learned(out_t)
+    assert it_t == it_j and "  beta: " in out_t and len(p_t) == len(p_j) == 5
+    np.testing.assert_allclose(p_t, p_j, rtol=rtol)
+    np.testing.assert_allclose(obj_t, obj_j, rtol=rtol)
+    jm, pm = JIO.read_gp("m_jax"), JIO.read_gp("m_port")
+    assert pm.spec.approx == approx and pm.spec.num_active == 8
+    np.testing.assert_allclose(pm.inducing(), np.asarray(jm.inducing()), rtol=10 * rtol,
+                               atol=1e-12)
+    ll = float(_run(port_cli.main, CPU + ["log-likelihood", sparse_file, "m_port"],
+                    capsys).split(":")[-1])
+    ll_j = float(_run(jax_cli.main, ["log-likelihood", sparse_file, "m_port"],
+                      capsys).split(":")[-1])
+    np.testing.assert_allclose(ll, ll_j, rtol=1e-10)
+    if optimiser != "graddesc":     # gd reports f at the iterate before its last
+        np.testing.assert_allclose(ll, -obj_t, rtol=1e-10)
+    out_r = _run(port_cli.main, CPU + ["relearn", "-O", "quasinew", "-#", "2", sparse_file,
+                                       "m_jax", "m_next"], capsys)
+    out_rj = _run(jax_cli.main, ["relearn", "-O", "quasinew", "-#", "2", sparse_file,
+                                 "m_jax", "m_next_jax"], capsys)
+    np.testing.assert_allclose(_learned(out_r)[0], _learned(out_rj)[0], rtol=1e-8)
+
+
+def _gnuplot_files(name):
+    import glob
+    return sorted(f[len(name):] for f in glob.glob(name + "_*"))
+
+
+@pytest.mark.parametrize("case", ["ftc_1d", "dtc_1d", "fitc_2d", "ftc_2d"])
+def test_gnuplot_matches_jax(files, sparse_file, capsys, case):
+    """gnuplot of a learned model: the same files; the script, the scatter
+    data and everything else that carries no posterior value byte for
+    byte, the rest the same text with numbers within 1e-12 of the file's
+    largest (both packages' posterior values differ in their last bits)."""
+    approx, dims = case.split("_")
+    data = sparse_file if dims == "1d" else "train.svml"
+    argv = ["-s", "2", "learn", "-A", approx, "-a", "6", "-#", "3", data, "m"]
+    jax_cli.main(argv)
+    flags = ["-r", "17", "-p", "1.5"] if dims == "2d" else []
+    jax_cli.main(["gnuplot"] + flags + [data, "m", "jplot"])
+    port_cli.main(CPU + ["gnuplot"] + flags + [data, "m", "tplot"])
+    names = _gnuplot_files("jplot")
+    assert names == _gnuplot_files("tplot")
+    want = {"1d": ["_error_bar_data.dat", "_line_data.dat", "_plot.gp", "_scatter_data.dat"],
+            "2d": ["_output_matrix.dat", "_plot.gp", "_scatter_data.dat"]}[dims]
+    assert set(names) == set(want + (["_active_set.dat"] if approx != "ftc" else []))
+    for suffix in names:
+        ref = open("jplot" + suffix).read().replace("jplot", "NAME")
+        got = open("tplot" + suffix).read().replace("tplot", "NAME")
+        if suffix in ("_plot.gp", "_scatter_data.dat"):
+            assert got == ref
+            continue
+        assert _NUM.sub("#", got) == _NUM.sub("#", ref)
+        a = np.array([float(v) for v in _NUM.findall(got)])
+        b = np.array([float(v) for v in _NUM.findall(ref)])
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())

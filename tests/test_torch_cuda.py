@@ -8,13 +8,15 @@ machine run it as
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: K1, K2, K4 and K5 compute in float32 like their plain
-versions and differ in summation order (rtol 1e-5; 1e-4 on the leaf logdet,
+versions and differ in summation order (rtol 1e-5; the batched K1/K4 equal
+their 2-D launches bit for bit; 1e-4 on the leaf logdet,
 on K1's and K4's gradients, of the output's scale for K4's power and
 arcsin maps and for every map at the ragged widths (q up to 130); 1e-3 on ‖ML − I‖ and of max|L| for K5); K3 and the slice carry
 the bf16 L buffer of the panel kernel (2e-3, gpc_tpu's own bound; 2e-2 of
 their max on T's diagonal blocks; 8e-2 relative L2 on panel gradients) or
 float32 against the CPU's float64 (1e-4 on predictions, 2e-3 on the
-evidence, 1e-3 relative L2 on dense and lazy gradients).  K3's correction
+evidence, 1e-3 relative L2 on dense, lazy and sparse gradients, 1e-4 on
+the sparse evidence).  K3's correction
 kernel alone is held to the float32 product of its bf16 operands within
 1e-4 of Σ|a||b| (the tensor cores' truncating f32 sums over 256 k), and
 K3's outputs are bit-reproducible.  The lazy engine's
@@ -743,3 +745,98 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
         TVPU.vpu_matvec(torch.zeros((96, 96), device=dev), torch.zeros((96, 1), device=dev), 2)
     with pytest.raises(ValueError, match="contiguous"):
         TVPU.vpu_stage_store(torch.zeros((256, 256), device=dev).T, 2)
+
+
+SPARSE = ("dtc", "dtcvar", "fitc", "pitc")
+
+
+def _sparse_pair(dev, approx, lead="rbf", N=600, M=64, pitc_block=100):
+    rng = np.random.default_rng(18)
+    X = rng.standard_normal((N, 3))
+    y = np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((N, 1))
+    kern = TK.Cmpnd(input_dim=3, components=(
+        {"rbf": TK.Rbf, "mlp": TK.Mlp}[lead](input_dim=3), TK.Bias(input_dim=3),
+        TK.White(input_dim=3)))
+    kw = dict(approx=approx, num_active=M, seed=1,
+              pitc_block=pitc_block if approx == "pitc" else 0)
+    return GP(kern, X, y, device="cpu", **kw), GP(kern, X, y, device=dev, **kw), rng
+
+
+@pytest.mark.parametrize("lead", ["rbf", "mlp"])
+@pytest.mark.parametrize("approx", SPARSE)
+def test_sparse_on_card_matches_cpu_float64(dev, approx, lead):
+    """The sparse evidence (1e-4 relative) and its gradient in θ, X_u and β
+    (1e-3 relative L2) in float32 on the card against the CPU's float64,
+    PITC in blocks of 70 with a ragged last block of 40; every Gram a kernel
+    launch: K_uu, K_uf and PITC's block Grams in one batched launch."""
+    cpu, card, _ = _sparse_pair(dev, approx, lead, pitc_block=70)
+    name = "inner_gram" if lead == "mlp" else "dist_gram"
+    before = dict(LAUNCHES)
+    got = card.log_likelihood()
+    ref = cpu.log_likelihood()
+    assert abs(got - ref) <= 1e-4 * abs(ref)
+    assert LAUNCHES[name] - before.get(name, 0) == 2
+    if approx == "pitc":
+        assert LAUNCHES[f"{name}_batched"] - before.get(f"{name}_batched", 0) == 1
+    f, g = card.value_and_grad_fn()(card.theta)
+    f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+    assert np.isfinite(g).all() and abs(f - f_ref) <= 1e-4 * abs(f_ref)
+    assert np.linalg.norm(g - g_ref) <= 1e-3 * np.linalg.norm(g_ref)
+
+
+@pytest.mark.parametrize("approx", SPARSE)
+def test_sparse_server_on_card_matches_predict(dev, approx):
+    """A sparse GPServer on the card (no explicit inverse) against
+    GP.predict on the card (1e-5 of the largest) and the CPU's float64
+    (1e-4), at request sizes that leave ragged chunks."""
+    cpu, card, rng = _sparse_pair(dev, approx)
+    srv = GPServer(card, chunk=128)
+    assert not srv.explicit_inverse
+    Xt = rng.standard_normal((300, 3))
+    before = LAUNCHES["dist_gram"]
+    mu, var = srv.predict(Xt)
+    assert LAUNCHES["dist_gram"] == before + 3        # one K_u* a chunk
+    for got, want in zip((mu, var), card.predict(Xt)):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    for got, want in zip((mu, var), cpu.predict(Xt)):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert (var >= 0).all()
+
+
+@pytest.mark.parametrize("M,N", [(1024, 16384), (1000, 16384), (1023, 4097)])
+def test_gram_kernels_at_cross_gram_shapes(dev, M, N):
+    """K1 and K4 at the sparse path's cross-Gram shapes K_uf (M × N) and
+    ragged M, q = 8, against their plain versions."""
+    rng = np.random.default_rng(M + N)
+    Xu, X = _randn(rng, (M, 8), dev), _randn(rng, (N, 8), dev)
+    for family, p in (("rbf", PARAMS["rbf"]), ("mlp", INNER["mlp"])):
+        if family == "mlp":
+            got, want = TG.inner_gram(family, p, Xu, X), TG.inner_gram_plain(family, p, Xu, X)
+            tol = 1e-4 * float(want.abs().max())
+        else:
+            got, want = TG.dist_gram(family, p, Xu, X), TG.dist_gram_plain(family, p, Xu, X)
+            tol = 1.3e-6
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("P", [1, 3, 16])
+@pytest.mark.parametrize("family", ["rbf", "matern32", "lin", "mlp"])
+def test_batched_gram_equals_2d_launches(dev, family, P):
+    """The batched K1/K4 (one launch over the grid's z axis) on P blocks of
+    a ragged width (B = 101: misaligned rows, a ragged stripe) equals P
+    separate 2-D launches bit for bit, and its plain version within the 2-D
+    kernels' tolerance."""
+    rng = np.random.default_rng(19 + P)
+    Xb = _randn(rng, (P, 101, 8), dev)
+    inner = family in INNER
+    p = (INNER if inner else PARAMS)[family]
+    name = "inner_gram" if inner else "dist_gram"
+    kernel = TG.inner_gram_kernel if inner else TG.dist_gram_kernel
+    plain = TG.inner_gram_plain if inner else TG.dist_gram_plain
+    before = LAUNCHES[f"{name}_batched"]
+    got = kernel(family, p, Xb, Xb)
+    assert LAUNCHES[f"{name}_batched"] == before + 1 and got.shape == (P, 101, 101)
+    for b in range(P):
+        assert torch.equal(got[b], kernel(family, p, Xb[b].contiguous(), Xb[b].contiguous()))
+    want = plain(family, p, Xb, Xb)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))

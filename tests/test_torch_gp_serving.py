@@ -229,12 +229,17 @@ def test_model_files_cross_load(tmp_path):
         TIO.read_gp(tmp_path / "from_jax", X=np.zeros((3, 5)))
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """The iterative engine is not ported; an unknown approximation or
+    kernel raises.  (The sparse approximations and quasinew, once here,
+    are ported: tests/test_torch_sparse.py, tests/test_torch_optim.py.)"""
     X, y, _ = _data(10, 2, 4)
     kern = TK.Cmpnd(input_dim=2, components=(TK.Rbf(input_dim=2),))
+    with pytest.raises(ValueError, match="Unknown sparse approximation"):
+        TGP(kern, X, y, approx="bogus", device="cpu")
+    assert TGP(kern, X, y, approx="dtc", num_active=3, device="cpu").spec.sparse
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", "iterative")
     with pytest.raises(NotImplementedError):
-        TGP(kern, X, y, approx="dtc")
-    with pytest.raises(NotImplementedError, match="quasinew"):
-        TGP(kern, X, y, device="cpu").optimise(optimiser="quasinew")
+        TGP(kern, X, y, device="cpu").log_likelihood()
     with pytest.raises(ValueError, match="Unknown kernel type"):
         TK.make_kern("bogus", 2)

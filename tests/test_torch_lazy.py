@@ -173,7 +173,7 @@ def test_panel_falls_back_to_lazy(monkeypatch):
     warning, then the lazy engine's value."""
     jm, pm = _gp_pair("mlp", 1024)
     theta, X, y, bias, scales = pm._args()
-    kp, _ = pm.spec.unpack(theta)
+    _, kp, _, _ = pm.spec.unpack(theta)
     m = y - bias
     with pytest.warns(UserWarning, match="falling back to the lazy engine"):
         got = TPE.kern_evidence_panel(pm.spec.kern, kp, X, m)
