@@ -36,7 +36,14 @@ learned models against the CPU float64 route), a sparse GPServer, gp
 gnuplot on a 1-D DTC model and a -k mlp DTC evidence (K4); then, on a path
 of their own, learn -O conjgrad|graddesc|quasinew at N = 4096 (FTC); then
 K1, K4 and the batched K1 of PITC's blocks at the sparse shapes against
-their plain versions.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+their plain versions.  Phase 18, the IVM at gpc_tpu's geometry (N = 4096,
+d = 512, q = 2): the selection pass (its step captured in a CUDA graph)
+with points/s, its K1 launches and the card's order replayed through the
+CPU float64 step; probit classification through the ivm CLI (learn -k
+rbf, test, class-one-probabilities, predict, display, gnuplot, a learn on
+the default lin, which is K4) against the CPU float64 route; -o ncnm with
+80 % of the labels blanked; an IvmServer; gp gnuplot on a GP model file
+with probit noise; and K1/K4 at the IVM path's shapes.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
@@ -1305,6 +1312,237 @@ def phase_sparse_kernels(dev, rng):
 
 
 
+IVM_N, IVM_D, IVM_Q = 4096, 512, 2     # gpc_tpu's IVM geometry (bench.py:362-377)
+# The card's float32 pass against the CPU float64 replay of its order
+# (models/ivm.replay): the f64 entropy score of each pick within
+# IVM_GAP_TOL of that step's f64 maximum, relative to it, and μ, ς, m̃, β̃
+# within IVM_STATE_TOL of each field's largest f64 entry.  From the first
+# run's readings (PERF.md §6, PR 9; H100 80GB HBM3, 700 W): 430 of 512
+# picks were not the f64 maximum, the worst 4.8e-3 below it, and the state
+# within 7.4e-6.  The score's conditioning bounds the gap: with Gaussian
+# noise Δ = −½·log(1 − ς·ν), ς·ν = ς/(σ² + ς), and at σ² = 1e-6 float32
+# computes 1 − ς·ν to ε₃₂·ς/σ² ≈ 6 % of itself, ≈ 0.03 of Δ ≈ 7 (0.4 %) at
+# each of two near-tied points.
+IVM_GAP_TOL = 1e-2
+IVM_STATE_TOL = 1e-4
+IVM_CLI_TOL = 1e-4   # the CLI's f32 log-likelihood against the f64 route, relative
+
+
+def ivm_select_data():
+    """bench.py:366-369: X ~ N(0, 1)^(4096×2) in float32, y = sin(2x₁)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((IVM_N, IVM_Q)).astype(np.float32).astype(np.float64)
+    return X, np.sin(2 * X[:, :1]).astype(np.float32).astype(np.float64)
+
+
+def ivm_class_data():
+    """X ~ U[0, 1]², y = sign(x₁ + x₂ − 1) with 5 % of the labels flipped."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.0, 1.0, (IVM_N, IVM_Q))
+    y = np.where(X.sum(axis=1, keepdims=True) > 1.0, 1.0, -1.0)
+    flip = rng.permutation(IVM_N)[:IVM_N // 20]
+    y[flip] *= -1.0
+    return X, y
+
+
+def run_ivm_cli(argv):
+    """The port's ivm CLI in-process; returns its standard output."""
+    from gpc_tpu_torch.cli import ivm as ivm_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ivm_cli.main(argv)
+    return out.getvalue()
+
+
+def phase_ivm_select(dev):
+    """18(a): the selection pass at bench.py's geometry, N = 4096, d = 512,
+    q = 2, cmpnd(rbf, bias, white), Gaussian noise at its defaults, entropy
+    selection: points/s (median of 3 passes after a warm-up pass that
+    captures the step), the K1 launches of one pass, and the card's order
+    replayed through the CPU float64 step (IVM_GAP_TOL, IVM_STATE_TOL)."""
+    from gpc_tpu_torch.models.ivm import IVM, replay
+    from gpc_tpu_torch.noise import GaussianNoise
+    from gpc_tpu_torch.ops import cuda_lib
+    X, y = ivm_select_data()
+    model = IVM(default_kern(IVM_Q), GaussianNoise(output_dim=1), X, y, num_active=IVM_D,
+                device=dev)
+    _, capture_ms = timed(model.init_and_select)
+    before = cuda_lib.LAUNCHES["dist_gram"]
+    runs = [timed(model.init_and_select)[1] for _ in range(3)]
+    pass_launches = (cuda_lib.LAUNCHES["dist_gram"] - before) // 3
+    check(pass_launches == IVM_D, f"K1 launches a pass: {pass_launches}, want {IVM_D}")
+    ms = float(np.median(runs))
+    st = model.state
+    order = st.active_idx.cpu().numpy()
+    check(len(set(order.tolist())) == IVM_D, "the card's pass picked a point twice")
+    (ref, gaps), replay_ms = timed(lambda: replay(
+        model.spec, model.kern_params, model.noise_params, torch.as_tensor(X),
+        torch.as_tensor(y), order))
+    errs = {}
+    for name in ("mu", "varsigma", "m_site", "beta_site"):
+        a = getattr(st, name).double().cpu().numpy()
+        b = getattr(ref, name).numpy()
+        errs[name] = float(np.abs(a - b).max() / np.abs(b).max())
+    out = dict(points_per_s=IVM_D / ms * 1e3, pass_ms=ms, passes_ms=runs,
+               first_pass_with_capture_ms=capture_ms, k1_launches_a_pass=pass_launches,
+               replay_cpu_f64_ms=replay_ms, worst_gap_rel=float(gaps.max()),
+               picks_not_the_f64_max=int((gaps > 0).sum()), state_rel=errs)
+    log(f"phase 18 IVM selection N={IVM_N} d={IVM_D}: {json.dumps(out)}")
+    check(float(gaps.max()) <= IVM_GAP_TOL,
+          f"a pick's f64 score is {float(gaps.max())} (relative) below the step's maximum")
+    check(all(e <= IVM_STATE_TOL for e in errs.values()), f"card vs f64 replay: {errs}")
+    return out
+
+
+def cli_number(out, prefix):
+    """The number after `prefix` in a CLI's output."""
+    line = next(ln for ln in out.splitlines() if ln.startswith(prefix))
+    return float(line[len(prefix):].strip().rstrip("%."))
+
+
+def phase_ivm_cli(dev, workdir):
+    """18(b)–(e) through the ivm and gp CLIs at N = 4096, d = 512: (b)
+    probit classification, `learn -k rbf -a 512 -# 20 -n 5 -e 2`, then
+    test, class-one-probabilities, predict, display and gnuplot, the
+    classification error and the model's log-likelihood against the CPU
+    float64 route on the same model file, and a short learn on the default
+    kernel lin (K4); (c) `-o ncnm` with 80 % of the labels blanked; (d) an
+    IvmServer on (b)'s model: factor ms, predictions/s for requests of
+    8192, 1000 and 37 rows, mean and variance within 1e-4 of IVM.predict;
+    (e) gp gnuplot on a GP model file with probit noise."""
+    from gpc_tpu_torch.io import model_io
+    from gpc_tpu_torch.io.svml import write_svml
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.serving import IvmServer
+    X, y = ivm_class_data()
+    data = os.path.join(workdir, "ivm_class.svml")
+    write_svml(data, X, y)
+    model_file = os.path.join(workdir, "ivm_model")
+    out = {}
+    text, out["learn_cli_ms"] = timed(lambda: run_ivm_cli(
+        ["-s", str(SEED), "learn", "-k", "rbf", "-a", str(IVM_D), "-#", "20", "-n", "5",
+         "-e", "2", data, model_file]))
+    check(f"Active set size: {IVM_D}" in text, "ivm learn's summary")
+    card, cpu = {}, {}
+    for route, dest in ((["--device", "cuda"], card), (["--device", "cpu"], cpu)):
+        t, ms = timed(lambda: run_ivm_cli(route + ["test", data, model_file]))
+        dest["error_pct"], dest["test_cli_ms"] = cli_number(t, "Classification error on output 1:"), ms
+        t, ms = timed(lambda: run_ivm_cli(route + ["log-likelihood", data, model_file]))
+        dest["ll"], dest["ll_cli_ms"] = cli_number(t, "Model log likelihood:"), ms
+    out.update(error_pct=card["error_pct"], error_pct_cpu_f64=cpu["error_pct"], ll=card["ll"],
+               ll_cpu_f64=cpu["ll"], ll_rel=abs(card["ll"] - cpu["ll"]) / abs(cpu["ll"]),
+               test_cli_ms=card["test_cli_ms"], ll_cli_ms=card["ll_cli_ms"],
+               test_cpu_f64_cli_ms=cpu["test_cli_ms"])
+    # one point of 4096 may fall on the other side of the decision boundary in f32
+    check(abs(card["error_pct"] - cpu["error_pct"]) <= 100.0 / IVM_N + 1e-9,
+          f"classification error {card['error_pct']} % vs CPU f64 {cpu['error_pct']} %")
+    check(np.isfinite(card["ll"]) and out["ll_rel"] <= IVM_CLI_TOL,
+          f"ivm log-likelihood {card['ll']} vs CPU f64 {cpu['ll']}")
+    probs = os.path.join(workdir, "ivm_probs")
+    preds = os.path.join(workdir, "ivm_preds")
+    _, out["class_one_cli_ms"] = timed(lambda: run_ivm_cli(
+        ["class-one-probabilities", data, model_file, probs]))
+    run_ivm_cli(["predict", data, model_file, preds])
+    p1, pred = np.loadtxt(probs).reshape(-1), np.loadtxt(preds).reshape(-1)
+    check(p1.shape == (IVM_N,) and ((p1 >= 0) & (p1 <= 1)).all(), "class-one probabilities")
+    # out's sign(μ + b) is Φ((μ + b)/√(ς + σ²)) > 0.5 but at a tie in float32
+    check(np.sum(pred != np.where(p1 > 0.5, 1.0, -1.0)) <= 1, "predict vs probabilities")
+    shown = run_ivm_cli(["display", model_file]).strip()
+    check(shown.startswith("IVM Model:") and shown in text, "ivm display vs learn's summary")
+    name = os.path.join(workdir, "ivm_plot")
+    _, out["gnuplot_cli_ms"] = timed(lambda: run_ivm_cli(["gnuplot", data, model_file, name]))
+    grid = np.loadtxt(name + "_prob_matrix.dat")
+    check(grid.shape == (80 * 80, 3) and np.isfinite(grid).all(), "ivm gnuplot's grid")
+
+    lin_file = os.path.join(workdir, "ivm_lin")
+    text, out["learn_lin_cli_ms"] = timed(lambda: run_ivm_cli(
+        ["-s", str(SEED), "learn", "-a", str(IVM_D), "-#", "3", "-n", "2", "-e", "1", data,
+         lin_file]))
+    check("linvariance" in text, "the default kernel is lin")
+
+    Xn, yn = X, y.copy()
+    blank = np.random.default_rng(SEED + 3).uniform(size=IVM_N) < 0.8
+    yn[blank] = 0.0
+    ncnm_data = os.path.join(workdir, "ivm_ncnm.svml")
+    write_svml(ncnm_data, Xn, yn)
+    ncnm_file = os.path.join(workdir, "ivm_ncnm_model")
+    _, out["ncnm_learn_cli_ms"] = timed(lambda: run_ivm_cli(
+        ["-s", str(SEED), "learn", "-o", "ncnm", "-k", "rbf", "-a", str(IVM_D), "-#", "5",
+         "-n", "3", "-e", "1", ncnm_data, ncnm_file]))
+    check("type=ncnm" in open(ncnm_file).read(), "-o ncnm wrote an ncnm model")
+    ll_card = cli_number(run_ivm_cli(["log-likelihood", ncnm_data, ncnm_file]),
+                         "Model log likelihood:")
+    ll_cpu = cli_number(run_ivm_cli(["--device", "cpu", "log-likelihood", ncnm_data,
+                                     ncnm_file]), "Model log likelihood:")
+    out.update(ncnm_ll=ll_card, ncnm_ll_cpu_f64=ll_cpu,
+               ncnm_ll_rel=abs(ll_card - ll_cpu) / abs(ll_cpu))
+    check(np.isfinite(ll_card) and out["ncnm_ll_rel"] <= IVM_CLI_TOL,
+          f"ncnm log-likelihood {ll_card} vs CPU f64 {ll_cpu}")
+
+    model = model_io.read_ivm(model_file, X=X, y=y, device=dev)
+    server, out["server_factor_ms"] = timed(lambda: IvmServer(model, chunk=CHUNK))
+    rng = np.random.default_rng(SEED + 4)
+    requests = [rng.uniform(0.0, 1.0, (t, IVM_Q)) for t in (CHUNK, 1000, 37)]
+    served, serve_ms = timed(lambda: [server.predict(r) for r in requests])
+    for Xt, (mu, var) in zip(requests, served):
+        want_mu, want_var = model.predict(Xt)
+        check(np.isfinite(mu).all() and (var >= 0).all(), "IvmServer output")
+        for what, got, want in (("mean", mu, want_mu), ("variance", var, want_var)):
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            check(err < 1e-4, f"IvmServer {what} vs IVM.predict: rel {err} (T={Xt.shape[0]})")
+    n_pred = sum(r.shape[0] for r in requests)
+    out.update(server_serve_ms=serve_ms, server_predictions_per_s=n_pred / serve_ms * 1e3)
+
+    gp_file = os.path.join(workdir, "gp_probit_model")
+    model_io.write_gp(gp_file, GP(default_kern(IVM_Q), X, y, device="cpu"))
+    with open(gp_file) as f:
+        probit_text = f.read().replace("type=gaussian", "type=probit")
+    with open(gp_file, "w") as f:
+        f.write(probit_text)
+    gname = os.path.join(workdir, "gp_class")
+    _, out["gp_gnuplot_cli_ms"] = timed(lambda: run_cli(["gnuplot", data, gp_file, gname]))
+    grid = np.loadtxt(gname + "_prob_matrix.dat")
+    check(grid.shape == (80 * 80, 3) and np.isfinite(grid).all()
+          and ((grid[:, 2] >= 0) & (grid[:, 2] <= 1)).all(), "gp gnuplot's classification grid")
+    check(not os.path.exists(gname + "_active_set.dat") and
+          "gp_class_active_set.dat" in open(gname + "_plot.gp").read(),
+          "gp gnuplot's classification script (gpc_tpu's active-set quirk)")
+    log(f"phase 18 IVM CLI N={IVM_N} d={IVM_D}: {json.dumps(out)}")
+    return out
+
+
+def phase_ivm_kernels(dev, rng):
+    """K1 (rbf) and K4 (lin) at the IVM path's shapes against their plain
+    versions (rtol 1e-5, as phase 2): the selection column N × 1 (q = 2),
+    the active set's d × d Gram and the serving cross-Gram d × 8192; each
+    timed as 20 calls captured in one CUDA graph (graph_paired_ms)."""
+    from gpc_tpu_torch.ops.gram import (dist_gram_kernel, dist_gram_plain, inner_gram_kernel,
+                                        inner_gram_plain)
+    X = torch.tensor(rng.standard_normal((IVM_N, IVM_Q)), dtype=torch.float32, device=dev)
+    Xa, Xt = X[:IVM_D].contiguous(), torch.tensor(
+        rng.standard_normal((CHUNK, IVM_Q)), dtype=torch.float32, device=dev)
+    xi = X[7:8].contiguous()
+    rbf = torch.tensor([1.0, 1.0], dtype=torch.float32, device=dev)
+    lin = torch.tensor([1.0], dtype=torch.float32, device=dev)
+    res = {}
+    for name, fam, p, kern, plain, bnd in (
+            ("dist_gram", "rbf", rbf, dist_gram_kernel, dist_gram_plain, k1_bound),
+            ("inner_gram", "lin", lin, inner_gram_kernel, inner_gram_plain, k4_bound)):
+        res[name] = {}
+        for shape, (A, B) in (("column", (X, xi)), ("active", (Xa, Xa)), ("cross", (Xa, Xt))):
+            got, want = kern(fam, p, A, B), plain(fam, p, A, B)
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max())),
+                  f"{name} at the IVM {shape} shape disagrees with its plain version ({err})")
+            (ms, _, _), (plain_ms, _, _) = graph_paired_ms(
+                lambda: kern(fam, p, A, B), lambda: plain(fam, p, A, B))
+            bound_ms, bound_by = bnd(A.shape[0], B.shape[0], IVM_Q)
+            res[name][shape] = dict(n=A.shape[0], m=B.shape[0], max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"phase 18 K1 rbf / K4 lin at the IVM shapes (q = {IVM_Q}): {json.dumps(res)}")
+    return res
+
+
 def k5_path_args(dev, n=N):
     """The K5 path's inputs: cmpnd(mlp, bias, white) at the defaults on the
     slice's first n rows, m = the centred targets."""
@@ -1741,7 +1979,19 @@ def main():
         check(opt_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on the "
                                                    "FTC optimiser path")
         torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        ivm_select = phase_ivm_select(dev)
+        ivm_cli = phase_ivm_cli(dev, workdir)
+        ivm_launches = dict(cuda_lib.LAUNCHES)
+        log(f"IVM-path launches: {ivm_launches}")
+        for name in ("dist_gram", "inner_gram"):
+            check(ivm_launches.get(name, 0) > 0, f"kernel {name} was not launched on the "
+                                                 "IVM path")
+        log("ivm: " + json.dumps(dict(selection=ivm_select, cli=ivm_cli)))
+        torch.cuda.empty_cache()
     sparse_k = phase_sparse_kernels(dev, rng)
+    ivm_k = phase_ivm_kernels(dev, rng)
     torch.cuda.empty_cache()
     cuda_lib.LAUNCHES.clear()
     phase_k5_path(dev)
@@ -1780,7 +2030,8 @@ def main():
     kernels = [
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:89", launches=launches["dist_gram"], **k1,
-             **at_sparse["dist_gram"], ftc_optimiser_launches=opt_launches["dist_gram"]),
+             **at_sparse["dist_gram"], ftc_optimiser_launches=opt_launches["dist_gram"],
+             ivm_launches=ivm_launches["dist_gram"], ivm_shapes=ivm_k["dist_gram"]),
         dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
                       "K1's batch axis)",
@@ -1797,7 +2048,8 @@ def main():
              corr_launches=train_launches["panel_corr"], **k3d),
         dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4,
-             **at_sparse["inner_gram"]),
+             **at_sparse["inner_gram"], ivm_launches=ivm_launches["inner_gram"],
+             ivm_shapes=ivm_k["inner_gram"]),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
              launches=ragged_launches["chol_inv_block"], **k5),

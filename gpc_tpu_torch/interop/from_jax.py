@@ -1,5 +1,11 @@
 """Carry a gpc_tpu model's parameters into the port.
 
+`ivm_from_jax(kern_desc, noise_desc, X, y, num_active, ...)` rebuilds a
+port `IVM` the same way: the kernel and the noise model (its kind and
+extras: output_dim, split_gamma, num_categories, width, sigma2) read through
+their attributes, the parameters, the data and, optionally, the active set
+and its sites.
+
 `from_jax(kern_desc, theta, X, y, bias, fixed_scales, ...)` rebuilds a
 gpc_tpu_torch `GP` from gpc_tpu's pieces as numpy arrays, FTC or sparse
 (the approximation, the active-set size, PITC's block size and the fixed
@@ -16,7 +22,9 @@ from __future__ import annotations
 import numpy as np
 
 from gpc_tpu_torch import kernels as KM
+from gpc_tpu_torch import noise as NZ
 from gpc_tpu_torch.models.gp import FTC, GP
+from gpc_tpu_torch.models.ivm import ENTROPY, IVM, restored_state
 from gpc_tpu_torch.priors import Prior
 
 
@@ -59,4 +67,28 @@ def from_jax(kern_desc, theta, X, y, bias, fixed_scales,
     model.theta = theta.copy()
     model.bias = np.asarray(bias, dtype=np.float64).reshape(-1)
     model.fixed_scales = np.asarray(fixed_scales, dtype=np.float64).reshape(-1)
+    return model
+
+
+def noise_from_desc(desc) -> NZ.Noise:
+    """The port's noise model for a gpc_tpu noise object."""
+    kwargs = {}
+    for name in ("split_gamma", "width", "sigma2", "num_categories"):
+        if hasattr(desc, name):
+            kwargs[name] = getattr(desc, name)
+    return NZ.make_noise(desc.kind, int(desc.output_dim), **kwargs)
+
+
+def ivm_from_jax(kern_desc, noise_desc, X, y, num_active: int, kern_params, noise_params,
+                 selection: str = ENTROPY, seed=None, active_idx=None, m_site=None,
+                 beta_site=None, device=None) -> IVM:
+    """A port IVM holding gpc_tpu's kernel, noise model, parameters and data
+    (numpy), and, when active_idx, m_site and beta_site are given, its
+    active set and sites; on `device` (None: the card; "cpu" for the CPU)."""
+    model = IVM(kern_from_desc(kern_desc), noise_from_desc(noise_desc), X, y,
+                num_active=num_active, selection=selection, seed=seed,
+                kern_params=np.asarray(kern_params, dtype=np.float64),
+                noise_params=np.asarray(noise_params, dtype=np.float64), device=device)
+    if active_idx is not None:
+        model.state = restored_state(model, active_idx, m_site, beta_site)
     return model

@@ -83,8 +83,10 @@ def chol_logdet(L: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)))
 
 
-def tri_solve(L, B):
-    """L⁻¹ B for lower-triangular L."""
+def tri_solve(L, B, trans: bool = False):
+    """L⁻¹ B for lower-triangular L; L⁻ᵀ B with trans=True."""
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=True)
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 

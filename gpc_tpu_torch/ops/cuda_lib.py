@@ -11,7 +11,9 @@ Every C entry point launches on the stream it is given (K3's,
 `gpc_panel_state`, forks two streams of its own from it and joins them back
 before it returns) and returns the first CUDA error; `launch` raises on a
 non-zero code and adds one to the kernel's count in `LAUNCHES`, which a run
-reads to show that its path went through the kernels.  `gpc_panel_state`
+reads to show that its path went through the kernels.  A launch captured
+in a CUDA graph runs at each replay without its wrapper: the code that
+replays the graph counts it (models/ivm.Selector).  `gpc_panel_state`
 also counts each kernel it launches, by kind, into an array the caller
 passes (ops/chol_panel.py adds those counts to `LAUNCHES`).
 """

@@ -1,6 +1,6 @@
-"""Where the time of the inference, training and sparse slices goes on one NVIDIA GPU.
+"""Where the time of the inference, training, sparse and IVM slices goes on one NVIDIA GPU.
 
-    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse] [--out FILE]
+    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse | --ivm] [--out FILE]
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
@@ -13,6 +13,10 @@ sparse slice at M = 1024 inducing inputs (gpc_tpu's bench.py:279),
 cmpnd(rbf, bias, white): one value_and_grad under DTC and FITC (K1 for
 K_uu and K_uf, the M × N solve, V·Vᵀ and their backward) and under PITC
 with blocks of M (the batched K1 block Grams, batched Cholesky).  `--sparse` runs the sparse slice alone.
+`--ivm` runs the IVM alone, at gpc_tpu's geometry (bench.py:362-377: N =
+4096, d = 512, q = 2, cmpnd(rbf, bias, white), Gaussian noise): one
+selection pass (the captured step replayed d times) and one IvmServer
+batch of 8192 rows.
 Prints per stage the wall time (host clock around work that ends in a
 synchronize), the device time of the kernels in that window (from the
 profiler's trace; their sum above the wall is overlap between streams) and
@@ -93,6 +97,7 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--q", type=int, default=8)
     ap.add_argument("--sparse", action="store_true", help="the sparse slice alone")
+    ap.add_argument("--ivm", action="store_true", help="the IVM alone")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -106,17 +111,38 @@ def main(argv=None):
     kern = KM.Cmpnd(input_dim=args.q, components=(
         KM.Rbf(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q)))
     report = []
-    if not args.sparse:
-        ftc_stages(args, X, y, kern, rng, report)
-    for approx in ("dtc", "fitc", "pitc"):
-        sparse = GP(kern, X, y, approx=approx, num_active=M_SPARSE, device="cuda")
-        vag = sparse.value_and_grad_fn()
-        stage(f"value_and_grad {approx}, M = {M_SPARSE}", lambda: vag(sparse.theta), report)
-        del sparse, vag
-        torch.cuda.empty_cache()
+    if args.ivm:
+        ivm_stages(report)
+    else:
+        if not args.sparse:
+            ftc_stages(args, X, y, kern, rng, report)
+        for approx in ("dtc", "fitc", "pitc"):
+            sparse = GP(kern, X, y, approx=approx, num_active=M_SPARSE, device="cuda")
+            vag = sparse.value_and_grad_fn()
+            stage(f"value_and_grad {approx}, M = {M_SPARSE}", lambda: vag(sparse.theta), report)
+            del sparse, vag
+            torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n\n".join(report))
+
+
+def ivm_stages(report):
+    """One IVM selection pass and one IvmServer batch at bench.py's IVM
+    geometry (N = 4096, d = 512, q = 2)."""
+    from gpc_tpu_torch.models.ivm import IVM
+    from gpc_tpu_torch.noise import GaussianNoise
+    from gpc_tpu_torch.serving import IvmServer
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((4096, 2)).astype(np.float32).astype(np.float64)
+    y = np.sin(2 * X[:, :1])
+    kern = KM.Cmpnd(input_dim=2, components=(
+        KM.Rbf(input_dim=2), KM.Bias(input_dim=2), KM.White(input_dim=2)))
+    model = IVM(kern, GaussianNoise(output_dim=1), X, y, num_active=512, device="cuda")
+    stage("IVM selection pass, N = 4096, d = 512", model.init_and_select, report)
+    server = IvmServer(model, chunk=8192)
+    Xt = torch.tensor(rng.standard_normal((8192, 2)), dtype=torch.float32, device="cuda")
+    stage("IvmServer batch 8192, d = 512", lambda: server._apply(Xt), report)
 
 
 def ftc_stages(args, X, y, kern, rng, report):

@@ -11,8 +11,12 @@ within 1e-7, and each package reads the other's model file.  The sparse
 approximations (-A with -a) under each optimiser (-O) learn as gpc_tpu's do
 (tolerances at the test), and `gnuplot` writes gpc_tpu's files: the same
 text and names, the posterior's numbers within 1e-12 of the largest.  The
-unported paths (a classification model's noise, -f 1), flags out of place
-and a missing card exit with an error.
+unported path (-f 1), flags out of place and a missing card exit with an
+error.  A GP model file with probit noise reads in both packages, and every
+command on it (gnuplot's classification branch included) gives gpc_tpu's
+output.  The ivm CLI (gpc_tpu_torch.cli.ivm): its 8 commands against
+gpc_tpu.cli.ivm, with -l, -o ncnm, -o regression and -c/-r (tolerances at
+the tests).
 """
 
 import re
@@ -24,10 +28,12 @@ import jax.numpy as jnp
 
 from gpc_tpu import kernels as GK
 from gpc_tpu.cli import gp as jax_cli
+from gpc_tpu.cli import ivm as jax_ivm
 from gpc_tpu.io import model_io as JIO
 from gpc_tpu.io.svml import write_svml
 from gpc_tpu.models.gp import GP as JGP
 from gpc_tpu_torch.cli import gp as port_cli
+from gpc_tpu_torch.cli import ivm as port_ivm
 
 CPU = ["--device", "cpu"]
 
@@ -46,9 +52,19 @@ def files(tmp_path, monkeypatch):
     model = JGP(kern, X, y, centre=True)
     model.theta = jnp.asarray(np.array([0.4, -0.2, -1.5, -3.0]))
     JIO.write_gp("gp_model", model)
-    # a classification model's file (its noise models are not ported yet)
+    # a classification model's file: gnuplot takes its classification branch
     with open("probit_model", "w") as f:
         f.write(open("gp_model").read().replace("type=gaussian", "type=probit"))
+    # ... and one at q = 3, where that branch refuses; a noise block whose
+    # numParams disagrees with its matrix
+    X3 = rng.standard_normal((30, 3))
+    write_svml("train3.svml", X3, np.sign(X3[:, :1]))
+    JIO.write_gp("g3", JGP(GK.Cmpnd(input_dim=3, components=(
+        GK.Rbf(input_dim=3), GK.White(input_dim=3))), X3, X3[:, :1]))
+    with open("probit3_model", "w") as f:
+        f.write(open("g3").read().replace("type=gaussian", "type=probit"))
+    with open("badnoise_model", "w") as f:
+        f.write(open("gp_model").read().replace("outputDim=1\nnumParams=2", "outputDim=1\nnumParams=3"))
     return tmp_path
 
 
@@ -92,12 +108,12 @@ def test_panel_log_likelihood_matches_dense_cli(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["gnuplot", "train.svml", "probit_model"], "not yet ported"),
-    (["display", "probit_model"], "not yet ported"),
-    (["log-likelihood", "train.svml", "probit_model"], "not yet ported"),
-    (["test", "train.svml", "probit_model"], "not yet ported"),
-    (["predict", "train.svml", "probit_model"], "not yet ported"),
-    (["relearn", "train.svml", "probit_model"], "not yet ported"),
+    (["gnuplot", "train3.svml", "probit3_model"], "Incorrect number of model inputs"),
+    (["display", "badnoise_model"], "noise numParams mismatch"),
+    (["log-likelihood", "train3.svml", "probit_model"], "input data is not of correct dimension"),
+    (["test", "train3.svml", "probit_model"], "input data is not of correct dimension"),
+    (["predict", "train3.svml", "probit_model"], "input data is not of correct dimension"),
+    (["gnuplot", "train3.svml", "probit_model"], "Incorrect dimension of input data"),
     (["learn", "-f", "1", "train.svml"], "not yet ported"),
     (["learn", "-k", "foo", "train.svml"], "Unknown covariance function type"),
     (["learn", "-g", "1.0", "train.svml"], "must come after covariance"),
@@ -349,3 +365,212 @@ def test_gnuplot_matches_jax(files, sparse_file, capsys, case):
         a = np.array([float(v) for v in _NUM.findall(got)])
         b = np.array([float(v) for v in _NUM.findall(ref)])
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("argv", [
+    ["gnuplot", "-r", "9", "train.svml", "probit_model", "NAME"],
+    ["display", "probit_model"],
+    ["log-likelihood", "train.svml", "probit_model"],
+    ["test", "train.svml", "probit_model"],
+    ["predict", "train.svml", "probit_model", "NAME_predictions"],
+    ["relearn", "-#", "3", "train.svml", "probit_model", "NAME_model"],
+])
+def test_probit_gp_model_matches_jax(files, capsys, argv):
+    """A GP model file with probit noise: each command prints gpc_tpu's text
+    (numbers to rtol 1e-10) and writes gpc_tpu's files (numbers within
+    1e-12 of each file's largest); gnuplot takes the classification branch,
+    whose script plots `name`_active_set.dat though it writes no such file
+    (gpc_tpu's and the reference's quirk)."""
+    outs = {}
+    for main, pre, tag in ((jax_cli.main, [], "jax"), (port_cli.main, CPU, "port")):
+        outs[tag] = _run(main, pre + [a.replace("NAME", tag) for a in argv], capsys)
+    _same_output(outs["port"], outs["jax"])
+    made = _gnuplot_files("port")
+    if argv[0] == "gnuplot":
+        # train.svml's targets are not ±1: every point is unlabelled
+        assert made == ["_plot.gp", "_prob_matrix.dat", "_unlabelled.dat"]
+        assert '"port_active_set.dat" with points ps 4.0' in open("port_plot.gp").read()
+    for suffix in made:
+        _same_file("jax" + suffix, "port" + suffix, "jax", "port")
+
+
+def _same_file(ref_path, got_path, ref_name="jax", got_name="port", rtol=1e-12):
+    """The same text around the numbers, the numbers within rtol of the
+    file's largest; comment lines (the command line) are skipped."""
+    read = lambda p, n: "".join(ln for ln in open(p) if not ln.startswith("#")).replace(n, "N")  # noqa: E731
+    ref, got = read(ref_path, ref_name), read(got_path, got_name)
+    assert _NUM.sub("#", got) == _NUM.sub("#", ref)
+    a = np.array([float(v) for v in _NUM.findall(got)])
+    b = np.array([float(v) for v in _NUM.findall(ref)])
+    np.testing.assert_allclose(a, b, rtol=0, atol=rtol * max(np.abs(b).max(initial=0), 1e-300))
+
+
+@pytest.fixture(scope="module")
+def ivm_dir(tmp_path_factory):
+    """Classification data (80 points in [0, 1]², y = sign(x₁ + x₂ − 1)
+    with every 13th label flipped), its labelled-index file, 1-D regression
+    data, and one learned model per package:
+    `learn -k rbf -a 20 -# 5 -n 3 -e 2` with seed 1."""
+    d = tmp_path_factory.mktemp("ivm")
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.0, 1.0, (80, 2))
+    y = np.where(X.sum(1, keepdims=True) > 1.0, 1.0, -1.0)
+    y[::13] *= -1.0
+    write_svml(str(d / "c.svml"), X, y)
+    with open(d / "labelled", "w") as f:
+        f.write("".join(f"{i + 1}\n" for i in range(0, 80, 2)))
+    X1 = rng.uniform(-3.0, 3.0, (60, 1))
+    write_svml(str(d / "r.svml"), X1, np.sinc(X1) + 0.05 * rng.standard_normal((60, 1)))
+    learn = ["-s", "1", "learn", "-k", "rbf", "-a", "20", "-#", "5", "-n", "3", "-e", "2",
+             str(d / "c.svml")]
+    jax_ivm.main(learn + [str(d / "m_jax")])
+    port_ivm.main(CPU + learn + [str(d / "m_port")])
+    return d
+
+
+def _ivm_params(out):
+    """The kernel and noise parameters of a printed IVM summary."""
+    return np.array([float(v) for v in
+                     re.findall(r"^  (?:\w+|noise param \d+): (\S+)$", out, re.M)])
+
+
+def _ivm_both(argv, capsys, d):
+    """Run argv (MODEL, OUT and DIR substituted per package) in both; the
+    two outputs."""
+    outs = {}
+    for main, pre, tag in ((jax_ivm.main, [], "jax"), (port_ivm.main, CPU, "port")):
+        args = [a.replace("MODEL", str(d / f"m_{tag}")).replace("OUT", str(d / f"o_{tag}"))
+                .replace("DIR", str(d)) for a in argv]
+        outs[tag] = _run(main, pre + args, capsys)
+    return outs["jax"], outs["port"]
+
+
+IVM_COMMANDS = {
+    "display": ["display", "MODEL"],
+    "test": ["test", "DIR/c.svml", "MODEL"],
+    "log-likelihood": ["log-likelihood", "DIR/c.svml", "MODEL"],
+    "predict": ["predict", "DIR/c.svml", "MODEL", "OUT"],
+    "class-one-probabilities": ["class-one-probabilities", "DIR/c.svml", "MODEL", "OUT"],
+    "gnuplot": ["gnuplot", "-r", "11", "DIR/c.svml", "MODEL", "OUT"],
+}
+
+
+def test_ivm_learn_matches_jax(ivm_dir, capsys):
+    """learn: the same learned parameters within rtol 1e-8 (SCG amplifies
+    the last-bit differences of the objectives), the same active set and
+    model-file text; each package reads the other's file."""
+    j, t = (_ivm_params(_run(m, pre + ["display", str(ivm_dir / f)], capsys))
+            for m, pre, f in ((jax_ivm.main, [], "m_jax"), (port_ivm.main, CPU, "m_port")))
+    assert len(j) == len(t) == 5
+    np.testing.assert_allclose(t, j, rtol=1e-8)
+    text = {f: [ln for ln in open(ivm_dir / f) if not ln.startswith("#")]
+            for f in ("m_jax", "m_port")}
+    assert [ln for ln in text["m_port"] if ln.startswith("activeSet")] == \
+        [ln for ln in text["m_jax"] if ln.startswith("activeSet")]
+    assert _NUM.sub("#", "".join(text["m_port"])) == _NUM.sub("#", "".join(text["m_jax"]))
+    assert open(ivm_dir / "m_port").readline().startswith("# Run as: ")
+    cross = _run(port_ivm.main, CPU + ["display", str(ivm_dir / "m_jax")], capsys)
+    _same_output(cross, _run(jax_ivm.main, ["display", str(ivm_dir / "m_jax")], capsys))
+
+
+@pytest.mark.parametrize("command", list(IVM_COMMANDS))
+def test_ivm_command_matches_jax(ivm_dir, capsys, command):
+    """Each command on gpc_tpu's model file, in both packages: the same
+    printed text (numbers to rtol 1e-10) and files (numbers within 1e-12 of
+    each file's largest)."""
+    argv = [a.replace("MODEL", "DIR/m_jax") for a in IVM_COMMANDS[command]]
+    ref, got = _ivm_both(argv, capsys, ivm_dir)
+    _same_output(got, ref)
+    if command in ("predict", "class-one-probabilities"):
+        _same_file(ivm_dir / "o_jax", ivm_dir / "o_port")
+    if command == "gnuplot":
+        names = sorted(p.name[len("o_jax"):] for p in ivm_dir.glob("o_jax_*"))
+        assert names == sorted(p.name[len("o_port"):] for p in ivm_dir.glob("o_port_*"))
+        assert "_prob_matrix.dat" in names and "_active_set.dat" in names
+        for suffix in names:
+            _same_file(ivm_dir / f"o_jax{suffix}", ivm_dir / f"o_port{suffix}", "o_jax", "o_port")
+
+
+def test_ivm_relearn_matches_jax(ivm_dir, capsys):
+    """relearn from the other package's model into the third argument."""
+    ref, got = _ivm_both(["-s", "2", "relearn", "-a", "15", "-#", "3", "-n", "2", "-e", "1",
+                          "DIR/c.svml", "DIR/m_jax", "OUT"], capsys, ivm_dir)
+    np.testing.assert_allclose(_ivm_params(got), _ivm_params(ref), rtol=1e-8)
+    assert "Active set size: 15" in got and len(_ivm_params(got)) == 5
+
+
+@pytest.mark.parametrize("flags", [["-o", "ncnm", "-l", "DIR/labelled"],
+                                   ["-l", "DIR/labelled"], ["-o", "ncnm"]],
+                         ids=["ncnm-l", "probit-l", "ncnm"])
+def test_ivm_learn_options_match_jax(ivm_dir, capsys, flags):
+    """-o ncnm (NCNM with gamma priors on the variances), -l (NCNM blanks
+    the unlisted labels, probit drops those rows): the same messages and
+    parameters (rtol 1e-8); the default kernel lin (K4's plain version)."""
+    argv = ["-s", "3", "learn"] + flags + ["-a", "12", "-#", "3", "-n", "2", "-e", "1",
+                                           "DIR/c.svml", "OUT"]
+    ref, got = _ivm_both(argv, capsys, ivm_dir)
+    assert [ln for ln in got.splitlines() if not ln.startswith("  ")] == \
+        [ln for ln in ref.splitlines() if not ln.startswith("  ")]
+    np.testing.assert_allclose(_ivm_params(got), _ivm_params(ref), rtol=1e-8)
+    assert "linvariance" in got
+    text = open(ivm_dir / "o_port").read()
+    assert ("type=ncnm" in text) == ("ncnm" in flags) and ("priorIndex" in text) == (
+        "ncnm" in flags)
+
+
+def test_ivm_regression_and_gnuplot_match_jax(ivm_dir, capsys):
+    """-o regression (Gaussian noise) on 1-D data, then gnuplot's regression
+    branch: the line, ±1σ bars, active set and scatter files."""
+    _ivm_both(["-s", "4", "learn", "-o", "regression", "-k", "rbf", "-a", "15", "-#", "3",
+               "-n", "2", "-e", "1", "DIR/r.svml", "OUT"], capsys, ivm_dir)
+    for tag in ("jax", "port"):
+        (ivm_dir / f"reg_{tag}").write_text((ivm_dir / f"o_{tag}").read_text())
+    ref, got = _ivm_both(["gnuplot", "DIR/r.svml", "DIR/reg_jax", "OUT"], capsys, ivm_dir)
+    names = sorted(p.name[len("o_jax"):] for p in ivm_dir.glob("o_jax_*") if "prob" not in p.name
+                   and "positive" not in p.name and "negative" not in p.name)
+    assert {"_line_data.dat", "_error_bar_data.dat", "_scatter_data.dat"} <= set(names)
+    for suffix in ("_line_data.dat", "_error_bar_data.dat", "_active_set.dat", "_plot.gp"):
+        _same_file(ivm_dir / f"o_jax{suffix}", ivm_dir / f"o_port{suffix}", "o_jax", "o_port",
+                   rtol=1e-10)
+
+
+def test_ivm_checkpoint_resume(ivm_dir, capsys):
+    """-c/-r: a run that stopped after one external iteration and resumed
+    from its phase-boundary checkpoint ends where the uninterrupted run
+    ends, bit for bit."""
+    base = ["-s", "5", "learn", "-k", "rbf", "-a", "10", "-#", "2", "-n", "2"]
+    data = str(ivm_dir / "c.svml")
+    ck = str(ivm_dir / "ivm.ckpt.npz")
+    full = _run(port_ivm.main, CPU + base + ["-e", "2", data, str(ivm_dir / "full")], capsys)
+    port_ivm.main(CPU + base + ["-e", "1", "-c", ck, data, str(ivm_dir / "half")])
+    capsys.readouterr()
+    resumed = _run(port_ivm.main, CPU + base + ["-e", "2", "-c", ck, "-r", data,
+                                                str(ivm_dir / "resumed")], capsys)
+    assert len(_ivm_params(full)) == 5
+    np.testing.assert_array_equal(_ivm_params(resumed), _ivm_params(full))
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["learn", "DIR/c.svml"], "You must choose an active set size"),
+    (["learn", "-a", "5", "-o", "bogus", "DIR/c.svml"], "Unknown output type"),
+    (["learn", "-a", "5", "-O", "bogus", "DIR/c.svml"], "Unrecognised model optimiser type"),
+    (["learn", "-a", "5", "-o", "ncnm", "DIR/r.svml"], "not a classification data set"),
+    (["learn", "-a", "500", "DIR/c.svml"], "has to be less than number of data"),
+    (["relearn", "-#", "2", "DIR/c.svml", "DIR/m_jax"], "You must choose an active set size"),
+    (["test", "DIR/r.svml", "DIR/m_jax"], "input data is not of correct dimension"),
+    (["gnuplot", "-x", "DIR/c.svml", "DIR/m_jax"], "Unrecognised flag"),
+    (["bogus"], "Invalid ivm command"),
+    ([], "No command provided"),
+])
+def test_ivm_errors_match_jax(ivm_dir, argv, message):
+    for main, pre in ((port_ivm.main, CPU), (jax_ivm.main, [])):
+        with pytest.raises(SystemExit) as exc:
+            main(pre + [a.replace("DIR", str(ivm_dir)) for a in argv])
+        assert message in str(exc.value.code)
+
+
+def test_ivm_without_card_exits(ivm_dir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        port_ivm.main(["display", str(ivm_dir / "m_jax")])
+    assert "--device cpu" in str(exc.value.code)

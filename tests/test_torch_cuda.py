@@ -28,7 +28,12 @@ versions within 1e-5 of the largest entry (bf16 products summed in float32
 in another order), 5e-5 where they hold sums of float32 leaves; K8b's and
 K8c's sums of bf16 products within 1e-4 of the largest entry, K8d's exp and
 Gram tiles within 1e-5, its matvec chain within 1e-4, and its staged store
-bit for bit.
+bit for bit.  The IVM: K1/K4 at the selection column (m = 1) within rtol
+1e-5; a selection pass (N = 1024, d = 128) makes no host sync; the pass
+replayed from its CUDA graph equals the eager pass bit for bit; the card's
+float32 pass replayed through the CPU float64 step within
+chip_smoke.py's IVM_GAP_TOL and IVM_STATE_TOL; IvmServer within 1e-4 of
+IVM.predict.
 """
 
 import numpy as np
@@ -43,7 +48,10 @@ from gpc_tpu_torch.ops import evidence_fast as TEF
 from gpc_tpu_torch.ops import gram as TG
 from gpc_tpu_torch.ops import lazy_evidence as TLE
 from gpc_tpu_torch.ops.cuda_lib import LAUNCHES
-from gpc_tpu_torch.serving import GPServer
+from gpc_tpu_torch.models import ivm as TI
+from gpc_tpu_torch.noise import GaussianNoise, NcnmNoise, OrderedNoise, ProbitNoise
+from gpc_tpu_torch.serving import GPServer, IvmServer
+from gpc_tpu_torch.utils.refrng import RefRng
 
 pytestmark = pytest.mark.cuda
 
@@ -840,3 +848,138 @@ def test_batched_gram_equals_2d_launches(dev, family, P):
         assert torch.equal(got[b], kernel(family, p, Xb[b].contiguous(), Xb[b].contiguous()))
     want = plain(family, p, Xb, Xb)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+# --- the IVM -----------------------------------------------------------------
+
+IVM_GAP_TOL, IVM_STATE_TOL = 1e-2, 1e-4      # chip_smoke.py's limits (their reasons there)
+
+
+@pytest.mark.parametrize("family", ["rbf", "matern32", "lin", "poly", "mlp"])
+@pytest.mark.parametrize("n,q", [(4096, 2), (1000, 8)])
+def test_gram_kernels_at_the_selection_column(dev, family, n, q):
+    """K1/K4 at m = 1: the IVM's kernel column k(X, x_index)."""
+    rng = np.random.default_rng(n + q)
+    X = _randn(rng, (n, q), dev)
+    xi = X[5:6].contiguous()
+    if family in TG.FAMILIES:
+        got, want = (TG.dist_gram(family, PARAMS[family], X, xi),
+                     TG.dist_gram_plain(family, PARAMS[family], X, xi))
+    else:
+        got, want = (TG.inner_gram(family, INNER[family], X, xi),
+                     TG.inner_gram_plain(family, INNER[family], X, xi))
+    assert got.shape == (n, 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def _ivm(dev, kind="probit", lead="rbf", N=1024, d=128, selection=TI.ENTROPY, D=1):
+    """An IVM on [0, 1]² data: D outputs (D > 1 gives ncnm and probit one
+    covariance structure an output)."""
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0.0, 1.0, (N, 2))
+    y = np.where(X.sum(axis=1, keepdims=True) > 1.0, 1.0, -1.0)
+    y = np.hstack([y, -y] * D)[:, :D]
+    noise = {"probit": ProbitNoise, "ncnm": NcnmNoise, "gaussian": GaussianNoise,
+             "ordered": OrderedNoise}[kind](D)
+    if kind == "ncnm":
+        y[rng.uniform(size=(N, D)) < 0.8] = 0.0
+    if kind == "gaussian":
+        y = np.sin(4.0 * X[:, :1]) + np.arange(D)
+    if kind == "ordered":
+        y = np.digitize(X[:, :1] + X[:, 1:], [0.7, 1.3]).astype(float)
+    first = {"rbf": TK.Rbf, "lin": TK.Lin}[lead](input_dim=2)
+    kern = TK.Cmpnd(input_dim=2, components=(first, TK.Bias(input_dim=2), TK.White(input_dim=2)))
+    return TI.IVM(kern, noise, X, y, num_active=d, selection=selection, seed=1, device=dev)
+
+
+def test_ivm_runs_on_the_card_by_default(dev):
+    model = _ivm(None, N=300, d=20)
+    st = model.init_and_select()
+    assert model.device.type == "cuda" and st.mu.is_cuda
+
+
+def test_ivm_selection_pass_does_not_sync(dev):
+    """A pass after the one that captured the step, under
+    set_sync_debug_mode("error"): no step (nor the reset, whose draws go
+    through pinned memory) syncs the host.  K1 runs once a step."""
+    model = _ivm(dev, selection=TI.RENTROPY)
+    model.init_and_select()
+    torch.cuda.synchronize()
+    before = LAUNCHES["dist_gram"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = model.init_and_select()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["dist_gram"] == before + 128
+    assert len(set(st.active_idx.cpu().tolist())) == 128
+
+
+@pytest.mark.parametrize("kind,lead,selection,D", [
+    ("probit", "rbf", TI.ENTROPY, 1), ("ncnm", "rbf", TI.ENTROPY, 1),
+    ("gaussian", "lin", TI.ENTROPY, 1), ("ordered", "rbf", TI.ENTROPY, 1),
+    ("ncnm", "rbf", TI.ENTROPY, 2), ("gaussian", "rbf", TI.ENTROPY, 2),
+    ("probit", "rbf", TI.RANDOM, 1), ("probit", "lin", TI.RENTROPY, 2)])
+def test_ivm_graph_pass_equals_eager_pass(dev, kind, lead, selection, D):
+    """The pass replayed from the CUDA graph and the same steps run
+    eagerly on the card give the same state bit for bit, for each noise
+    model, one or two outputs (two covariance structures for ncnm and
+    probit) and each selection criterion."""
+    model = _ivm(dev, kind, lead, selection=selection, D=D)
+    st = model.init_and_select()
+    # the draws of the model's first pass: its MT19937 seeded with 1
+    rng, used = RefRng(1), np.zeros(128)
+    n_draws = {TI.RANDOM: 128, TI.RENTROPY: 1}.get(selection, 0)
+    used[:n_draws] = [rng.rand() for _ in range(n_draws)]
+    sel = TI.Selector(model.spec, model.Xd, model.yd)
+    sel.reset(model.kern_params, model.noise_params, used)
+    with torch.no_grad():
+        for _ in range(128):
+            TI.step(model.spec, sel.c)
+    for name, key in (("active_idx", "idx"), ("m_site", "m_site"), ("beta_site", "beta_site"),
+                      ("mu", "mu"), ("varsigma", "vs"), ("nu", "nu"), ("g", "g")):
+        assert torch.equal(getattr(st, name), sel.c[key]), name
+
+
+@pytest.mark.parametrize("kind", ["probit", "gaussian"])
+def test_ivm_card_pass_matches_cpu_replay(dev, kind):
+    """The card's float32 order through the CPU float64 step: each pick's
+    f64 score within IVM_GAP_TOL of the step's maximum, the moments and
+    sites within IVM_STATE_TOL of each field's largest entry."""
+    model = _ivm(dev, kind)
+    st = model.init_and_select()
+    ref, gaps = TI.replay(model.spec, model.kern_params, model.noise_params,
+                          torch.as_tensor(model.X), torch.as_tensor(model.y),
+                          st.active_idx.cpu().numpy())
+    assert gaps.max() <= IVM_GAP_TOL
+    for name in ("mu", "varsigma", "m_site", "beta_site"):
+        a, b = getattr(st, name).double().cpu(), getattr(ref, name)
+        assert float((a - b).abs().max() / b.abs().max()) <= IVM_STATE_TOL, name
+
+
+@pytest.mark.parametrize("kind", ["probit", "gaussian"])
+def test_ivm_server_on_card_matches_predict(dev, kind):
+    model = _ivm(dev, kind)
+    model.init_and_select()
+    server = IvmServer(model, chunk=512)
+    rng = np.random.default_rng(9)
+    for T in (37, 512, 1000):
+        Xt = rng.uniform(0.0, 1.0, (T, 2))
+        mu, var = server.predict(Xt)
+        want_mu, want_var = model.predict(Xt)
+        assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
+        assert np.abs(var - want_var).max() <= 1e-4 * np.abs(want_var).max()
+
+
+def test_ivm_capture_failure_raises(dev, monkeypatch):
+    """A step that cannot be captured raises; the card never falls back to
+    the eager loop."""
+    model = _ivm(dev, N=300, d=20)
+    real = TI.step
+
+    def syncing_step(spec, c):
+        real(spec, c)
+        float(c["mu"].sum())            # a host read: not allowed while capturing
+    monkeypatch.setattr(TI, "step", syncing_step)
+    with pytest.raises(RuntimeError, match="did not capture in a CUDA graph"):
+        model.init_and_select()
