@@ -43,7 +43,19 @@ CPU float64 step; probit classification through the ivm CLI (learn -k
 rbf, test, class-one-probabilities, predict, display, gnuplot, a learn on
 the default lin, which is K4) against the CPU float64 route; -o ncnm with
 80 % of the labels blanked; an IvmServer; gp gnuplot on a GP model file
-with probit noise; and K1/K4 at the IVM path's shapes.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+with probit noise; and K1/K4 at the IVM path's shapes.  Phase 19, the
+GP-LVM at gpc_tpu's geometry (N = 16384, D = 4, q = 2, bench.py:309-351):
+the objective and value_and_grad under dense, lazy (K5 leaves for the
+objective alone) and panel, against the CPU float64 route on the first
+2048 rows and lazy against dense; panel's bf16 factor on the GP-LVM's own
+latents and, inside its domain, on the latents ×4; 10 SCG iterations under
+lazy; gplvm learn -# 10 / display / gnuplot through the CLI, -c rbf, -I
+rand, -k mlp and the GPDM (-D rbf) at N = 4096, the GPDM also under
+iterative.
+Phase 20, the matrix-free iterative engine at N = 16384: the FTC and the
+GP-LVM evidence and value_and_grad, and the masked form with breaks,
+against float64.  Then K1 at the GP-LVM's shapes and K3 against the plain
+route of its bf16 policy on the GP-LVM's evidence.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
@@ -64,9 +76,11 @@ line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1879,7 +1893,8 @@ def phase_zoo_timing(dev):
     """N = 16384, cmpnd(mlp, bias, white): forward and backward ms of the
     objective under dense and lazy (median of 3), the peak device memory
     above the data, θ̄ lazy vs dense (1e-3 relative L2, both f32), and the
-    forward evidence alone: lazy (Cholesky leaves) and the K5 path."""
+    forward evidence alone: GP.log_likelihood under lazy (which needs no
+    gradient, so it takes K5 leaves) and evidence_left_fast on the K5 path."""
     from gpc_tpu_torch.models.gp import GP
     from gpc_tpu_torch.ops.evidence_fast import evidence_left_fast
     X, y, _ = slice_data()
@@ -1912,6 +1927,433 @@ def phase_zoo_timing(dev):
     log(f"phase 10 evidence N={N} mlp (median of 3): lazy GP.log_likelihood "
         f"{out['lazy_evidence_ms']} ms; evidence_left_fast with K5 leaves {out['k5_path_ms']} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the GP-LVM / GPDM and the matrix-free iterative engine
+# ---------------------------------------------------------------------------
+
+GPLVM_N, GPLVM_D, GPLVM_Q = 16384, 4, 2     # gpc_tpu's GP-LVM record (bench.py:309-351)
+GPLVM_SMALL = 4096                          # the -c rbf, -I rand and GPDM runs
+GPLVM_CPU_ROWS = 2048                       # the CPU float64 route's cut
+PANEL_SPREAD = 4.0    # latents ×4: inside K3's bf16 domain (κ·ε_bf16 < 1 there)
+BREAKS = (0, 5000, 12000)
+
+
+def gplvm_data(n=GPLVM_N):
+    """bench.py's GP-LVM data: Y = tanh(Z·W) + 0.1ε with Z ~ N(0, 1)^(N×2),
+    W ~ N(0, 1)^(2×4) from default_rng(0), as float32 values; and the sign
+    of Z's first column as 0/1 labels (for gnuplot's scatter)."""
+    rng = np.random.default_rng(0)
+    Z = rng.standard_normal((GPLVM_N, GPLVM_Q))
+    W = rng.standard_normal((GPLVM_Q, GPLVM_D))
+    Y = (np.tanh(Z @ W) + 0.1 * rng.standard_normal((GPLVM_N, GPLVM_D))).astype(np.float32)
+    return Y[:n].astype(np.float64), (Z[:n, :1] > 0).astype(np.float64)
+
+
+def gplvm_model(Y, dev, **kw):
+    """cmpnd(rbf, bias, white) at its defaults, PCA init, latents
+    regularised: bench.py's GP-LVM."""
+    from gpc_tpu_torch.models.gplvm import GPLVM
+    return GPLVM(default_kern(GPLVM_Q), Y, latent_dim=GPLVM_Q, device=dev, **kw)
+
+
+def gplvm_vag_split(model, theta=None):
+    """(nlml, θ̄, forward ms, backward ms) of one GP-LVM evaluation."""
+    from gpc_tpu_torch import as_tensor
+    nlml = model.objective()
+    th = as_tensor(model.theta if theta is None else theta, model.device).requires_grad_(True)
+    f, fwd_ms = timed(lambda: nlml(th))
+    (g,), bwd_ms = timed(lambda: torch.autograd.grad(f, th))
+    return float(f.detach()), g.cpu().numpy().astype(np.float64), fwd_ms, bwd_ms
+
+
+def gplvm_f64_nlml(model, theta=None):
+    """The bench model's objective (no dynamics, priors or learned scales;
+    latents regularised) in float64 on the card, dense."""
+    dev = model.device
+    th = torch.as_tensor(model.theta if theta is None else theta, dtype=torch.float64, device=dev)
+    kp, _, Xv, _ = model.spec.unpack(th)
+    m = torch.as_tensor((model.y - model.noise_bias) / model.fixed_scales, dtype=torch.float64,
+                        device=dev)
+    ld, quad, _, L = gplvm_terms_f64(kp, Xv, m)
+    del L
+    return 0.5 * (quad + model.spec.data_dim * ld + float(torch.sum(Xv * Xv)))
+
+
+def gplvm_terms_f64(p, X, m, mask=None):
+    """(logdet, quad, α, L) of cmpnd(rbf, bias, white) at p over X —
+    knocked out to the identity where mask is 0 — in float64 on the card,
+    the Gram from the plain map (K1 takes float32 only)."""
+    from gpc_tpu_torch.ops.gram import dist_gram_plain
+    p64, X64, m64 = (t.double() for t in (p, X, m))
+    K = dist_gram_plain("rbf", p64[:2], X64, X64) + p64[2]
+    if mask is not None:
+        k = mask.double()
+        K = K * k[:, None] * k[None, :]
+        K.diagonal().add_(1.0 - k)
+        K.diagonal().add_(p64[3] * k)
+    else:
+        K.diagonal().add_(p64[3])
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(m64, L)
+    ld = float(2.0 * torch.sum(torch.log(torch.diagonal(L))))
+    return ld, float(torch.sum(m64 * alpha)), alpha, L
+
+
+@contextlib.contextmanager
+def evidence_env(engine, **iter_knobs):
+    """GPC_TPU_EVIDENCE (and GPC_TPU_ITER_* knobs) for a block, restored after."""
+    keys = {"GPC_TPU_EVIDENCE": engine,
+            **{f"GPC_TPU_ITER_{k.upper()}": str(v) for k, v in iter_knobs.items()}}
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_gplvm_cli(argv, engine="dense"):
+    """The port's gplvm CLI in-process under `engine`; its standard output."""
+    from gpc_tpu_torch.cli import gplvm as gplvm_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), evidence_env(engine):
+        gplvm_cli.main(argv)
+    return out.getvalue()
+
+
+def same_numbers(a, b, rtol=1e-12):
+    """The same text around the numbers, the numbers within rtol."""
+    num = r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?"
+    if re.sub(num, "#", a) != re.sub(num, "#", b):
+        return False
+    return np.allclose([float(v) for v in re.findall(num, a)],
+                       [float(v) for v in re.findall(num, b)], rtol=rtol, atol=0.0)
+
+
+def phase_gplvm(dev):
+    """19a: at N = 16384, D = 4, q = 2, the objective alone and
+    value_and_grad (forward and backward ms, median of 3, peak GiB) under
+    dense, lazy and panel, beside the dense float64 objective.  Held: the
+    card against the port's CPU float64 route on the first 2048 rows
+    (objective 1e-4, θ̄ 1e-3 relative L2; dense and lazy); lazy against
+    dense at N = 16384 (1e-4, 1e-3).  Panel's bf16 factor fails on the
+    GP-LVM's own latents (phase_gplvm_kernels holds K3 to the plain route
+    of its bf16 policy there); with the latents ×4, inside its domain, the
+    panel objective is held to gpc_tpu's panel bound 2e-3 of float64 and
+    θ̄ to 8e-2 of dense.  19b: 10 SCG iterations under lazy, ms per
+    iteration, the objective never rising."""
+    Y, _ = gplvm_data()
+    model = gplvm_model(Y, dev)
+    out, grads, vals = {}, {}, {}
+    f64 = gplvm_f64_nlml(model)
+    for engine in ("dense", "lazy", "panel"):
+        with evidence_env(engine):
+            obj, obj_ms = timed(lambda: -model.log_likelihood())
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            runs = [gplvm_vag_split(model) for _ in range(3)]
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        vals[engine], grads[engine] = runs[0][0], runs[0][1]
+        fwd = float(np.median([r[2] for r in runs]))
+        bwd = float(np.median([r[3] for r in runs]))
+        gap = abs(vals[engine] - f64) / abs(f64)
+        out[engine] = dict(objective_ms=obj_ms, forward_ms=fwd, backward_ms=bwd, peak_gib=peak_gib,
+                           nlml=vals[engine], objective_alone=obj, rel_to_f64=gap)
+        log(f"phase 19 GP-LVM N={GPLVM_N} D={GPLVM_D} q={GPLVM_Q} {engine}: objective alone "
+            f"{obj} ({obj_ms} ms); value_and_grad (median of 3) forward {fwd} ms, backward {bwd} "
+            f"ms, nlml {vals[engine]}, peak above the data {peak_gib} GiB; dense float64 {f64} "
+            f"(rel {gap})")
+        torch.cuda.empty_cache()
+    for engine in ("dense", "lazy"):
+        check(np.isfinite(vals[engine]) and np.isfinite(grads[engine]).all(),
+              f"GP-LVM {engine} value_and_grad not finite")
+    rel_v = abs(vals["lazy"] - vals["dense"]) / abs(vals["dense"])
+    rel_g = rel_l2(grads["lazy"], grads["dense"])
+    check(rel_v < 1e-4 and rel_g < 1e-3, f"GP-LVM lazy vs dense at N={GPLVM_N}: value rel "
+                                         f"{rel_v}, θ̄ rel L2 {rel_g}")
+    log(f"phase 19 GP-LVM lazy vs dense at N={GPLVM_N}: value rel {rel_v}, θ̄ rel L2 {rel_g}")
+
+    # the card against the CPU float64 route on the first rows
+    Yc = Y[:GPLVM_CPU_ROWS]
+    cpu = gplvm_model(Yc, "cpu")
+    for engine in ("dense", "lazy"):
+        with evidence_env(engine):
+            f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+            card = gplvm_model(Yc, dev)
+            f, g = card.value_and_grad_fn()(card.theta)
+        rv, rg = abs(f - f_ref) / abs(f_ref), rel_l2(g, g_ref)
+        check(rv < 1e-4 and rg < 1e-3, f"GP-LVM {engine} on the card vs CPU f64 at "
+                                       f"N={GPLVM_CPU_ROWS}: value rel {rv}, θ̄ rel L2 {rg}")
+        log(f"phase 19 GP-LVM N={GPLVM_CPU_ROWS} {engine}: card {f} vs CPU f64 {f_ref} "
+            f"(rel {rv}), θ̄ rel L2 {rg}")
+
+    theta_s = model.theta.copy()
+    theta_s[model.spec.kern.n_params:] *= PANEL_SPREAD
+    f64_s = gplvm_f64_nlml(model, theta_s)
+    sg = {}
+    for engine in ("dense", "panel"):
+        with evidence_env(engine):
+            runs = [gplvm_vag_split(model, theta_s) for _ in range(3)]
+        sg[engine] = runs[0][:2]
+        out[f"{engine}_spread"] = dict(forward_ms=float(np.median([r[2] for r in runs])),
+                                       backward_ms=float(np.median([r[3] for r in runs])),
+                                       nlml=runs[0][0])
+        torch.cuda.empty_cache()
+    gap = abs(sg["panel"][0] - f64_s) / abs(f64_s)
+    rel_p = rel_l2(sg["panel"][1], sg["dense"][1])
+    check(gap <= 2e-3 and rel_p < 8e-2, f"panel GP-LVM at latents x{PANEL_SPREAD}: objective "
+                                         f"rel {gap} to float64, θ̄ rel L2 {rel_p} to dense")
+    log(f"phase 19 panel GP-LVM value_and_grad at latents x{PANEL_SPREAD}: nlml {sg['panel'][0]} "
+        f"vs float64 {f64_s} (rel {gap}), dense f32 {sg['dense'][0]}; θ̄ vs dense rel L2 "
+        f"{rel_p}; ms {out['panel_spread']}")
+
+    # 19b: SCG under lazy
+    objs, marks = [], []
+
+    def on_checkpoint(it, st):
+        marks.append(time.perf_counter())
+        objs.append(float(st["old_obj"]))
+
+    from gpc_tpu_torch.optim import scg_checkpointed
+    with evidence_env("lazy"):
+        vag = model.value_and_grad_fn()
+        marks.append(time.perf_counter())
+        res = scg_checkpointed(vag, model.theta, max_iters=10, ckpt_every=1,
+                               on_checkpoint=on_checkpoint)
+    per_iter = np.diff(marks).tolist()
+    check(res.iters == 10 and all(b <= a for a, b in zip([vals["lazy"]] + objs, objs)),
+          f"GP-LVM lazy SCG: the objective rose or stopped early: {objs}")
+    out["scg_lazy"] = dict(objective=[vals["lazy"]] + objs, ms_per_iteration=float(
+        np.median(per_iter) * 1e3), iterations=res.iters)
+    log(f"phase 19 GP-LVM SCG under lazy, 10 iterations: objective {vals['lazy']} -> {objs}; "
+        f"ms per iteration {[t * 1e3 for t in per_iter]}")
+    return out
+
+
+def phase_gplvm_cli(dev, workdir):
+    """19c: gplvm learn -# 10 under lazy on the 16384-row SVM-light file,
+    display and gnuplot (80 × 80); the learned file read back gives
+    log-likelihood = −(final objective) within 1e-4.  Then -c rbf (bK from
+    K1 over Y), -I rand and -k mlp (K4) at N = 4096.  19d: GPDM, -D rbf at N = 4096
+    under dense, and the learned model's objective under iterative (the
+    masked engine for dynK) within gpc_tpu's 0.1 (tests/test_iterative.py:331)."""
+    from gpc_tpu_torch.io import model_io
+    from gpc_tpu_torch.io.svml import write_svml
+    out = {}
+    Y, labels = gplvm_data()
+    data = os.path.join(workdir, "gplvm.svml")
+    write_svml(data, Y, labels)
+    model_file = os.path.join(workdir, "gplvm_model")
+    text, ms = timed(lambda: run_gplvm_cli(["-s", "1", "learn", "-#", "10", data, model_file],
+                                           "lazy"))
+    final, iters = learned(text)
+    check(iters == 10 and np.isfinite(final), f"gplvm learn: {iters} iterations, {final}")
+    shown = run_gplvm_cli(["display", model_file])
+    check(same_numbers(shown.strip(), "\n".join(text.splitlines()[:len(shown.splitlines())])),
+          "gplvm display disagrees with learn's summary")
+    with evidence_env("lazy"):
+        back, lab = model_io.read_gplvm(model_file, device=dev)
+        ll = back.log_likelihood()
+    rel = abs(ll + final) / abs(final)
+    check(rel <= 1e-4 and lab is not None and len(lab) == GPLVM_N,
+          f"read-back log-likelihood {ll} vs -{final}: rel {rel}")
+    name = os.path.join(workdir, "gp16k")
+    _, gn_ms = timed(lambda: run_gplvm_cli(["gnuplot", model_file, name]))
+    grid = np.loadtxt(f"{name}_variance_matrix.dat")
+    check(grid.shape == (80 * 80, 3) and np.isfinite(grid).all(), "gplvm gnuplot grid")
+    check(os.path.exists(f"{name}_latent_data0.dat") and os.path.exists(f"{name}_plot.gp"),
+          "gplvm gnuplot files")
+    out["learn16k"] = dict(cli_ms=ms, final=final, read_back=ll, gnuplot_ms=gn_ms)
+    log(f"phase 19 gplvm CLI N={GPLVM_N} under lazy: learn -# 10 objective -> {final} ({ms} ms "
+        f"CLI wall); read back log-likelihood {ll} (rel {rel}); gnuplot 80x80 {gn_ms} ms")
+
+    Ys, ls = gplvm_data(GPLVM_SMALL)
+    small = os.path.join(workdir, "gplvm4k.svml")
+    write_svml(small, Ys, ls)
+    for tag, flags in (("back_rbf", ["-c", "rbf"]), ("rand", ["-I", "rand"]),
+                       ("mlp", ["-k", "mlp"]), ("gpdm", ["-D", "rbf"])):
+        path = os.path.join(workdir, f"m_{tag}")
+        text, ms = timed(lambda: run_gplvm_cli(["-s", "3", "learn", "-#", "5"] + flags
+                                               + [small, path], "dense"))
+        final, iters = learned(text)
+        with evidence_env("dense"):
+            back, _ = model_io.read_gplvm(path, device=dev)
+            ll = back.log_likelihood()
+        rel = abs(ll + final) / abs(final)
+        check(iters == 5 and rel <= 1e-4, f"gplvm learn {flags} N={GPLVM_SMALL}: objective "
+                                          f"{final}, read back {ll} (rel {rel})")
+        out[tag] = dict(cli_ms=ms, final=final, read_back=ll)
+        log(f"phase 19 gplvm CLI N={GPLVM_SMALL} {' '.join(flags)}: learn -# 5 objective -> "
+            f"{final} ({ms} ms CLI wall), read back {ll} (rel {rel})")
+    # 19d: the GPDM's objective under iterative (latent and masked dynamics
+    # engines) against dense
+    with evidence_env("dense"):
+        f_d, g_d, _, _ = gplvm_vag_split(back)
+    with evidence_env("iterative"):
+        (f_i, g_i, fwd, bwd) = gplvm_vag_split(back)
+    rel = abs(f_i - f_d) / abs(f_d)
+    check(np.isfinite(g_i).all() and rel < 0.1, f"GPDM iterative vs dense: rel {rel}")
+    out["gpdm_iterative"] = dict(dense=f_d, iterative=f_i, rel=rel, forward_ms=fwd,
+                                 backward_ms=bwd)
+    log(f"phase 19 GPDM N={GPLVM_SMALL} -D rbf: objective dense {f_d}, iterative {f_i} (rel "
+        f"{rel}); iterative value_and_grad forward {fwd} ms, backward {bwd} ms")
+    return out
+
+
+def iterative_check(tag, kern, p, X, m, mask=None):  # noqa: C901
+    """One iterative evidence at full size against float64: quad within
+    the bound its CG residual gives (|mᵀK⁻¹r| ≤ Σⱼ‖αⱼ‖‖rⱼ‖, with r the
+    true residual of the CG iterate, plus float32 rounding of the sum) and
+    logdet within 0.05 relative (tests/test_iterative.py:120).  Returns the
+    record: values, the achieved relative residual, CG iterations, ms and
+    K1 launches."""
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.ops import iterative as TI
+    before = cuda_lib.LAUNCHES["dist_gram"]
+    with torch.no_grad():
+        if mask is None:
+            (ld, quad), ms = timed(lambda: TI.kern_evidence_iterative(kern, p, X, m))
+        else:
+            (ld, quad), ms = timed(lambda: TI.kern_evidence_iterative_masked(kern, p, X, m, mask))
+    launches = cuda_lib.LAUNCHES["dist_gram"] - before
+    sol = TI.LAST_SOLVE
+    D = m.shape[1]
+    ld, quad = float(ld), float(quad)
+    ld64, q64, alpha, L = gplvm_terms_f64(p, X, m, mask)
+    x = sol.x[:, :D].double()
+    K_x = L @ (L.T @ x)
+    r = m.double() - K_x
+    del L, K_x
+    bound_q = float(torch.sum(torch.linalg.vector_norm(alpha, dim=0)
+                              * torch.linalg.vector_norm(r, dim=0)))
+    slack = 1e-5 * abs(q64)
+    rel_res = float(torch.max(torch.linalg.vector_norm(r, dim=0)
+                              / torch.linalg.vector_norm(m.double(), dim=0)))
+    rel_ld = abs(ld - ld64) / abs(ld64)
+    check(abs(quad - q64) <= bound_q + slack and rel_ld < 0.05,
+          f"iterative {tag}: quad {quad} vs {q64} (bound {bound_q} + {slack}), logdet {ld} vs "
+          f"{ld64} (rel {rel_ld})")
+    rec = dict(logdet=ld, quad=quad, logdet_f64=ld64, quad_f64=q64, rel_logdet=rel_ld,
+               quad_err=abs(quad - q64), quad_bound=bound_q, rel_residual=rel_res,
+               cg_iters=int(sol.iters), ms=ms, k1_launches=launches)
+    log(f"phase 20 iterative {tag}: {json.dumps(rec)}")
+    return rec
+
+
+def phase_iterative(dev):
+    """20: the matrix-free engine at N = 16384 (row blocks 2048 × 16384,
+    the defaults: 16 SLQ probes of 32 Lanczos steps, 16 trace probes, 256
+    CG iterations, which float32 runs to the end): the FTC evidence
+    (cmpnd(rbf, bias, white), the slice's q = 8 data) and the GP-LVM's
+    (q = 2 PCA latents), each against float64 (iterative_check) with its
+    value_and_grad timed (the GP-LVM's with its peak memory); then the
+    masked form (the GP-LVM's dynamics Gram with breaks at 0, 5000, 12000)."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.models.gplvm import _break_mask, _xout
+    out = {}
+    X, y, _ = slice_data()
+    gp = GP(default_kern(Q), X, y, device=dev)
+    theta, Xd, yd, bias, scales = gp._args()
+    _, kp, _, _ = gp.spec.unpack(theta)
+    out["ftc"] = iterative_check("FTC N=16384 q=8", gp.spec.kern, kp, Xd, (yd - bias) / scales)
+    with evidence_env("iterative"):
+        f, g, fwd, bwd = value_and_grad_split(gp)
+    check(np.isfinite(f) and np.isfinite(g).all(), "FTC iterative value_and_grad")
+    out["ftc"].update(vag_forward_ms=fwd, vag_backward_ms=bwd, nlml=f)
+    del gp
+    torch.cuda.empty_cache()
+
+    Y, _ = gplvm_data()
+    model = gplvm_model(Y, dev)
+    kp, _, Xv, _ = model.spec.unpack(as_tensor(model.theta, dev))
+    m = as_tensor((Y - model.noise_bias) / model.fixed_scales, dev)
+    out["gplvm"] = iterative_check("GP-LVM N=16384 q=2", model.spec.kern, kp, Xv, m)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with evidence_env("iterative"):
+        f, g, fwd, bwd = gplvm_vag_split(model)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(np.isfinite(f) and np.isfinite(g).all(), "GP-LVM iterative value_and_grad")
+    out["gplvm"].update(vag_forward_ms=fwd, vag_backward_ms=bwd, nlml=f, peak_gib=peak_gib)
+    spec = dataclasses.replace(model.spec, dyn_kern=default_kern(GPLVM_Q), dyn_breaks=BREAKS)
+    out["masked"] = iterative_check(f"masked, breaks {BREAKS}", spec.dyn_kern, kp, Xv,
+                                    _xout(spec, Xv), _break_mask(spec, Xv))
+    log(f"phase 20 value_and_grad under iterative: FTC forward {out['ftc']['vag_forward_ms']} "
+        f"ms, backward {out['ftc']['vag_backward_ms']} ms; GP-LVM forward {fwd} ms, backward "
+        f"{bwd} ms, peak above the data {peak_gib} GiB")
+    return out
+
+
+def phase_gplvm_kernels(dev, rng):
+    """K1 rbf at the GP-LVM's shapes (q = 2): the 16384² Gram and the
+    iterative engine's 2048 × 16384 row block, against the plain version
+    (rtol 1e-5) and timed in turns.  K3 on the GP-LVM's evidence (the
+    bias-split right-hand side [m | 1] over the PCA latents, and over the
+    latents ×4) against the plain route of its bf16 policy
+    (probes/chol_mega's): the two must agree in whether the bf16 factor
+    holds, and where it holds within 1e-3 (K7's bound against the same
+    route); the gap to float64 printed."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf
+    from gpc_tpu_torch.ops.gram import dist_gram, dist_gram_plain
+    from gpc_tpu_torch.probes.chol_mega import evidence_mega_rbf_plain
+    Y, _ = gplvm_data()
+    model = gplvm_model(Y, dev)
+    # panel: K3 against the plain route of its bf16 policy, on the GP-LVM's
+    # latents and on the latents ×4
+    kp, _, Xv, _ = model.spec.unpack(as_tensor(model.theta, dev))
+    m = as_tensor((Y - model.noise_bias) / model.fixed_scales, dev)
+    rhs = torch.cat([m, torch.ones((GPLVM_N, 1), device=dev)], dim=1).contiguous()
+    kp0 = kp * torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)   # K₀: the bias split off
+    panel = {}
+    for spread in (1.0, PANEL_SPREAD):
+        X = (Xv * spread).contiguous()
+        args = (X, rhs, float(kp[0]), float(kp[1]), float(kp[3]))
+        ld3, G3, _, _ = panel_state_rbf(*args)
+        ld3, q3 = float(ld3), float(torch.trace(G3))
+        ldp, qp = (float(v) for v in evidence_mega_rbf_plain(*args))
+        ld64, q64, _, L = gplvm_terms_f64(kp0, X, rhs)
+        del L
+        fin3, finp = np.isfinite([ld3, q3]).all(), np.isfinite([ldp, qp]).all()
+        panel[spread] = dict(k3=[ld3, q3], bf16_plain=[ldp, qp], f64=[ld64, q64])
+        log(f"phase 19 panel GP-LVM evidence (logdet₀, quad of [m | 1]), latents x{spread}: K3 "
+            f"{ld3} {q3}; plain route of the bf16 policy {ldp} {qp}; float64 {ld64} {q64} (gap "
+            f"to float64 {abs(ld3 - ld64) / abs(ld64)}, {abs(q3 - q64) / abs(q64)})")
+        check(fin3 == finp, f"K3 and the plain bf16 route disagree on whether the factor holds "
+                            f"at latents x{spread}: {ld3} {q3} vs {ldp} {qp}")
+        if fin3:
+            err = max(abs(ld3 - ldp) / abs(ldp), abs(q3 - qp) / abs(qp))
+            check(err <= 1e-3, f"K3 vs the plain bf16 route at latents x{spread}: rel {err}")
+        torch.cuda.empty_cache()
+    check(np.isfinite(panel[PANEL_SPREAD]["k3"]).all(),
+          f"K3 not finite inside its domain (latents x{PANEL_SPREAD})")
+
+    p = torch.tensor([1.0, 1.0], device=dev)
+    res = {}
+    for n, mm in ((GPLVM_N, GPLVM_N), (2048, GPLVM_N)):
+        A = torch.tensor(rng.standard_normal((n, GPLVM_Q)), dtype=torch.float32, device=dev)
+        B = A if n == mm else torch.tensor(rng.standard_normal((mm, GPLVM_Q)),
+                                           dtype=torch.float32, device=dev)
+        got, want = dist_gram("rbf", p, A, B), dist_gram_plain("rbf", p, A, B)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"K1 at {n}x{mm} q=2: {err}")
+        del got, want
+        ms, plain_ms = paired_ms(lambda: dist_gram("rbf", p, A, B),
+                                 lambda: dist_gram_plain("rbf", p, A, B), 10)
+        bound_ms, bound_by = k1_bound(n, mm, GPLVM_Q)
+        res[f"{n}x{mm}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+        torch.cuda.empty_cache()
+    log(f"phase 19 K1 rbf at the GP-LVM shapes (q = 2): {json.dumps(res)}")
+    return res, {str(k): v for k, v in panel.items()}
 
 
 def main():
@@ -1990,6 +2432,31 @@ def main():
                                                  "IVM path")
         log("ivm: " + json.dumps(dict(selection=ivm_select, cli=ivm_cli)))
         torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        gplvm = phase_gplvm(dev)
+        torch.cuda.empty_cache()
+        gplvm_cli = phase_gplvm_cli(dev, workdir)
+        gplvm_launches = dict(cuda_lib.LAUNCHES)
+        log(f"GP-LVM-path launches: {gplvm_launches}")
+        for name in ("dist_gram", "inner_gram", "chol_inv_block", "panel_leaf_diag",
+                     "panel_corr"):
+            check(gplvm_launches.get(name, 0) > 0, f"kernel {name} was not launched on the "
+                                                   "GP-LVM path")
+        log("gplvm: " + json.dumps(dict(model=gplvm, cli=gplvm_cli)))
+        torch.cuda.empty_cache()
+
+    cuda_lib.LAUNCHES.clear()
+    iterative = phase_iterative(dev)
+    iter_launches = dict(cuda_lib.LAUNCHES)
+    log(f"iterative-path launches: {iter_launches}")
+    check(iter_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on the "
+                                                 "iterative path")
+    log("iterative: " + json.dumps(iterative))
+    torch.cuda.empty_cache()
+    gplvm_k, gplvm_panel = phase_gplvm_kernels(dev, rng)
+    log("gplvm panel evidence: " + json.dumps(gplvm_panel))
+    torch.cuda.empty_cache()
     sparse_k = phase_sparse_kernels(dev, rng)
     ivm_k = phase_ivm_kernels(dev, rng)
     torch.cuda.empty_cache()
@@ -2031,7 +2498,9 @@ def main():
         dict(name="dist_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:89", launches=launches["dist_gram"], **k1,
              **at_sparse["dist_gram"], ftc_optimiser_launches=opt_launches["dist_gram"],
-             ivm_launches=ivm_launches["dist_gram"], ivm_shapes=ivm_k["dist_gram"]),
+             ivm_launches=ivm_launches["dist_gram"], ivm_shapes=ivm_k["dist_gram"],
+             gplvm_launches=gplvm_launches["dist_gram"],
+             iterative_launches=iter_launches["dist_gram"], gplvm_shapes=gplvm_k),
         dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
                       "K1's batch axis)",
@@ -2045,14 +2514,18 @@ def main():
         dict(name="panel_state_rbf_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:598",
              launches=train_launches["panel_leaf_diag"],
-             corr_launches=train_launches["panel_corr"], **k3d),
+             corr_launches=train_launches["panel_corr"],
+             gplvm_launches=gplvm_launches["panel_leaf_diag"],
+             gplvm_corr_launches=gplvm_launches["panel_corr"], **k3d),
         dict(name="inner_gram", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4,
              **at_sparse["inner_gram"], ivm_launches=ivm_launches["inner_gram"],
+             gplvm_launches=gplvm_launches["inner_gram"],
              ivm_shapes=ivm_k["inner_gram"]),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
-             launches=ragged_launches["chol_inv_block"], **k5),
+             launches=ragged_launches["chol_inv_block"],
+             gplvm_launches=gplvm_launches["chol_inv_block"], **k5),
         dict(name="chol_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:88", launches=k6_launches["chol_block"], **k6),
         dict(name="evidence_mega_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_mega.cu",

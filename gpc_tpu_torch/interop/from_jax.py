@@ -1,5 +1,11 @@
 """Carry a gpc_tpu model's parameters into the port.
 
+`gplvm_from_jax(model)` rebuilds a port `GPLVM` from a gpc_tpu GPLVM read
+through its attributes: θ, the spec's flags (latent dimension, dynamics
+and whether they are learnt, back constraints, learn_scales,
+regularisation, dynamic scaling, sequence breaks), the kernel and dynamics
+kernel, bK, the bias and the scales, all as numpy.
+
 `ivm_from_jax(kern_desc, noise_desc, X, y, num_active, ...)` rebuilds a
 port `IVM` the same way: the kernel and the noise model (its kind and
 extras: output_dim, split_gamma, num_categories, width, sigma2) read through
@@ -24,6 +30,7 @@ import numpy as np
 from gpc_tpu_torch import kernels as KM
 from gpc_tpu_torch import noise as NZ
 from gpc_tpu_torch.models.gp import FTC, GP
+from gpc_tpu_torch.models.gplvm import GPLVM
 from gpc_tpu_torch.models.ivm import ENTROPY, IVM, restored_state
 from gpc_tpu_torch.priors import Prior
 
@@ -92,3 +99,28 @@ def ivm_from_jax(kern_desc, noise_desc, X, y, num_active: int, kern_params, nois
     if active_idx is not None:
         model.state = restored_state(model, active_idx, m_site, beta_site)
     return model
+
+
+def gplvm_from_jax(model, device=None) -> GPLVM:
+    """A port GPLVM holding a gpc_tpu GPLVM's θ, flags, kernels, bK and
+    preprocessing, on `device` (None: the card; "cpu" for the CPU)."""
+    spec = model.spec
+    y = np.asarray(model.y, dtype=np.float64)
+    bK = None if model.bK is None else np.asarray(model.bK, dtype=np.float64)
+    dyn = None if spec.dyn_kern is None else kern_from_desc(spec.dyn_kern)
+    dpf = None if model.dyn_params_fixed is None else np.asarray(model.dyn_params_fixed,
+                                                                 dtype=np.float64)
+    out = GPLVM(kern_from_desc(spec.kern), y, latent_dim=spec.latent_dim, dyn_kern=dyn,
+                dyn_kern_params=dpf, dyn_kern_learnt=spec.dyn_kern_learnt,
+                back_kernel_matrix=bK, centre=False, learn_scales=spec.learn_scales,
+                latent_regularised=spec.latent_regularised,
+                dynamic_scaling=float(spec.dynamic_scaling) != 1.0,
+                dyn_breaks=spec.dyn_breaks, init="rand", device=device)
+    theta = np.asarray(model.theta, dtype=np.float64).reshape(-1)
+    if theta.shape[0] != out.spec.n_params():
+        raise ValueError(f"theta has {theta.shape[0]} entries, the model "
+                         f"{out.spec.n_params()}")
+    out.theta = theta.copy()
+    out.noise_bias = np.asarray(model.noise_bias, dtype=np.float64).reshape(-1)
+    out.fixed_scales = np.asarray(model.fixed_scales, dtype=np.float64).reshape(-1)
+    return out

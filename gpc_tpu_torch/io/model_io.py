@@ -5,9 +5,10 @@ Reader and Writer, prior blocks, kernels of every kind (poly's degree
 field, cmpnd and tensor), the noise blocks of every type (ncnm's
 gammaSplit, ordered's numCategories), read_gp/write_gp with the sparse
 blocks (β as an N × D matrix, fixInducing and the inducing inputs) and the
-noise type a GP file carries, and read_ivm/write_ivm with the active set
-and the sites.  Files are byte-compatible with gpc_tpu's: each package
-loads what the other writes.
+noise type a GP file carries, read_ivm/write_ivm with the active set
+and the sites, and read_gplvm/write_gplvm with the latent kernel, the
+dynamics kernel, the scale-noise block and the Y/X data block.  Files are
+byte-compatible with gpc_tpu's: each package loads what the other writes.
 """
 
 from __future__ import annotations
@@ -422,3 +423,87 @@ def read_ivm(path, X=None, y=None, device=None):
                 noise_params=nparams, device=device)
     model.state = restored_state(model, active, m_site, beta_site)
     return model
+
+
+# ---------------------------------------------------------------------------
+# GP-LVM model files (CGplvm::writeParamsToStream, CGplvm.cpp)
+# ---------------------------------------------------------------------------
+
+def write_gplvm(path, model, labels=None, comment: str = ""):
+    """model: gpc_tpu_torch.models.gplvm.GPLVM.  The format header, the
+    kernel, the dynamics kernel (if any), the scale noise and the Y/X data
+    block, as gpc_tpu writes them: `dynamicsLearnt` carries whether the
+    model has dynamics, and a row without labels ends in a space."""
+    spec = model.spec
+    w = Writer()
+    if comment:
+        w.buf.write(f"# {comment}\n")
+    w.version()
+    w.field("baseType", "dataModel")
+    w.field("type", "gplvm")
+    w.field("numData", spec.n_data)
+    w.field("outputDim", spec.data_dim)
+    w.field("inputDim", spec.latent_dim)
+    w.field("latentRegularised", spec.latent_regularised)
+    w.field("backConstrained", spec.back_constrained)
+    w.field("dynamicsLearnt", spec.has_dynamics)
+    write_kern(w, spec.kern, model.kern_params())
+    if spec.has_dynamics:
+        write_kern(w, spec.dyn_kern, model.dyn_kern_params())
+    # scale noise: params [bias×D, scale×D] (CScaleNoise::getParams)
+    write_noise(w, "scale", np.concatenate([model.noise_bias, model.scales()]),
+                spec.data_dim)
+    header = f"Y:{spec.data_dim},X:{spec.latent_dim}"
+    if labels is not None:
+        header += ",labels:1"
+    w.buf.write(header + "\n")
+    X = model.latent_X()
+    y = np.asarray(model.y)
+    for i in range(spec.n_data):
+        row = " ".join(f"{v:.17e}" for v in y[i]) + " " + " ".join(f"{v:.17e}" for v in X[i])
+        if labels is not None:
+            row += f" {int(labels[i])}"
+        w.buf.write(row + " \n" if labels is None else row + "\n")
+    with open(path, "w") as f:
+        f.write(w.text())
+
+
+def read_gplvm(path, device=None):
+    """Load a gplvm model file: (GPLVM on `device` (None: the card), labels
+    or None).  The stored latents become free parameters: the reference
+    does not serialize back-constraint information either."""
+    from gpc_tpu_torch.models.gplvm import GPLVM
+
+    with open(path) as f:
+        r = Reader(f.read())
+    r.version()
+    if r.field("baseType") != "dataModel" or r.field("type") != "gplvm":
+        raise ValueError("not a gplvm model file")
+    n_data = r.int_("numData")
+    data_dim = r.int_("outputDim")
+    latent_dim = r.int_("inputDim")
+    latent_reg = r.bool_("latentRegularised")
+    r.bool_("backConstrained")
+    dyn = r.bool_("dynamicsLearnt")
+    kern, kern_params = read_kern(r)
+    dyn_kern, dyn_params = read_kern(r) if dyn else (None, None)
+    _ntype, nparams, _, _ = read_noise(r)
+    has_labels = "labels:1" in r.line()
+    Y = np.zeros((n_data, data_dim))
+    X = np.zeros((n_data, latent_dim))
+    labels = [] if has_labels else None
+    for i in range(n_data):
+        toks = r.line().split()
+        Y[i] = [float(t) for t in toks[:data_dim]]
+        X[i] = [float(t) for t in toks[data_dim:data_dim + latent_dim]]
+        if has_labels:
+            labels.append(int(float(toks[data_dim + latent_dim])))
+    # init="rand" skips PCA: theta, with the stored latents, is set below
+    model = GPLVM(kern, Y, latent_dim=latent_dim, dyn_kern=dyn_kern,
+                  dyn_kern_params=dyn_params, centre=False,
+                  latent_regularised=latent_reg, init="rand", device=device)
+    model.noise_bias = nparams[:data_dim]
+    model.fixed_scales = nparams[data_dim:]
+    model.theta = model.spec.pack(
+        kern_params, X, dyn_params=dyn_params if (dyn and model.spec.dyn_kern_learnt) else None)
+    return model, (np.asarray(labels) if has_labels else None)

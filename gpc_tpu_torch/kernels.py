@@ -22,7 +22,10 @@ inner-product family (lin, poly, mlp) through K4 (ops/gram.inner_gram): on
 a CUDA tensor the kernel, on the CPU its plain version; both differentiate
 in p, X1 and X2.  The ARD forms scale the inputs by √s in plain tensor code
 before the kernel, so autograd reaches the scales s.  `diag` is plain
-PyTorch.  get/set_variance (the GP-LVM's) are not ported yet.
+PyTorch.  get_variance / set_variance (the GPDM's SNR scaling, CKern.h:
+489-498) read and replace the variance entry of a leaf functionally, and
+cmpnd and tensor rescale their children (see `Cmpnd.set_variance` for the
+one deviation from gpc_tpu).
 """
 
 from __future__ import annotations
@@ -76,6 +79,24 @@ class Kern:
         """White variance on the kernel's own symmetric diagonal."""
         return torch.zeros((), dtype=p.dtype, device=p.device)
 
+    # index of a leaf's variance in p (None: no variance parameter)
+    _variance_index = None
+
+    def get_variance(self, p):
+        """The kernel's variance (CKern::getVariance)."""
+        if self._variance_index is None:
+            raise NotImplementedError(f"getVariance not defined for {self.kind}")
+        return p[self._variance_index]
+
+    def set_variance(self, p, val):
+        """p with the variance replaced by `val` (CKern::setVariance), out
+        of place."""
+        if self._variance_index is None:
+            raise NotImplementedError(f"setVariance not defined for {self.kind}")
+        out = p.clone()
+        out[self._variance_index] = val
+        return out
+
     def gram(self, p, X):
         """Symmetric Gram: compute + diagonal overwrite (CKern.h:128-144).
         The diagonal goes in out of place, so autograd may save compute's
@@ -108,6 +129,8 @@ def _cross_shape(X1, X2):
 @dataclasses.dataclass(frozen=True)
 class White(Kern):
     """k = δ_ij·σ²; zero everywhere in cross-compute."""
+
+    _variance_index = 0
 
     @property
     def kind(self):
@@ -169,10 +192,22 @@ class WhiteFixed(Kern):
     def white(self, p):
         return torch.tensor(self.fixed_variance, dtype=p.dtype, device=p.device)
 
+    def get_variance(self, p):
+        return torch.tensor(self.fixed_variance, dtype=p.dtype, device=p.device)
+
+    def set_variance(self, p, val):
+        # the variance is structural (not in p); Cmpnd.set_variance routes
+        # around it
+        raise ValueError(
+            "whitefixed variance is structural, not a parameter: rebuild "
+            "with dataclasses.replace(kern, fixed_variance=...)")
+
 
 @dataclasses.dataclass(frozen=True)
 class Bias(Kern):
     """k = σ² everywhere."""
+
+    _variance_index = 0
 
     @property
     def kind(self):
@@ -203,6 +238,8 @@ class Bias(Kern):
 class Rbf(Kern):
     """k = σ²·exp(−γ/2·‖x−x'‖²); params [inverseWidth γ, variance σ²]."""
 
+    _variance_index = 1
+
     @property
     def kind(self):
         return "rbf"
@@ -230,6 +267,8 @@ class Rbf(Kern):
 @dataclasses.dataclass(frozen=True)
 class _Stationary2(Kern):
     """A distance-family leaf with params [p0, variance] (exp, matern32/52)."""
+
+    _variance_index = 1
 
     @property
     def n_params(self):
@@ -288,6 +327,8 @@ class Matern52(_Stationary2):
 class RatQuad(Kern):
     """k = σ²·(1 + r²/(2αℓ²))^(−α); params [alpha, lengthScale, variance]."""
 
+    _variance_index = 2
+
     @property
     def kind(self):
         return "ratquad"
@@ -325,6 +366,8 @@ def _mlp_diag(p, sq):
 class Lin(Kern):
     """k = σ²·xᵀx'; params [variance]; non-stationary."""
 
+    _variance_index = 0
+
     @property
     def kind(self):
         return "lin"
@@ -358,6 +401,8 @@ class Mlp(Kern):
     """Williams' arcsin kernel σ²·asin((w·xᵀx'+b)/√((w‖x‖²+b+1)(w‖x'‖²+b+1)));
     params [weightVariance, biasVariance, variance]."""
 
+    _variance_index = 2
+
     @property
     def kind(self):
         return "mlp"
@@ -390,6 +435,8 @@ class Mlp(Kern):
 class Poly(Kern):
     """k = σ²·(w·xᵀx'+b)^d; the degree d is static (written to the model
     file, not trained); params [weightVariance, biasVariance, variance]."""
+
+    _variance_index = 2
 
     degree: float = 2.0
 
@@ -443,6 +490,8 @@ class _ArdMixin:
 class Linard(_ArdMixin, Kern):
     """ARD linear σ²·Σᵢ sᵢxᵢx'ᵢ; params [variance, inputScale×D]."""
 
+    _variance_index = 0
+
     @property
     def kind(self):
         return "linard"
@@ -476,6 +525,8 @@ class Rbfard(_ArdMixin, Kern):
     """ARD rbf σ²·exp(−γ/2·Σᵢ sᵢ(xᵢ−x'ᵢ)²); params [inverseWidth, variance,
     inputScale×D]."""
 
+    _variance_index = 1
+
     @property
     def kind(self):
         return "rbfard"
@@ -504,6 +555,8 @@ class Rbfard(_ArdMixin, Kern):
 class Mlpard(_ArdMixin, Kern):
     """ARD arcsin kernel; params [weightVariance, biasVariance, variance,
     inputScale×D]."""
+
+    _variance_index = 2
 
     @property
     def kind(self):
@@ -537,6 +590,8 @@ class Mlpard(_ArdMixin, Kern):
 class Polyard(_ArdMixin, Kern):
     """ARD polynomial; params [weightVariance, biasVariance, variance,
     inputScale×D]; the degree is static."""
+
+    _variance_index = 2
 
     degree: float = 2.0
 
@@ -648,6 +703,39 @@ class Cmpnd(_Component):
             w = w + c.white(pp)
         return w
 
+    def get_variance(self, p):
+        return sum(c.get_variance(pp) for c, pp in zip(self.components, self.child_slices(p)))
+
+    def set_variance(self, p, val):
+        """Rescale the children proportionally so that the total lands on
+        `val` (CKern.h:489-498).  whitefixed children hold their variance
+        structurally, so, as in gpc_tpu, the other children absorb the
+        change: each is scaled by (val − fixed)/(cur − fixed).  Where
+        gpc_tpu's ratio breaks down this raises ValueError instead: when
+        the whitefixed children hold all the variance (cur ≤ fixed, a
+        division by zero that gives gpc_tpu NaN) and when val < fixed (a
+        negative ratio that gives it negative variances)."""
+        cur = self.get_variance(p)
+        fixed = sum(float(c.fixed_variance) for c in self.components
+                    if c.kind == "whitefixed")
+        if float(cur) - fixed <= 0.0:
+            raise ValueError(f"cmpnd setVariance: the whitefixed children hold all "
+                             f"the variance ({fixed}), so the others cannot be "
+                             f"rescaled")
+        if float(val) < fixed:
+            raise ValueError(f"cmpnd setVariance: the variance {float(val)} is below "
+                             f"the fixed white variance {fixed}")
+        ratio = (val - fixed) / (cur - fixed)
+        out = p
+        off = self.offsets()
+        for i, c in enumerate(self.components):
+            if c.kind == "whitefixed":
+                continue
+            pp = c.set_variance(out[off[i]:off[i + 1]],
+                                c.get_variance(out[off[i]:off[i + 1]]) * ratio)
+            out = torch.cat([out[:off[i]], pp, out[off[i + 1]:]])
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class Tensor(_Component):
@@ -674,6 +762,27 @@ class Tensor(_Component):
         out = self.components[0].diag(parts[0], X)
         for c, pp in zip(self.components[1:], parts[1:]):
             out = out * c.diag(pp, X)
+        return out
+
+    def get_variance(self, p):
+        parts = self.child_slices(p)
+        out = self.components[0].get_variance(parts[0])
+        for c, pp in zip(self.components[1:], parts[1:]):
+            out = out * c.get_variance(pp)
+        return out
+
+    def set_variance(self, p, val):
+        """Rescale EVERY child by val/total, gpc_tpu's rule (the reference's
+        CTensorKern::setVariance, CKern.h:534-542): with k > 1 children the
+        product lands on total·(val/total)^k, not val.  A whitefixed child
+        raises through WhiteFixed.set_variance, as in gpc_tpu."""
+        factor = val / self.get_variance(p)
+        out = p
+        off = self.offsets()
+        for i, c in enumerate(self.components):
+            pp = c.set_variance(out[off[i]:off[i + 1]],
+                                c.get_variance(out[off[i]:off[i + 1]]) * factor)
+            out = torch.cat([out[:off[i]], pp, out[off[i + 1]:]])
         return out
 
 

@@ -7,8 +7,9 @@ CLIs take the same settings:
   lazy       Gram blocks materialised inside the left-looking blocked
              factorization (ops/lazy_evidence.py), differentiable; needs N
              to split into `evidence_base()` blocks;
-  panel      the panel kernel K3 (ops/panel_engine.py): forward evidence;
-  iterative  not ported yet (ROADMAP.md, queue 1 item 6).
+  panel      the panel kernel K3 (ops/panel_engine.py), differentiable;
+  iterative  matrix-free CG + SLQ (ops/iterative.py): O(N·block) memory,
+             a stochastic logdet; no split requirement, opt-in only.
 
 gpc_tpu's unset-flag default turns to `lazy` past N = 8192 on a TPU because
 the TPU compile helper crashes on the dense N-wide solve there; the port
@@ -49,15 +50,10 @@ def evidence_mode() -> str:
 
 
 def select_evidence_mode(n: int) -> str:
-    """The FTC evidence engine for n data points.  `lazy` on a size that
-    does not split warns and falls back to `dense`, as in gpc_tpu;
-    `iterative` is not ported yet and raises NotImplementedError."""
+    """The evidence engine for n data points (models/gp.py FTC and
+    models/gplvm.py).  `lazy` on a size that does not split warns and falls
+    back to `dense`, as in gpc_tpu; `iterative` and `panel` take any n."""
     mode = evidence_mode()
-    if mode == "iterative":
-        raise NotImplementedError(
-            "GPC_TPU_EVIDENCE=iterative: the iterative evidence engine is not "
-            "ported to gpc_tpu_torch yet (ROADMAP.md, queue 1 item 6); use "
-            "dense, lazy or panel")
     if mode == "lazy" and not evidence_splits(n):
         warnings.warn(
             f"GPC_TPU_EVIDENCE={mode} needs n_data to split into "

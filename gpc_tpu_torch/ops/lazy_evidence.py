@@ -11,7 +11,12 @@ white) is always split off by Sherman-Morrison: the factored matrix is K₀
 without bias, and 𝟙 rides the forward solve as one more column.
 
 The engine differentiates (Policy leafinv=False: Cholesky and triangular
-solves, f32 GEMMs without TF32 on the card, f64 on the CPU).  gpc_tpu's
+solves, f32 GEMMs without TF32 on the card, f64 on the CPU), as gpc_tpu's
+always does.  On the card a call that needs no gradient takes the forward
+policy of ops/evidence_fast.py instead, K5 leaves (leafinv="pallas",
+gpc_tpu's `Policy()` default): the leaf inverse turns the triangular
+solves against leaves into GEMMs.  gpc_tpu's kern_evidence_lazy keeps
+Cholesky leaves there too; the two agree to float32 rounding.  gpc_tpu's
 GPC_TPU_BF16_EVIDENCE, GPC_TPU_BIAS_SPLIT and GPC_TPU_EVIDENCE_PRESTACK
 knobs are not ported: the policy is fixed and the bias split always on.
 """
@@ -25,6 +30,7 @@ import torch
 
 from gpc_tpu_torch.kernels import Bias, Cmpnd
 from gpc_tpu_torch.ops.chol_blocked import evidence_fused
+from gpc_tpu_torch.ops.chol_pallas import CHOL_MAX
 from gpc_tpu_torch.ops.evidence_fast import Policy, evidence_left_fast, evidence_left_v
 from gpc_tpu_torch.ops.evidence_mode import evidence_base
 
@@ -87,11 +93,15 @@ def kern_evidence_lazy(kern, p, X, m, ridge=0.0, force=False):
     into the left-looking factorization, when N > 2·base splits into base
     blocks (ops/evidence_mode.evidence_base) and the tensors lie on the card
     (or `force`); otherwise the dense K through the blocked fused sweep of
-    ops/chol_blocked.py."""
+    ops/chol_blocked.py.  The leaves are K5's on the card when no input
+    needs a gradient, Cholesky factors otherwise (module docstring)."""
     n = X.shape[0]
     base = evidence_base()
     if (force or X.device.type == "cuda") and n > 2 * base and n % base == 0:
-        pol = Policy(base=base, bf16=False, leafinv=False, stack=True)
+        needs_grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (p, X, m))
+        k5 = X.device.type == "cuda" and not needs_grad and base <= CHOL_MAX
+        pol = Policy(base=base, bf16=False, leafinv="pallas" if k5 else False, stack=True)
         sp = bias_split(kern)
         if sp is not None:
             return _evidence_bias_split(sp[0], sp[1], p, X, m, ridge, pol)

@@ -19,6 +19,26 @@ from gpc_tpu_torch.optim.scg import ScgResult, scg, scg_checkpointed  # noqa: F4
 OPTIMISERS = ("scg", "conjgrad", "graddesc", "quasinew")
 
 
+def numpy_value_and_grad(nlml, device):
+    """The optimisers' interface to a model's objective: w (float64 numpy)
+    → (nlml(w), ∇nlml(w)) as float64, evaluated on `device` in its working
+    dtype under autograd; a gradient the objective does not reach is zero."""
+    import numpy as np
+    import torch
+
+    from gpc_tpu_torch import as_tensor
+
+    def vag(w):
+        theta = as_tensor(np.array(w, dtype=np.float64), device).requires_grad_(True)
+        f = nlml(theta)
+        g = None
+        if f.requires_grad:
+            (g,) = torch.autograd.grad(f, theta, allow_unused=True)
+        g = torch.zeros_like(theta) if g is None else g
+        return float(f.detach()), g.detach().cpu().numpy().astype(np.float64)
+    return vag
+
+
 class OptResult(NamedTuple):
     x: object
     obj: object

@@ -1,6 +1,6 @@
-"""Where the time of the inference, training, sparse and IVM slices goes on one NVIDIA GPU.
+"""Where the time of the inference, training, sparse, IVM and GP-LVM slices goes on one NVIDIA GPU.
 
-    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse | --ivm] [--out FILE]
+    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse | --ivm | --gplvm] [--out FILE]
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
@@ -17,6 +17,11 @@ with blocks of M (the batched K1 block Grams, batched Cholesky).  `--sparse` run
 4096, d = 512, q = 2, cmpnd(rbf, bias, white), Gaussian noise): one
 selection pass (the captured step replayed d times) and one IvmServer
 batch of 8192 rows.
+`--gplvm` runs the GP-LVM alone, at gpc_tpu's geometry (bench.py:309-351:
+N = 16384, D = 4, q = 2, cmpnd(rbf, bias, white), PCA latents): one
+value_and_grad of its objective under dense (K1 + jitchol), lazy (K1
+blocks in the left-looking sweep) and iterative (CG + SLQ over 2048-row K1
+blocks, and the blockwise backward).
 Prints per stage the wall time (host clock around work that ends in a
 synchronize), the device time of the kernels in that window (from the
 profiler's trace; their sum above the wall is overlap between streams) and
@@ -98,6 +103,7 @@ def main(argv=None):
     ap.add_argument("--q", type=int, default=8)
     ap.add_argument("--sparse", action="store_true", help="the sparse slice alone")
     ap.add_argument("--ivm", action="store_true", help="the IVM alone")
+    ap.add_argument("--gplvm", action="store_true", help="the GP-LVM alone")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -111,7 +117,9 @@ def main(argv=None):
     kern = KM.Cmpnd(input_dim=args.q, components=(
         KM.Rbf(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q)))
     report = []
-    if args.ivm:
+    if args.gplvm:
+        gplvm_stages(report)
+    elif args.ivm:
         ivm_stages(report)
     else:
         if not args.sparse:
@@ -143,6 +151,33 @@ def ivm_stages(report):
     server = IvmServer(model, chunk=8192)
     Xt = torch.tensor(rng.standard_normal((8192, 2)), dtype=torch.float32, device="cuda")
     stage("IvmServer batch 8192, d = 512", lambda: server._apply(Xt), report)
+
+
+def gplvm_stages(report):
+    """One GP-LVM value_and_grad per engine at bench.py's GP-LVM geometry."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.models.gplvm import GPLVM
+    rng = np.random.default_rng(0)
+    Z = rng.standard_normal((16384, 2))
+    W = rng.standard_normal((2, 4))
+    Y = (np.tanh(Z @ W) + 0.1 * rng.standard_normal((16384, 4))).astype(np.float32)
+    kern = KM.Cmpnd(input_dim=2, components=(
+        KM.Rbf(input_dim=2), KM.Bias(input_dim=2), KM.White(input_dim=2)))
+    model = GPLVM(kern, Y.astype(np.float64), latent_dim=2, device="cuda")
+    nlml = model.objective()
+
+    def value_and_grad():
+        th = as_tensor(model.theta, model.device).requires_grad_(True)
+        return torch.autograd.grad(nlml(th), th)
+
+    for engine in ("dense", "lazy", "iterative"):
+        os.environ["GPC_TPU_EVIDENCE"] = engine
+        try:
+            stage(f"GP-LVM value_and_grad {engine}, N = 16384, D = 4, q = 2", value_and_grad,
+                  report)
+        finally:
+            os.environ.pop("GPC_TPU_EVIDENCE")
+        torch.cuda.empty_cache()
 
 
 def ftc_stages(args, X, y, kern, rng, report):

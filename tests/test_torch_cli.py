@@ -16,9 +16,15 @@ error.  A GP model file with probit noise reads in both packages, and every
 command on it (gnuplot's classification branch included) gives gpc_tpu's
 output.  The ivm CLI (gpc_tpu_torch.cli.ivm): its 8 commands against
 gpc_tpu.cli.ivm, with -l, -o ncnm, -o regression and -c/-r (tolerances at
-the tests).
+the tests).  The gplvm CLI (gpc_tpu_torch.cli.gplvm): learn with each
+option family (-D -dr -ds, -c, -L -S, -R -C, -I rand, -O conjgrad|
+quasinew, -k with -x) gives gpc_tpu's model file, numbers within 1e-8;
+display, gnuplot (labels from the file and from -l) and the error
+messages are gpc_tpu's; --checkpoint/--resume ends where the
+uninterrupted run ends.
 """
 
+import os
 import re
 
 import numpy as np
@@ -28,11 +34,13 @@ import jax.numpy as jnp
 
 from gpc_tpu import kernels as GK
 from gpc_tpu.cli import gp as jax_cli
+from gpc_tpu.cli import gplvm as jax_gplvm
 from gpc_tpu.cli import ivm as jax_ivm
 from gpc_tpu.io import model_io as JIO
 from gpc_tpu.io.svml import write_svml
 from gpc_tpu.models.gp import GP as JGP
 from gpc_tpu_torch.cli import gp as port_cli
+from gpc_tpu_torch.cli import gplvm as port_gplvm
 from gpc_tpu_torch.cli import ivm as port_ivm
 
 CPU = ["--device", "cpu"]
@@ -73,11 +81,11 @@ def _run(main, argv, capsys):
     return capsys.readouterr().out
 
 
-def _same_output(port, ref):
-    """Equal text around the numbers; numbers equal to rtol 1e-10."""
+def _same_output(port, ref, rtol=1e-10):
+    """Equal text around the numbers; numbers equal to rtol (1e-10)."""
     assert _NUM.sub("#", port) == _NUM.sub("#", ref)
     np.testing.assert_allclose([float(v) for v in _NUM.findall(port)],
-                               [float(v) for v in _NUM.findall(ref)], rtol=1e-10)
+                               [float(v) for v in _NUM.findall(ref)], rtol=rtol)
 
 
 @pytest.mark.parametrize("argv", [
@@ -574,3 +582,143 @@ def test_ivm_without_card_exits(ivm_dir, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         port_ivm.main(["display", str(ivm_dir / "m_jax")])
     assert "--device cpu" in str(exc.value.code)
+
+
+
+# --------------------------------------------------------------------------
+# the gplvm CLI
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def gplvm_dir(tmp_path, monkeypatch):
+    """An SVM-light file of 30 rows, 3 features on a 1-d curve, and
+    integer labels (plotted per label)."""
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(31)
+    t = np.linspace(0, 2 * np.pi, 30)
+    Y = np.column_stack([np.sin(t), np.cos(t), np.sin(2 * t)]) + 0.05 * rng.standard_normal((30, 3))
+    write_svml("y.svml", Y, (np.arange(30) % 3).reshape(-1, 1).astype(float))
+    return tmp_path
+
+
+def _same_model_file(port_file, jax_file, rtol=1e-8):
+    """The same text around the numbers (the comment line aside: it names
+    the process), numbers within rtol of the largest of their kind."""
+    port = open(port_file).read().split("\n", 1)[1]
+    ref = open(jax_file).read().split("\n", 1)[1]
+    assert _NUM.sub("#", port) == _NUM.sub("#", ref)
+    a = np.array([float(v) for v in _NUM.findall(port)])
+    b = np.array([float(v) for v in _NUM.findall(ref)])
+    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * np.abs(b).max())
+
+
+GPLVM_LEARN = [[], ["-D", "rbf"], ["-D", "rbf", "-dr", "-1"],
+               ["-D", "rbf", "-dr", "10", "-ds", "0.3"], ["-c", "rbf", "-g", "0.5"],
+               ["-L", "1", "-S", "1"], ["-R", "0", "-C", "0"], ["-I", "rand"],
+               ["-O", "conjgrad"], ["-O", "quasinew"], ["-k", "mlp", "-x", "3"]]
+
+
+@pytest.mark.parametrize("flags", GPLVM_LEARN, ids=lambda f: "".join(f) or "default")
+def test_gplvm_learn_matches_jax(gplvm_dir, capsys, flags):
+    argv = ["-s", "7", "learn", "-#", "8"] + flags + ["y.svml"]
+    ref = _run(jax_gplvm.main, argv + ["m_jax"], capsys)
+    port = _run(port_gplvm.main, CPU + argv + ["m_port"], capsys)
+    _same_output(port, ref, rtol=1e-8)
+    _same_model_file("m_port", "m_jax")
+    assert open("m_port").readline() == open("m_jax").readline()   # the comment
+
+
+@pytest.mark.parametrize("command", [["display", "MODEL"], ["gnuplot", "MODEL", "NAME"],
+                                     ["gnuplot", "-l", "labels", "-p", "3", "-r", "12",
+                                      "MODEL", "NAME"]])
+def test_gplvm_commands_match_jax(gplvm_dir, capsys, command):
+    """display and gnuplot on a file gpc_tpu learned: gpc_tpu's output and
+    files (the posterior's numbers within 1e-10)."""
+    jax_gplvm.main(["-s", "1", "learn", "-#", "5", "-D", "rbf", "y.svml", "m"])
+    with open("labels", "w") as f:
+        f.write("\n".join(str(i % 2) for i in range(30)) + "\n")
+    capsys.readouterr()
+    outs = {}
+    for tag, main, pre in (("jax", jax_gplvm.main, []), ("port", port_gplvm.main, CPU)):
+        os.makedirs(tag)
+        argv = [{"MODEL": "m", "NAME": f"{tag}/pl"}.get(a, a) for a in command]
+        outs[tag] = _run(main, pre + argv, capsys)
+        if command[0] == "gnuplot":
+            outs[tag] = {f: open(os.path.join(tag, f)).read() for f in sorted(os.listdir(tag))}
+    if command[0] == "display":
+        _same_output(outs["port"], outs["jax"])
+        return
+    assert sorted(outs["port"]) == sorted(outs["jax"]) and len(outs["jax"]) >= 3
+    for name, text in outs["jax"].items():
+        got = outs["port"][name].replace("port/", "jax/")
+        assert _NUM.sub("#", got) == _NUM.sub("#", text)
+        a = np.array([float(v) for v in _NUM.findall(got)])
+        b = np.array([float(v) for v in _NUM.findall(text)])
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10 * np.abs(b).max())
+
+
+def test_gplvm_checkpoint_resume(gplvm_dir, capsys):
+    """--checkpoint/--checkpoint-every/--resume: a run resumed from its
+    checkpoint ends where the uninterrupted run ends, and where gpc_tpu's
+    uninterrupted run ends (1e-8)."""
+    base = CPU + ["-s", "2", "learn"]
+    port_gplvm.main(base + ["-#", "10", "y.svml", "m_full"])
+    port_gplvm.main(base + ["-#", "5", "--checkpoint", "ck.npz", "--checkpoint-every", "5",
+                            "y.svml", "m_half"])
+    port_gplvm.main(base + ["-#", "10", "--checkpoint", "ck.npz", "--checkpoint-every", "5",
+                            "--resume", "y.svml", "m_resumed"])
+    jax_gplvm.main(["-s", "2", "learn", "-#", "10", "y.svml", "m_jax"])
+    assert capsys.readouterr().out.count("after 10 iterations") == 3
+    full, resumed = (open(f).read().split("\n", 1)[1] for f in ("m_full", "m_resumed"))
+    assert full == resumed
+    _same_model_file("m_resumed", "m_jax")
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["learn", "-dr", "5", "y.svml"], "declare a dynamics kernel before setting the dynamics "
+                                      "signal"),
+    (["learn", "-ds", "5", "y.svml"], "declare a dynamics kernel before setting the dynamics "
+                                      "scale"),
+    (["learn", "-I", "bogus", "y.svml"], "Unknown initialisation type: bogus"),
+    (["learn", "-O", "bogus", "y.svml"], "Unrecognised model optimiser type"),
+    (["learn", "-k", "bias", "y.svml"], "Unknown covariance function type: bias"),
+    (["learn", "-g", "1", "y.svml"], "must come after covariance"),
+    (["learn", "-q", "y.svml"], "Unrecognised flag: -q"),
+    (["gnuplot", "-z", "m"], "Unrecognised flag: -z"),
+    (["display", "nothere"], "Unable to read file nothere"),
+    (["bogus"], "Invalid gplvm command provided: bogus"),
+    ([], "No command provided"),
+])
+def test_gplvm_errors_match_jax(gplvm_dir, argv, message):
+    for main, pre in ((port_gplvm.main, CPU), (jax_gplvm.main, [])):
+        with pytest.raises(SystemExit) as exc:
+            main(pre + argv)
+        assert message in str(exc.value.code)
+
+
+def test_gplvm_gnuplot_errors_match_jax(gplvm_dir):
+    """A 3-d latent space does not plot; a label file must have a row per
+    point."""
+    port_gplvm.main(CPU + ["learn", "-#", "1", "-x", "3", "y.svml", "m3"])
+    port_gplvm.main(CPU + ["learn", "-#", "1", "y.svml", "m2"])
+    with open("short", "w") as f:
+        f.write("1\n2\n")
+    for argv, message in ((["gnuplot", "m3"], "only implemented for 2 dimensional latent"),
+                          (["gnuplot", "-l", "short", "m2"], "Incorrect number of labels")):
+        for main, pre in ((port_gplvm.main, CPU), (jax_gplvm.main, [])):
+            with pytest.raises(SystemExit) as exc:
+                main(pre + argv)
+            assert message in str(exc.value.code)
+
+
+def test_gplvm_unported_format_and_no_card(gplvm_dir, monkeypatch):
+    """-f 1 exits "not yet ported" as gp and ivm do; without a card and
+    without --device cpu every command exits naming the flag."""
+    with pytest.raises(SystemExit, match="not yet ported"):
+        port_gplvm.main(CPU + ["learn", "-f", "1", "y.svml"])
+    port_gplvm.main(CPU + ["learn", "-#", "1", "y.svml", "m"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["learn", "-#", "1", "y.svml"], ["display", "m"]):
+        with pytest.raises(SystemExit) as exc:
+            port_gplvm.main(argv)
+        assert "--device cpu" in str(exc.value.code)

@@ -33,7 +33,11 @@ bit for bit.  The IVM: K1/K4 at the selection column (m = 1) within rtol
 replayed from its CUDA graph equals the eager pass bit for bit; the card's
 float32 pass replayed through the CPU float64 step within
 chip_smoke.py's IVM_GAP_TOL and IVM_STATE_TOL; IvmServer within 1e-4 of
-IVM.predict.
+IVM.predict.  The GP-LVM: its objective and θ̄ on the card (K1; K5 leaves
+for the lazy objective alone) against the CPU float64 route (1e-4, 1e-3);
+the iterative engine's blockwise MVM within 1e-5 of the plain product; the
+masked engine with K1 against itself with the plain Gram (1e-4 on its
+values, 1e-3 on θ̄).
 """
 
 import numpy as np
@@ -983,3 +987,91 @@ def test_ivm_capture_failure_raises(dev, monkeypatch):
     monkeypatch.setattr(TI, "step", syncing_step)
     with pytest.raises(RuntimeError, match="did not capture in a CUDA graph"):
         model.init_and_select()
+
+
+def _gplvm_data(N, seed=0):
+    """bench.py's GP-LVM data at N rows: tanh(Z·W) + 0.1ε, D = 4, q = 2."""
+    rng = np.random.default_rng(seed)
+    Z, W = rng.standard_normal((N, 2)), rng.standard_normal((2, 4))
+    return np.tanh(Z @ W) + 0.1 * rng.standard_normal((N, 4))
+
+
+def _gplvm(Y, device, **kw):
+    from gpc_tpu_torch.models.gplvm import GPLVM
+    kern = TK.Cmpnd(input_dim=2, components=(
+        TK.Rbf(input_dim=2), TK.Bias(input_dim=2), TK.White(input_dim=2)))
+    return GPLVM(kern, Y, latent_dim=2, device=device, **kw)
+
+
+@pytest.mark.parametrize("evidence", ["dense", "lazy"])
+def test_gplvm_on_card_matches_cpu_float64(dev, monkeypatch, evidence):
+    """The GP-LVM objective and θ̄ at N = 512 on the card (K1 and its X̄
+    VJP; under lazy at base 128 the left-looking sweep, and for the
+    objective alone K5 leaves) against the CPU float64 route: 1e-4 on the
+    objective, 1e-3 relative L2 on θ̄."""
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", evidence)
+    monkeypatch.setenv("GPC_TPU_EVIDENCE_BASE", "128")
+    Y = _gplvm_data(512)
+    cpu = _gplvm(Y, "cpu")
+    f_ref, g_ref = cpu.value_and_grad_fn()(cpu.theta)
+    card = _gplvm(Y, dev)
+    before = dict(LAUNCHES)
+    f, g = card.value_and_grad_fn()(card.theta)
+    ll = card.log_likelihood()
+    assert LAUNCHES["dist_gram"] > before.get("dist_gram", 0)
+    if evidence == "lazy":
+        assert LAUNCHES["chol_inv_block"] == before.get("chol_inv_block", 0) + 512 // 128
+    assert abs(f - f_ref) <= 1e-4 * abs(f_ref) and abs(ll + f_ref) <= 1e-4 * abs(f_ref)
+    assert np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref) < 1e-3
+
+
+def test_iterative_mvm_on_card_matches_plain(dev):
+    """kernel_mvm over 512-row blocks of N = 2048: one K1 launch a block,
+    within 1e-5 of the largest entry of the dense plain product."""
+    from gpc_tpu_torch.ops import iterative as TIT
+    rng = np.random.default_rng(4)
+    kern = TK.Cmpnd(input_dim=2, components=(
+        TK.Rbf(input_dim=2), TK.Bias(input_dim=2), TK.White(input_dim=2)))
+    p = torch.tensor([0.8, 1.2, 0.3, 0.5], device=dev)
+    X, V = _randn(rng, (2048, 2), dev), _randn(rng, (2048, 5), dev)
+    before = LAUNCHES["dist_gram"]
+    got = TIT.kernel_mvm(kern, p, X, V, block=512)
+    assert LAUNCHES["dist_gram"] == before + 4
+    K = TG.dist_gram_plain("rbf", p[:2], X, X) + p[2]
+    want = K @ V + p[3] * V
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_masked_engine_on_card_equals_plain_k1(dev, monkeypatch):
+    """The masked iterative evidence (breaks at 0, 700, 1500) and its θ̄ on
+    the card, K1 against the same engine with the plain Gram, N = 2048 on
+    spread latents with a unit white variance (CG settles well inside its
+    256 iterations): 1e-4 on (logdet, quad), 1e-3 relative L2 on (p̄, X̄)."""
+    from gpc_tpu_torch.ops import iterative as TIT
+    rng = np.random.default_rng(6)
+    kern = TK.Cmpnd(input_dim=2, components=(
+        TK.Rbf(input_dim=2), TK.Bias(input_dim=2), TK.White(input_dim=2)))
+    X0 = 3.0 * _randn(rng, (2048, 2), dev)
+    m = _randn(rng, (2048, 2), dev)
+    mask = torch.ones(2048, device=dev)
+    mask[[0, 700, 1500]] = 0.0
+    m = m * mask[:, None]
+    cfg = TIT.IterConfig(block=512, cg_iters=256)
+
+    def run():
+        p = torch.tensor([1.0, 1.0, 0.2, 1.0], device=dev, requires_grad=True)
+        X = X0.clone().requires_grad_(True)
+        ld, quad = TIT.kern_evidence_iterative_masked(kern, p, X, m, mask, cfg)
+        grads = torch.autograd.grad(ld + quad, (p, X))
+        return torch.stack([ld, quad]).detach(), [g.cpu().numpy() for g in grads]
+
+    before = LAUNCHES["dist_gram"]
+    vals, grads = run()
+    assert LAUNCHES["dist_gram"] > before
+    monkeypatch.setattr(TK, "dist_gram", TG.dist_gram_plain)
+    before = LAUNCHES["dist_gram"]
+    vals_p, grads_p = run()
+    assert LAUNCHES["dist_gram"] == before
+    assert float(((vals - vals_p).abs() / vals_p.abs()).max()) < 1e-4
+    for a, b in zip(grads, grads_p):
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-3

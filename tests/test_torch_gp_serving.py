@@ -147,15 +147,18 @@ def test_panel_engine_outside_family_raises():
 
 @pytest.mark.parametrize("mode", ["lazy", "iterative", "bogus"])
 def test_evidence_mode_unported_and_invalid(monkeypatch, mode):
-    """iterative is not ported (NotImplementedError), an unknown engine is
-    a ValueError, and lazy on a size that does not split warns and falls
-    back to dense."""
+    """iterative takes any size (no split requirement, as in gpc_tpu), an
+    unknown engine is a ValueError, and lazy on a size that does not split
+    warns and falls back to dense."""
     monkeypatch.setenv("GPC_TPU_EVIDENCE", mode)
     if mode == "lazy":
         with pytest.warns(UserWarning, match="falling back to dense"):
             assert TEM.select_evidence_mode(100) == "dense"
         return
-    with pytest.raises(ValueError if mode == "bogus" else NotImplementedError):
+    if mode == "iterative":
+        assert TEM.select_evidence_mode(100) == "iterative"
+        return
+    with pytest.raises(ValueError):
         TEM.select_evidence_mode(100)
 
 
@@ -230,16 +233,16 @@ def test_model_files_cross_load(tmp_path):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The iterative engine is not ported; an unknown approximation or
-    kernel raises.  (The sparse approximations and quasinew, once here,
-    are ported: tests/test_torch_sparse.py, tests/test_torch_optim.py.)"""
+    """An unknown approximation or kernel raises.  (The sparse
+    approximations, quasinew and the iterative engine, once here, are
+    ported: tests/test_torch_sparse.py, tests/test_torch_optim.py,
+    tests/test_torch_iterative.py; the last now gives a finite evidence.)"""
     X, y, _ = _data(10, 2, 4)
     kern = TK.Cmpnd(input_dim=2, components=(TK.Rbf(input_dim=2),))
     with pytest.raises(ValueError, match="Unknown sparse approximation"):
         TGP(kern, X, y, approx="bogus", device="cpu")
     assert TGP(kern, X, y, approx="dtc", num_active=3, device="cpu").spec.sparse
     monkeypatch.setenv("GPC_TPU_EVIDENCE", "iterative")
-    with pytest.raises(NotImplementedError):
-        TGP(kern, X, y, device="cpu").log_likelihood()
+    assert np.isfinite(TGP(kern, X, y, device="cpu").log_likelihood())
     with pytest.raises(ValueError, match="Unknown kernel type"):
         TK.make_kern("bogus", 2)

@@ -165,3 +165,56 @@ def test_poly_degree_round_trip(tmp_path):
     want = float(jm.log_likelihood())
     for got in (pm.log_likelihood(), back_t.log_likelihood(), float(back_j.log_likelihood())):
         np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_get_set_variance_match_jax(kind):
+    """get_variance and set_variance (the GPDM's SNR scaling) equal
+    gpc_tpu's within 1e-12 for every kind; whitefixed, and a tensor holding
+    it, raise as gpc_tpu's do."""
+    rng = np.random.default_rng(13)
+    jk = _jax_kern(kind)
+    tk = kern_from_desc(jk)
+    p = _params(jk, rng)
+    pj, pt = jnp.asarray(p), torch.as_tensor(p)
+    np.testing.assert_allclose(float(tk.get_variance(pt)), float(jk.get_variance(pj)),
+                               rtol=1e-12)
+    if kind == "whitefixed":
+        with pytest.raises(ValueError, match="structural"):
+            tk.set_variance(pt, 0.7)
+        return
+    got = tk.set_variance(pt, 0.7).numpy()
+    np.testing.assert_allclose(got, np.asarray(jk.set_variance(pj, 0.7)), rtol=1e-12, atol=1e-14)
+    np.testing.assert_array_equal(pt.numpy(), p)        # out of place
+    if kind != "tensor":        # a tensor's product lands on total·(val/total)^k
+        np.testing.assert_allclose(float(tk.get_variance(torch.as_tensor(got))), 0.7,
+                                   rtol=1e-12)
+
+
+def test_tensor_with_whitefixed_raises_as_jax():
+    jk = GK.Tensor(input_dim=Q, components=(GK.Rbf(input_dim=Q),
+                                           GK.WhiteFixed(input_dim=Q, fixed_variance=0.1)))
+    tk = kern_from_desc(jk)
+    p = np.array([1.2, 0.8])
+    with pytest.raises(ValueError, match="structural"):
+        jk.set_variance(jnp.asarray(p), 0.5)
+    with pytest.raises(ValueError, match="structural"):
+        tk.set_variance(torch.as_tensor(p), 0.5)
+
+
+@pytest.mark.parametrize("case", ["fixed_holds_all", "below_fixed"])
+def test_cmpnd_set_variance_raises_where_jax_breaks_down(case):
+    """Where gpc_tpu's ratio (val − fixed)/(cur − fixed) gives NaN (the
+    whitefixed children hold all the variance) or negative variances
+    (val < fixed), the port raises ValueError."""
+    wf = GK.WhiteFixed(input_dim=Q, fixed_variance=0.2)
+    if case == "fixed_holds_all":
+        jk = GK.Cmpnd(input_dim=Q, components=(wf,))
+        p, val, match = np.zeros(0), 0.2, "hold all"
+    else:
+        jk = GK.Cmpnd(input_dim=Q, components=(GK.Rbf(input_dim=Q), wf))
+        p, val, match = np.array([1.0, 0.5]), 0.1, "below"
+    out = np.asarray(jk.set_variance(jnp.asarray(p), val))
+    assert np.isnan(out).any() or (out < 0).any() or out.size == 0
+    with pytest.raises(ValueError, match=match):
+        kern_from_desc(jk).set_variance(torch.as_tensor(p), val)
