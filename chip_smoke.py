@@ -55,7 +55,20 @@ iterative.
 Phase 20, the matrix-free iterative engine at N = 16384: the FTC and the
 GP-LVM evidence and value_and_grad, and the masked form with breaks,
 against float64.  Then K1 at the GP-LVM's shapes and K3 against the plain
-route of its bf16 policy on the GP-LVM's evidence.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+route of its bf16 policy on the GP-LVM's evidence.  Phase 21, the host and
+interop surface on the slice's data: the native and Python SVM-light
+readers (bit for bit, and their share of a one-shot `gp learn -# 3`),
+learn -f 1 from a .mat against -f 0, .mat round trips of an FTC and a DTC
+(M = 1024) model, fgp (train, retrain, query of 8192 rows against
+GP.predict) and the daemon (learn -# 3 and log-likelihood through the
+client, twice, byte for byte the one-shot CLI's).  Phase 22, the
+distributed layer at world size 1 on NCCL, its group started here from a
+file store: make_dist_objective for FTC and DTC, DTCVAR, FITC (M = 1024)
+against the single-process model, 3 SCG iterations of make_dist_train_step,
+GPServer(mesh=) against GPServer, load_svml_sharded against read_svml; and
+two ranks on the one card over gloo with CUDA tensors (child processes,
+`chip_smoke.py --gloo-rank R STORE`).  The script fails if the Python
+SVM-light reader ran in its process.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
@@ -2356,6 +2369,398 @@ def phase_gplvm_kernels(dev, rng):
     return res, {str(k): v for k, v in panel.items()}
 
 
+# ---------------------------------------------------------------------------
+# phases 21 and 22: the host and interop surface; the distributed layer
+# ---------------------------------------------------------------------------
+
+INTEROP_TOL = 1e-6    # -f 1 vs -f 0, and .mat round trips, relative
+SERVE_TOL = 1e-4      # fgp's query vs GP.predict (PERF.md §2's serving limits)
+DIST_FTC_TOL = (1e-4, 1e-3)                  # FTC value, θ̄ relative L2 (PERF.md §2)
+DIST_SPARSE_TOL = (SPARSE_TOL, SPARSE_GRAD_TOL)   # phase 17's limits at β = 1
+DIST_SCG_TOL = (1e-5, 1e-4)                  # SCG's final objective, θ relative L2
+SCG_ROWS, SCG_M = 2048, 128                  # phase 17's gradient cut, where SCG moves
+# where SCG moves, its finite-difference curvature probe amplifies the
+# float32 gradients' last-bit differences (dist vs single: 1e-9–1e-7 relative
+# L2): on an H100 80GB HBM3 at 700 W this cut read 1.0e-3 on the objective
+# and 6.6e-4 on θ after 3 iterations, and this limit was set after that
+# reading (PERF.md §6); the float64 CPU tests hold 5 iterations to 1e-10
+# (tests/test_torch_parallel.py).
+DIST_SCG_MOVING_TOL = (1e-2, 1e-2)
+WAIT_S = 600.0        # the bound on every wait for a process this phase starts
+
+
+def repo_env(**extra):
+    """The environment for a child process of this checkout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def run_proc(argv, cwd, env=None, timeout=WAIT_S):
+    """A child process run to its end: (returncode, stdout, stderr, wall ms)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable] + argv, cwd=cwd, env=env or repo_env(),
+                         capture_output=True, text=True, timeout=timeout)
+    return res.returncode, res.stdout, res.stderr, (time.perf_counter() - t0) * 1e3
+
+
+def host_ms(fn, reps=3):
+    """(result, median host ms of `reps` calls)."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(ts))
+
+
+def rel_err(a, b):
+    return abs(a - b) / abs(b)
+
+
+def model_body(path):
+    """A model file's bytes, its comment line (it names the command) aside."""
+    with open(path, "rb") as f:
+        return b"".join(ln for ln in f if not ln.startswith(b"#"))
+
+
+def phase_interop(dev, workdir):
+    """Phase 21 at N = 16384, q = 8 (the slice's data): (a) the native and
+    Python SVM-light readers, bit for bit, and their share of a one-shot
+    `gp learn -# 3`; (b) learn -f 1 from a .mat against -f 0; (c) .mat
+    round trips of an FTC and a DTC (M = 1024) model; (d) fgp train
+    ("rBw", and "lBw" for K4), retrain on a second draw, query of 8192 rows
+    against GP.predict; (e) the daemon: learn -# 3 and log-likelihood
+    through the client, twice, against the one-shot CLI."""
+    import scipy.io as sio
+
+    import importlib
+
+    from gpc_tpu_torch.io import mat_io, svml
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.native import svml_native
+    from gpc_tpu_torch.ops import cuda_lib
+
+    # the module (interop/__init__ exports its function fgp under its name)
+    fgp_api = importlib.import_module("gpc_tpu_torch.interop.fgp")
+    X, y, rng = slice_data()
+    data = os.path.join(workdir, "interop.svml")
+    svml.write_svml(data, X, y)
+    out = {}
+    # (a) the readers
+    native, out["native_read_ms"] = host_ms(lambda: svml_native.read(data))
+    check(native is not None, "the native SVM-light reader did not build or load")
+    py, out["python_read_ms"] = host_ms(lambda: svml.read_svml_py(data), reps=1)
+    for a, b in zip(native, py):
+        check(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b),
+              "native and Python SVM-light readers disagree")
+    check(np.array_equal(native[0], X) and np.array_equal(native[1], y),
+          "the SVM-light file does not read back to its data")
+    learn = ["-s", "1", "learn", "-#", "3"]
+    rc, one_out, err, out["oneshot_learn_ms"] = run_proc(
+        ["-m", "gpc_tpu_torch.cli.gp"] + learn + [data, "m_oneshot"], workdir)
+    check(rc == 0, f"one-shot gp learn failed: {err[-2000:]}")
+    for k in ("native", "python"):
+        out[f"{k}_read_share"] = out[f"{k}_read_ms"] / out["oneshot_learn_ms"]
+    log(f"phase 21(a) SVM-light N={N}: native {out['native_read_ms']} ms, Python "
+        f"{out['python_read_ms']} ms, equal; one-shot gp learn -# 3 {out['oneshot_learn_ms']} "
+        f"ms CLI wall: native {out['native_read_share']:.4%}, Python "
+        f"{out['python_read_share']:.4%} of it")
+    # (b) -f 1
+    mat = os.path.join(workdir, "interop.mat")
+    sio.savemat(mat, {"X": X, "y": y})
+    finals = {}
+    for fmt, src in ((0, data), (1, mat)):
+        model_file = os.path.join(workdir, f"m_f{fmt}")
+        text = run_cli(learn + ["-f", str(fmt), src, model_file])
+        final, iters = learned(text)
+        ll = float(run_cli(["log-likelihood", data, model_file]).split(":")[-1])
+        check(iters == 3 and np.isfinite(ll), f"learn -f {fmt}: {iters} iterations, ll {ll}")
+        finals[fmt] = (final, ll)
+    for i, what in ((0, "final objective"), (1, "log-likelihood")):
+        rel = rel_err(finals[1][i], finals[0][i])
+        check(rel <= INTEROP_TOL, f"learn -f 1 vs -f 0 {what}: rel {rel}")
+    out["f1_vs_f0"] = rel_err(finals[1][1], finals[0][1])
+    log(f"phase 21(b) learn -# 3 -f 1 vs -f 0: log-likelihood {finals[1][1]} vs "
+        f"{finals[0][1]} (rel {out['f1_vs_f0']})")
+    # (c) .mat round trips on the card
+    for approx in ("ftc", "dtc"):
+        model = (GP(default_kern(Q), X, y, device=dev) if approx == "ftc"
+                 else sparse_model(X, y, approx, dev))
+        path = os.path.join(workdir, f"{approx}.mat")
+        mat_io.write_gp_mat(path, model, X=X, y=y)
+        back = mat_io.read_gp_mat(path, device=dev)
+        check(back.device == model.device and back.spec.approx == approx, "read_gp_mat's model")
+        ll, ll_back = model.log_likelihood(), back.log_likelihood()
+        rel = rel_err(ll_back, ll)
+        check(np.isfinite(ll) and rel <= INTEROP_TOL, f"{approx} .mat round trip: rel {rel}")
+        out[f"mat_{approx}_rel"] = rel
+        log(f"phase 21(c) {approx} .mat round trip: log-likelihood {ll_back} vs {ll} "
+            f"(rel {rel})")
+        torch.cuda.empty_cache()
+    # (d) fgp
+    fgp_api.clear()
+    before = dict(cuda_lib.LAUNCHES)
+    obj, out["fgp_train_ms"] = timed(lambda: fgp_api.train("rBw", X, y, iters=3))
+    X2 = rng.standard_normal((N, Q))
+    y2 = np.sin(X2.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((N, 1))
+    obj2, out["fgp_retrain_ms"] = timed(lambda: fgp_api.retrain(X2, y2, iters=3))
+    Xq = rng.standard_normal((CHUNK, Q))
+    (mu, var), out["fgp_query_first_ms"] = timed(lambda: fgp_api.query(Xq, want_variance=True))
+    _, out["fgp_query_ms"] = timed(lambda: fgp_api.query(Xq, want_variance=True))
+    want_mu, want_var = fgp_api._state["model"].predict(Xq)
+    check(np.isfinite(obj) and np.isfinite(obj2), f"fgp objectives {obj}, {obj2}")
+    for name, got, want in (("mean", mu, want_mu), ("variance", var, want_var)):
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(err < SERVE_TOL, f"fgp query {name} vs GP.predict: rel {err}")
+        out[f"fgp_{name}_err"] = err
+    obj_l, out["fgp_train_lin_ms"] = timed(lambda: fgp_api.train("lBw", X, y, iters=1))
+    check(np.isfinite(obj_l), f"fgp lBw objective {obj_l}")
+    fgp_api.clear()
+    out["fgp_launches"] = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+                           if v > before.get(k, 0)}
+    for name in ("dist_gram", "inner_gram"):
+        check(out["fgp_launches"].get(name, 0) > 0, f"fgp launched no {name}")
+    log(f"phase 21(d) fgp N={N}: train rBw -# 3 {out['fgp_train_ms']} ms (objective {obj}), "
+        f"retrain {out['fgp_retrain_ms']} ms ({obj2}), query {CHUNK} rows with variance "
+        f"{out['fgp_query_first_ms']} ms (factor included), {out['fgp_query_ms']} ms after; "
+        f"mean {out['fgp_mean_err']}, variance {out['fgp_variance_err']} of GP.predict; "
+        f"train lBw -# 1 {out['fgp_train_lin_ms']} ms")
+    torch.cuda.empty_cache()
+    out.update(daemon_check(workdir, data, learn, one_out))
+    return out
+
+
+def daemon_check(workdir, data, learn, learn_ref):
+    """Phase 21(e): a daemon server in a child process; its client's
+    output and model files against the one-shot CLI's (`learn_ref` and
+    m_oneshot, from (a))."""
+    from gpc_tpu_torch.cli import daemon
+
+    sock = os.path.join(workdir, "daemon.sock")
+    env = repo_env(**{daemon.SOCKET_ENV: sock, "GPC_TPU_DAEMON_IDLE": "300"})
+    ll = ["log-likelihood", data, "m_oneshot"]
+    rc, ll_ref, err, oneshot_ll_ms = run_proc(["-m", "gpc_tpu_torch.cli.gp"] + ll, workdir)
+    check(rc == 0, f"one-shot gp log-likelihood failed: {err[-2000:]}")
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "daemon.log"), "wb") as lf:
+        server = subprocess.Popen([sys.executable, "-m", "gpc_tpu_torch.cli.daemon", "serve"],
+                                  cwd=workdir, env=env, stdout=lf, stderr=lf,
+                                  stdin=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + WAIT_S
+        while not daemon._answering(sock):
+            check(server.poll() is None and time.monotonic() < deadline,
+                  "the daemon did not come up")
+            time.sleep(0.05)
+        start_ms = (time.perf_counter() - t0) * 1e3
+        walls = []
+        # the client by path imports no torch (`-m` imports the package first)
+        client = [daemon.__file__, "run", "gp"]
+        for i in (1, 2, 3):
+            argv = (client if i < 3 else ["-m", "gpc_tpu_torch.cli.daemon", "run", "gp"])
+            rc, text, err, ms = run_proc(argv + learn + [data, f"m_daemon{i}"], workdir, env)
+            check(rc == 0 and text == learn_ref,
+                  f"daemon learn #{i} differs from the one-shot CLI (rc {rc}): {err[-2000:]}")
+            check(model_body(os.path.join(workdir, f"m_daemon{i}"))
+                  == model_body(os.path.join(workdir, "m_oneshot")),
+                  f"daemon learn #{i}: the model file differs from the one-shot CLI's")
+            walls.append(ms)
+        ll_walls = []
+        for i in (1, 2):
+            rc, text, err, ms = run_proc(client + ll, workdir, env)
+            check(rc == 0 and text == ll_ref, f"daemon log-likelihood #{i}: {text!r} vs {ll_ref!r}")
+            ll_walls.append(ms)
+        rc, _, err, _ = run_proc([daemon.__file__, "stop"], workdir, env)
+        check(rc == 0, f"daemon stop: {err[-2000:]}")
+        check(server.wait(timeout=WAIT_S) == 0, "the daemon did not exit cleanly")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait(timeout=WAIT_S)
+    out = dict(daemon_start_ms=start_ms, daemon_first_learn_ms=walls[0],
+               daemon_warm_learn_ms=walls[1], daemon_warm_learn_module_client_ms=walls[2],
+               oneshot_ll_ms=oneshot_ll_ms, daemon_first_ll_ms=ll_walls[0],
+               daemon_warm_ll_ms=ll_walls[1])
+    log(f"phase 21(e) daemon: server up in {start_ms} ms; learn -# 3 CLI wall: first "
+        f"{walls[0]} ms, warm {walls[1]} ms, warm with the client run by -m {walls[2]} ms "
+        f"(one-shot measured in (a)); log-likelihood: "
+        f"one-shot {oneshot_ll_ms} ms, daemon first {ll_walls[0]} ms, warm {ll_walls[1]} ms; "
+        f"output and model files equal to the one-shot CLI's")
+    return out
+
+
+def warm_median(fn, reps=3):
+    """(result, median ms of `reps` timed calls after one warm-up call)."""
+    fn()
+    runs = [timed(fn) for _ in range(reps)]
+    return runs[-1][0], float(np.median([ms for _, ms in runs]))
+
+
+def phase_dist(dev, workdir):
+    """Phase 22: the distributed layer at world size 1 on NCCL, the group
+    started here from a file store.  make_dist_objective (FTC at N = 16384;
+    DTC, DTCVAR, FITC at M = 1024) against the single-process model; 3 SCG
+    iterations of make_dist_train_step (DTC); GPServer(mesh=) against
+    GPServer; load_svml_sharded against read_svml; then two ranks on the one
+    card over gloo with CUDA tensors (child processes)."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.io import svml
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel import multihost
+    from gpc_tpu_torch.parallel.dist_gp import make_dist_objective, make_dist_train_step
+    from gpc_tpu_torch.parallel.mesh import backend_for, data_mesh, shard_rows
+    from gpc_tpu_torch.serving import GPServer
+
+    X, y, rng = slice_data()
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend_for(dev),                # NCCL on the card
+                            init_method=f"file://{os.path.join(workdir, 'store')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = data_mesh(dev)
+        check(mesh.size == 1 and mesh.device.type == dev.type, f"mesh {mesh}")
+        # the backend's communicator starts at the first collective
+        _, out["first_collective_ms"] = timed(
+            lambda: dist.all_reduce(torch.ones(1, device=mesh.device)))
+        mask = np.ones(N)
+        Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, mask))
+        for approx in ("ftc", "dtc", "dtcvar", "fitc"):
+            model = (GP(default_kern(Q), X, y, device=dev) if approx == "ftc"
+                     else sparse_model(X, y, approx, dev))
+            nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, N)
+            vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
+            vag0 = model.value_and_grad_fn()
+            (f, g), ms = warm_median(lambda: vag(model.theta))
+            (f0, g0), ms0 = warm_median(lambda: vag0(model.theta))
+            tol_f, tol_g = DIST_FTC_TOL if approx == "ftc" else DIST_SPARSE_TOL
+            rf, rg = rel_err(f, f0), rel_l2(g, g0)
+            check(np.isfinite(f) and rf <= tol_f and rg <= tol_g,
+                  f"dist {approx} vs single: value rel {rf}, θ̄ rel L2 {rg}")
+            out[approx] = dict(value_rel=rf, grad_rel_l2=rg, dist_vag_ms=ms, single_vag_ms=ms0)
+            log(f"phase 22 dist {approx} world 1: value {f} vs {f0} (rel {rf}), θ̄ rel L2 {rg}; "
+                f"value_and_grad {ms} ms vs single {ms0} ms (median of 3 after a warm-up)")
+            del model, nlml, vag, vag0
+            torch.cuda.empty_cache()
+        # SCG at the full cell rejects its first steps (the reference's δ
+        # update, PERF.md §6), so a cut of the cell where it moves too
+        for n, M in ((N, M_SPARSE), (SCG_ROWS, SCG_M)):
+            model = sparse_model(X[:n], y[:n], "dtc", dev, M=M)
+            step = make_dist_train_step(model.spec, mesh, model.bias, model.fixed_scales, n)
+            f_start = model.value_and_grad_fn()(model.theta)[0]
+            parts = (shard_rows(mesh, a[:n]) for a in (X, y, mask))
+            res, scg_ms = timed(lambda: step(model.theta, *parts, 3))
+            ref = model.optimise(iters=3)
+            ro, rx = rel_err(res.obj, ref.obj), rel_l2(res.x, ref.x)
+            tol = DIST_SCG_TOL if n == N else DIST_SCG_MOVING_TOL
+            check(res.iters == ref.iters and res.obj <= f_start and ro <= tol[0]
+                  and rx <= tol[1],
+                  f"dist SCG vs single at N={n}: iterations {res.iters}/{ref.iters}, "
+                  f"objective rel {ro}, θ rel L2 {rx}")
+            out[f"scg_n{n}"] = dict(start=f_start, obj=res.obj, obj_rel=ro, theta_rel_l2=rx,
+                                    ms=scg_ms)
+            log(f"phase 22 dist SCG (DTC, N={n}, M={M}) -# 3: objective {f_start} -> {res.obj} "
+                f"vs single {ref.obj} (rel {ro}), θ rel L2 {rx}, {scg_ms} ms")
+        model = GP(default_kern(Q), X, y, device=dev)
+        plain = GPServer(model, chunk=CHUNK)
+        meshed = GPServer(model, chunk=CHUNK, mesh=mesh)
+        worst = 0.0
+        for t in (CHUNK, 1000, 37):
+            Xt = rng.standard_normal((t, Q))
+            for a, b in zip(meshed.predict(Xt), plain.predict(Xt)):
+                worst = max(worst, float(np.abs(a - b).max()))
+        check(worst <= 1e-6, f"GPServer(mesh=) vs GPServer: {worst}")
+        out["server_max_abs_diff"] = worst
+        data = os.path.join(workdir, "interop.svml")       # written by phase 21
+        Xs, ys, n_valid = multihost.load_svml_sharded(data, mesh)
+        Xr, yr = svml.read_svml(data)
+        check(n_valid == N and np.array_equal(Xs, Xr) and np.array_equal(ys, yr),
+              "load_svml_sharded differs from read_svml")
+        log(f"phase 22 GPServer(mesh=) vs GPServer on {CHUNK}/1000/37 rows: max |diff| {worst}; "
+            f"load_svml_sharded equals read_svml")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["gloo_two_ranks"] = gloo_two_ranks(workdir)
+    return out
+
+
+def gloo_two_ranks(workdir):
+    """Two ranks on the one card over gloo with CUDA tensors, each a child
+    process (`chip_smoke.py --gloo-rank R`): whether gloo takes CUDA tensors
+    in all_reduce and all_gather, and where it does, the DTC (all_reduce)
+    and FTC (all_gather too) objectives and θ̄ against the single-process
+    model."""
+    store = os.path.join(workdir, "gloo_store")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+                               store], cwd=workdir, env=repo_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=WAIT_S)
+            check(p.returncode == 0, f"gloo rank failed: {e[-3000:]}")
+            outs.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=WAIT_S)
+    log(f"phase 22 gloo, two ranks on one card: {json.dumps(outs[0])}")
+    return outs[0]
+
+
+def gloo_rank_main(rank, store):
+    """One rank of gloo_two_ranks; prints one JSON line."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_gp import make_dist_objective
+    from gpc_tpu_torch.parallel.mesh import data_mesh, shard_rows
+
+    require_card()
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+    mesh = data_mesh()
+    res = {}
+    t = torch.ones(4, device=mesh.device)
+    for name, op in (("all_reduce", lambda: dist.all_reduce(t.clone())),
+                     ("all_gather", lambda: dist.all_gather([torch.empty_like(t) for _ in (0, 1)],
+                                                            t))):
+        try:
+            op()
+            res[name] = "ok"
+        except RuntimeError as e:       # the backend refuses CUDA tensors
+            res[name] = "refused: " + str(e).splitlines()[0][:200]
+    X, y, _ = slice_data()
+    Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(N)))
+    # DTC needs all_reduce; FTC all_gather too
+    for approx, needs, (tol_f, tol_g) in (("dtc", ("all_reduce",), DIST_SPARSE_TOL),
+                                          ("ftc", ("all_reduce", "all_gather"), DIST_FTC_TOL)):
+        if any(res[n] != "ok" for n in needs):
+            continue
+        model = (sparse_model(X, y, approx, mesh.device) if approx == "dtc"
+                 else GP(default_kern(Q), X, y, device=mesh.device))
+        nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, N)
+        vag = numpy_value_and_grad(lambda th: nlml(th, Xl, yl, ml), mesh.device)
+        (f, g), ms = warm_median(lambda: vag(model.theta))
+        f0, g0 = model.value_and_grad_fn()(model.theta)
+        rf, rg = rel_err(f, f0), rel_l2(g, g0)
+        check(rf <= tol_f and rg <= tol_g,
+              f"gloo rank {rank}: {approx} value rel {rf}, θ̄ rel L2 {rg}")
+        res.update({f"{approx}_value_rel": rf, f"{approx}_grad_rel_l2": rg,
+                    f"{approx}_vag_ms": ms})
+        del model, nlml, vag
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(json.dumps(res), flush=True)
+
+
 def main():
     card = require_card()   # exits non-zero without a CUDA device
     from gpc_tpu_torch.ops import cuda_lib
@@ -2446,6 +2851,29 @@ def main():
         log("gplvm: " + json.dumps(dict(model=gplvm, cli=gplvm_cli)))
         torch.cuda.empty_cache()
 
+        cuda_lib.LAUNCHES.clear()
+        interop = phase_interop(dev, workdir)
+        interop_launches = dict(cuda_lib.LAUNCHES)
+        log(f"interop-path launches: {interop_launches}")
+        for name in ("dist_gram", "inner_gram"):
+            check(interop_launches.get(name, 0) > 0, f"kernel {name} was not launched on the "
+                                                     "interop path")
+        log("interop: " + json.dumps(interop))
+        torch.cuda.empty_cache()
+
+        cuda_lib.LAUNCHES.clear()
+        distributed = phase_dist(dev, workdir)
+        dist_launches = dict(cuda_lib.LAUNCHES)
+        log(f"distributed-path launches: {dist_launches}")
+        check(dist_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on the "
+                                                     "distributed path")
+        log("distributed: " + json.dumps(distributed))
+        torch.cuda.empty_cache()
+        from gpc_tpu_torch.io.svml import READS
+        log(f"SVM-light reads in this process: {dict(READS)}")
+        check(READS["python"] == 0 and READS["native"] > 0,
+              "the Python SVM-light reader ran: the native reader did not build or load")
+
     cuda_lib.LAUNCHES.clear()
     iterative = phase_iterative(dev)
     iter_launches = dict(cuda_lib.LAUNCHES)
@@ -2500,7 +2928,10 @@ def main():
              **at_sparse["dist_gram"], ftc_optimiser_launches=opt_launches["dist_gram"],
              ivm_launches=ivm_launches["dist_gram"], ivm_shapes=ivm_k["dist_gram"],
              gplvm_launches=gplvm_launches["dist_gram"],
-             iterative_launches=iter_launches["dist_gram"], gplvm_shapes=gplvm_k),
+             iterative_launches=iter_launches["dist_gram"], gplvm_shapes=gplvm_k,
+             interop_launches=interop_launches["dist_gram"],
+             fgp_launches=interop["fgp_launches"]["dist_gram"],
+             dist_launches=dist_launches["dist_gram"]),
         dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
                       "K1's batch axis)",
@@ -2521,7 +2952,8 @@ def main():
              replaces="gpc_tpu/ops/gram_pallas.py:145", launches=zoo_launches["inner_gram"], **k4,
              **at_sparse["inner_gram"], ivm_launches=ivm_launches["inner_gram"],
              gplvm_launches=gplvm_launches["inner_gram"],
-             ivm_shapes=ivm_k["inner_gram"]),
+             ivm_shapes=ivm_k["inner_gram"], interop_launches=interop_launches["inner_gram"],
+             fgp_launches=interop["fgp_launches"]["inner_gram"]),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
              launches=ragged_launches["chol_inv_block"],
@@ -2559,4 +2991,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank_main(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -43,5 +43,7 @@ def work_dtype(device) -> torch.dtype:
 
 
 def as_tensor(x, device) -> torch.Tensor:
-    """numpy (or tensor) → tensor on `device` in its working dtype."""
-    return torch.as_tensor(x).to(device=device, dtype=work_dtype(device))
+    """numpy (or tensor) → contiguous tensor on `device` in its working
+    dtype (the kernels take row-major operands; loadmat's arrays, say, are
+    column-major)."""
+    return torch.as_tensor(x).to(device=device, dtype=work_dtype(device)).contiguous()

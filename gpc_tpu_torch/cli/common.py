@@ -1,9 +1,10 @@
 """Shared CLI machinery (counterpart of gpc_tpu/cli/common.py, the parts the
 ported gp and ivm commands use): the argument cursor with `-v` verbosity,
-`-s` seed and `--device cpu|cuda` (default: the card), SVM-light data
-loading, the kernel-spec grammar of `learn` (gp.cpp:150-250) with ivm's
-default kernel and variance priors and gplvm's usage axis (the latent
-kernel, -c back constraints, -D dynamics), and unheaded matrix output."""
+`-s` seed and `--device cpu|cuda` (default: the card), data loading
+(SVM-light, or under -f 1 a MATLAB .mat file), the kernel-spec grammar of
+`learn` (gp.cpp:150-250) with ivm's default kernel and variance priors and
+gplvm's usage axis (the latent kernel, -c back constraints, -D dynamics),
+and unheaded matrix output."""
 
 from __future__ import annotations
 
@@ -79,11 +80,6 @@ class CommandLine:
             else:
                 break
             self.advance()
-
-
-def not_ported(what: str, item: str):
-    return ExitError(f"{what} is not yet ported to gpc_tpu_torch "
-                     f"(ROADMAP.md, {item})")
 
 
 class KernelSpecParser:
@@ -267,11 +263,29 @@ class KernelSpecParser:
 
 
 def load_data(path, file_format: int = 0):
-    """CClctrl::readData (CClctrl.cpp:173-199): format 0 is SVM-light."""
+    """CClctrl::readData (CClctrl.cpp:173-199): format 0 is SVM-light,
+    format 1 a MATLAB .mat file with variables X and y (read with
+    scipy.io, so GPmat's data files load; a vector y becomes (N, 1))."""
     if file_format == 0:
         return read_svml(path)
     if file_format == 1:
-        raise not_ported("file format 1 (MATLAB .mat)", "queue 1 item 11")
+        import scipy.io
+        try:
+            mat = scipy.io.loadmat(path)
+        except Exception as e:  # noqa: BLE001 - any unreadable file is the CLI's error
+            raise ExitError(f"Unable to read MATLAB file {path}: {e}")
+        missing = [k for k in ("X", "y") if k not in mat]
+        if missing:
+            raise ExitError(f"MATLAB file {path} lacks variable(s): " + ", ".join(missing))
+        X = np.atleast_2d(np.asarray(mat["X"], dtype=np.float64))
+        y = np.asarray(mat["y"], dtype=np.float64)
+        # a vector y (1-D in the writer, which loadmat returns as one row)
+        # is one target a row
+        if y.ndim == 1 or (y.shape[0] == 1 and y.shape[1] == X.shape[0] > 1):
+            y = y.reshape(-1, 1)
+        # loadmat's arrays are column-major; row-major ones compute as
+        # format 0's do, bit for bit
+        return np.ascontiguousarray(X), np.ascontiguousarray(y)
     raise ExitError("Unrecognised file format number.")
 
 

@@ -7,7 +7,7 @@ gpc_tpu's: FTC and the sparse approximations (-A dtc|dtcvar|fitc|pitc with
 mlp|matern32|matern52, ARD under -i 1) and the optimisers -O scg|conjgrad|
 graddesc|quasinew.  A model file keeps its noise block, and gnuplot of a
 model with probit or ncnm noise takes gpc_tpu's classification branch.
--f 1 exits "not yet ported".  Usage:
+-f 1 reads a MATLAB .mat data file (variables X and y).  Usage:
 
     python -m gpc_tpu_torch.cli.gp [-v verbosity] [-s seed] [--device cpu|cuda] COMMAND ...
 
@@ -49,8 +49,7 @@ def _help():
           "  -g gamma -@ alpha -v variance -w weight-var -b bias-var -d degree\n"
           "  -i input-select  -O scg|conjgrad|graddesc|quasinew  -# iters  -f format\n"
           "  -c ckpt-file [--checkpoint-every N] [-r resume]  SCG checkpoints\n"
-          "Gnuplot options: -p point-size (2) -r resolution (80) -l labels (unused)\n"
-          "Not yet ported: -f 1.")
+          "Gnuplot options: -p point-size (2) -r resolution (80) -l labels (unused)")
 
 
 def _report_and_write(cl, model, res, model_file):

@@ -12,7 +12,7 @@ learn takes -x latent dimension, -k/-g/-v/-w/-b/-d/-i the latent kernel,
 learn them) and -ds the scale, -C centre, -S scale, -L learn scales,
 -R regularise the latents, -I pca|rand, -O scg|conjgrad|graddesc|quasinew,
 -# iterations, and --checkpoint file [--checkpoint-every N] [--resume].
--f 1 exits "not yet ported".  Every command runs on the card unless
+-f 1 reads a MATLAB .mat data file (variables X and y).  Every command runs on the card unless
 `--device cpu` is given; GPC_TPU_EVIDENCE=dense|lazy|panel|iterative
 selects the evidence engine of training, as in gpc_tpu.
 """
@@ -39,8 +39,7 @@ def _help():
           "  -dr dynamics-SNR -ds dynamics-scale -C centre (1) -S scale (0)\n"
           "  -L learn-scales -R regularise-latent (1) -I pca|rand\n"
           "  -k kernel specs (-g/-v/-w/-b/-d/-i)  -O optimiser  -# iters\n"
-          "  --checkpoint file [--checkpoint-every N] [--resume]  preemption checkpoints\n"
-          "Not yet ported: -f 1.")
+          "  --checkpoint file [--checkpoint-every N] [--resume]  preemption checkpoints")
 
 
 def _dynamics(ks: KernelSpecParser, q: int, ratio: float, scale: float):

@@ -3,9 +3,9 @@
 Port of gpc_tpu/optim/lbfgs.py (COptimisable::lbfgsOptimise, reference
 COptimisable.cpp:185-245).  The engine is a copy of gpc_tpu's
 `native/lbfgs.cpp` (Moré-Thuente line search, m = 10 history pairs), built
-with `g++ -O3 -shared -fPIC` at first use into `gpc_tpu_torch/_build/` and
-loaded with ctypes; it owns the curvature history and the step logic, and
-every objective and gradient comes from `value_and_grad_fn` (float64 vector
+at first use by the port's native-build helper (native/build.py: g++ into
+`gpc_tpu_torch/_build/`) and loaded with ctypes; it owns the curvature
+history and the step logic, and every objective and gradient comes from `value_and_grad_fn` (float64 vector
 in, the model's device computes).  Without a C++ compiler the pure-Python
 two-loop fallback runs, as in gpc_tpu.  `ENGINE_RUNS` counts the runs of
 each engine ("native" or "python"), so a caller can tell which one ran.
@@ -15,20 +15,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent.parent / "native" / "lbfgs.cpp"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_LOCK = threading.Lock()
-_lib = None
-_tried = False
+from gpc_tpu_torch.native import build
 
 ENGINE_RUNS: collections.Counter = collections.Counter()
 
@@ -40,42 +31,21 @@ class LbfgsResult(NamedTuple):
     converged: bool
 
 
-def _build() -> Path:
-    """The engine's shared library, compiled unless a build of this very
-    source exists (its file name carries the source's hash)."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_DIR / f"liblbfgs_{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC),
-                        "-o", str(tmp)], check=True, capture_output=True)
-        os.replace(tmp, so)
-    return so
-
-
 def native_lib():
     """The loaded engine, or None when it cannot be built here."""
-    global _lib, _tried
-    with _LOCK:
-        if not _tried:
-            _tried = True
-            try:
-                lib = ctypes.CDLL(str(_build()))
-            except (OSError, subprocess.CalledProcessError):
-                return None
-            dp = ctypes.POINTER(ctypes.c_double)
-            lib.lbfgs_create.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.lbfgs_create.restype = ctypes.c_void_p
-            lib.lbfgs_destroy.argtypes = [ctypes.c_void_p]
-            lib.lbfgs_set_tols.argtypes = [ctypes.c_void_p, ctypes.c_double,
-                                           ctypes.c_double, ctypes.c_int]
-            lib.lbfgs_step.argtypes = [ctypes.c_void_p, dp, ctypes.c_double, dp]
-            lib.lbfgs_step.restype = ctypes.c_int
-            lib.lbfgs_iterations.argtypes = [ctypes.c_void_p]
-            lib.lbfgs_iterations.restype = ctypes.c_long
-            _lib = lib
-        return _lib
+    lib = build.load("lbfgs")
+    if lib is not None:
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.lbfgs_create.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lbfgs_create.restype = ctypes.c_void_p
+        lib.lbfgs_destroy.argtypes = [ctypes.c_void_p]
+        lib.lbfgs_set_tols.argtypes = [ctypes.c_void_p, ctypes.c_double,
+                                       ctypes.c_double, ctypes.c_int]
+        lib.lbfgs_step.argtypes = [ctypes.c_void_p, dp, ctypes.c_double, dp]
+        lib.lbfgs_step.restype = ctypes.c_int
+        lib.lbfgs_iterations.argtypes = [ctypes.c_void_p]
+        lib.lbfgs_iterations.restype = ctypes.c_long
+    return lib
 
 
 def lbfgs(value_and_grad_fn: Callable, x0, max_iters: int = 1000, m: int = 10,

@@ -10,6 +10,12 @@ Grams of the factor and each batch's cross-Gram run kernel K1 (the distance
 family) or K4 (lin, poly, mlp).  IvmServer holds an IVM's d × d factor of
 K + B⁻¹ per covariance structure and α = (K + B⁻¹)⁻¹m̃; a batch is its
 d × T cross-Gram (K1/K4) and triangular solves.
+
+`GPServer(model, mesh=...)` serves across the ranks of a data mesh
+(parallel/mesh.py): every rank holds the replicated state, computes its
+row block of each bucket-padded chunk, and an all-gather gives every rank
+the whole (mu, varsigma).  `chunk` must then be a multiple of the world
+size, and buckets are rounded up to one.
 """
 
 from __future__ import annotations
@@ -28,13 +34,25 @@ class GPServer:
 
     `explicit_inverse` (FTC only, as in gpc_tpu) defaults to on for CUDA and
     off for the CPU (the f64 parity route).  `predict` matches `GP.predict` to numerical precision
-    for any request size, ragged tails included."""
+    for any request size, ragged tails included.  With `mesh` each rank
+    computes its rows of every chunk (the model's device must be the
+    mesh's)."""
 
     def __init__(self, model: GP, chunk: int = 8192,
-                 explicit_inverse: Optional[bool] = None):
+                 explicit_inverse: Optional[bool] = None, mesh=None):
         self.spec = model.spec
         self.device = model.device
         self.chunk = int(chunk)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.chunk % mesh.size:
+                raise ValueError(f"GPServer: chunk {self.chunk} is not a multiple of the "
+                                 f"world size {mesh.size}")
+            # torch.empty(0) names the device in full (cuda → cuda:0)
+            if (torch.empty(0, device=mesh.device).device
+                    != torch.empty(0, device=self.device).device):
+                raise ValueError(f"GPServer: the model is on {self.device}, the mesh on "
+                                 f"{mesh.device}")
         if explicit_inverse is None:
             explicit_inverse = self.device.type == "cuda"
         self.explicit_inverse = bool(explicit_inverse) and not self.spec.sparse
@@ -47,14 +65,25 @@ class GPServer:
 
     def _bucket(self, t: int) -> int:
         """Padded batch size for a t-row piece: the next power of two,
-        capped at `chunk`."""
+        capped at `chunk` and, under a mesh, rounded up to a multiple of the
+        world size."""
         b = 1
         while b < t:
             b <<= 1
-        return max(min(b, self.chunk), 1)
+        b = min(b, self.chunk)
+        if self.mesh is not None:
+            b = -(-b // self.mesh.size) * self.mesh.size
+        return max(b, 1)
 
     def _apply(self, Xt):
-        return posterior_apply(self.spec, self.state, Xt)
+        if self.mesh is None:
+            return posterior_apply(self.spec, self.state, Xt)
+        from gpc_tpu_torch.parallel.mesh import gather_rows
+        mesh = self.mesh
+        rows = Xt.shape[0] // mesh.size
+        mu, var = posterior_apply(self.spec, self.state,
+                                  Xt[mesh.rank * rows:(mesh.rank + 1) * rows])
+        return gather_rows(mesh, mu), gather_rows(mesh, var)
 
     def predict(self, Xtest):
         """(mu, varsigma) as numpy arrays for any number of test rows."""
@@ -89,6 +118,7 @@ class IvmServer(GPServer):
         self.spec = model.spec
         self.device = model.device
         self.chunk = int(chunk)
+        self.mesh = None
         self.refresh(model)
 
     def refresh(self, model):

@@ -10,9 +10,9 @@ each kernel type of the -k grammar (ARD under -i 1) gives hyperparameters
 within 1e-7, and each package reads the other's model file.  The sparse
 approximations (-A with -a) under each optimiser (-O) learn as gpc_tpu's do
 (tolerances at the test), and `gnuplot` writes gpc_tpu's files: the same
-text and names, the posterior's numbers within 1e-12 of the largest.  The
-unported path (-f 1), flags out of place and a missing card exit with an
-error.  A GP model file with probit noise reads in both packages, and every
+text and names, the posterior's numbers within 1e-12 of the largest.  -f 1
+on a file that is not a .mat file, flags out of place and a missing card
+exit with an error.  A GP model file with probit noise reads in both packages, and every
 command on it (gnuplot's classification branch included) gives gpc_tpu's
 output.  The ivm CLI (gpc_tpu_torch.cli.ivm): its 8 commands against
 gpc_tpu.cli.ivm, with -l, -o ncnm, -o regression and -c/-r (tolerances at
@@ -122,7 +122,7 @@ def test_panel_log_likelihood_matches_dense_cli(files, capsys, monkeypatch):
     (["test", "train3.svml", "probit_model"], "input data is not of correct dimension"),
     (["predict", "train3.svml", "probit_model"], "input data is not of correct dimension"),
     (["gnuplot", "train3.svml", "probit_model"], "Incorrect dimension of input data"),
-    (["learn", "-f", "1", "train.svml"], "not yet ported"),
+    (["learn", "-f", "1", "train.svml"], "Unable to read MATLAB file train.svml"),
     (["learn", "-k", "foo", "train.svml"], "Unknown covariance function type"),
     (["learn", "-g", "1.0", "train.svml"], "must come after covariance"),
     (["learn", "-O", "bogus", "train.svml"], "Unrecognised optimiser"),
@@ -712,9 +712,10 @@ def test_gplvm_gnuplot_errors_match_jax(gplvm_dir):
 
 
 def test_gplvm_unported_format_and_no_card(gplvm_dir, monkeypatch):
-    """-f 1 exits "not yet ported" as gp and ivm do; without a card and
-    without --device cpu every command exits naming the flag."""
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """-f 1 reads a .mat file, so an SVM-light file under it exits with
+    gpc_tpu's message, as gp and ivm do; without a card and without
+    --device cpu every command exits naming the flag."""
+    with pytest.raises(SystemExit, match="Unable to read MATLAB file y.svml"):
         port_gplvm.main(CPU + ["learn", "-f", "1", "y.svml"])
     port_gplvm.main(CPU + ["learn", "-#", "1", "y.svml", "m"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -37,7 +37,12 @@ IVM.predict.  The GP-LVM: its objective and θ̄ on the card (K1; K5 leaves
 for the lazy objective alone) against the CPU float64 route (1e-4, 1e-3);
 the iterative engine's blockwise MVM within 1e-5 of the plain product; the
 masked engine with K1 against itself with the plain Gram (1e-4 on its
-values, 1e-3 on θ̄).
+values, 1e-3 on θ̄).  Interop and the distributed layer: fgp on the card
+(objective within 1e-4 of the CPU float64 route, query within 1e-4 of
+GP.predict), .mat round trips (1e-6), learn -f 1 against -f 0 (the same
+output), the native SVM-light reader on the card's machine, and
+make_dist_objective on NCCL at world size 1 against the single-process
+model (1e-5 on the value, 1e-4 relative L2 on θ̄).
 """
 
 import numpy as np
@@ -1075,3 +1080,115 @@ def test_masked_engine_on_card_equals_plain_k1(dev, monkeypatch):
     assert float(((vals - vals_p).abs() / vals_p.abs()).max()) < 1e-4
     for a, b in zip(grads, grads_p):
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-3
+
+
+# ---------------------------------------------------------------- interop --
+
+
+def _interop_data(n=512, q=3, seed=12):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, q))
+    return X, np.sin(X.sum(axis=1, keepdims=True)) + 0.1 * rng.standard_normal((n, 1))
+
+
+def _cmpnd(q):
+    return TK.Cmpnd(input_dim=q, components=(TK.Rbf(input_dim=q), TK.Bias(input_dim=q),
+                                             TK.White(input_dim=q)))
+
+
+def test_fgp_on_card(dev):
+    """fgp on the card: K1 runs, the objective within 1e-4 of the CPU
+    float64 route's, the query within 1e-4 of GP.predict."""
+    import importlib
+    F = importlib.import_module("gpc_tpu_torch.interop.fgp")
+    X, y = _interop_data()
+    F.clear()
+    before = LAUNCHES["dist_gram"]
+    obj = F.train("rBw", X, y, iters=3)
+    assert LAUNCHES["dist_gram"] > before and F._state["model"].device.type == "cuda"
+    F.clear()
+    obj_cpu = F.train("rBw", X, y, iters=3, device="cpu")
+    assert abs(obj - obj_cpu) / abs(obj_cpu) < 1e-4
+    F.train("rBw", X, y, iters=3)
+    mu, var = F.query(X[:100], want_variance=True)
+    want_mu, want_var = F._state["model"].predict(X[:100])
+    for got, want in ((mu, want_mu), (var, want_var)):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    F.clear()
+
+
+@pytest.mark.parametrize("approx", ["ftc", "dtc"])
+def test_mat_round_trip_on_card(dev, tmp_path, approx):
+    """write_gp_mat → read_gp_mat on the card: the same log-likelihood
+    within 1e-6."""
+    from gpc_tpu_torch.io import mat_io
+    X, y = _interop_data()
+    kw = dict(num_active=64, seed=0) if approx == "dtc" else {}
+    model = GP(_cmpnd(3), X, y, approx=approx, device=dev, **kw)
+    mat_io.write_gp_mat(tmp_path / "m.mat", model, X=X, y=y)
+    back = mat_io.read_gp_mat(tmp_path / "m.mat")
+    assert back.device.type == "cuda"
+    ll, ll_back = model.log_likelihood(), back.log_likelihood()
+    assert abs(ll_back - ll) <= 1e-6 * abs(ll)
+
+
+def test_format_1_learn_on_card(dev, tmp_path, monkeypatch, capsys):
+    """gp learn -f 1 on the card prints what -f 0 prints on the same data."""
+    import scipy.io as sio
+
+    from gpc_tpu_torch.cli import gp as port_gp
+    from gpc_tpu_torch.io.svml import write_svml
+    monkeypatch.chdir(tmp_path)
+    X, y = _interop_data()
+    sio.savemat("d.mat", {"X": X, "y": y})
+    write_svml("d.svml", X, y)
+    outs = []
+    for argv in (["-f", "1", "d.mat", "m1"], ["d.svml", "m0"]):
+        port_gp.main(["-s", "1", "learn", "-#", "3"] + argv)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "Final objective" in outs[0]
+
+
+def test_native_svml_reader_on_card_machine(tmp_path):
+    """The card's machine builds the native reader: read_svml takes it."""
+    from gpc_tpu_torch.io import svml
+    from gpc_tpu_torch.native import svml_native
+    X, y = _interop_data(n=200)
+    svml.write_svml(tmp_path / "d.svml", X, y)
+    native = svml_native.read(tmp_path / "d.svml")
+    assert native is not None
+    for a, b in zip(native, svml.read_svml_py(tmp_path / "d.svml")):
+        np.testing.assert_array_equal(a, b)
+    before = dict(svml.READS)
+    svml.read_svml(tmp_path / "d.svml")
+    assert svml.READS["native"] == before.get("native", 0) + 1
+    assert svml.READS["python"] == before.get("python", 0)
+
+
+@pytest.mark.parametrize("approx", ["ftc", "dtc", "dtcvar", "fitc"])
+def test_dist_objective_world_size_1_on_card(dev, tmp_path, approx):
+    """make_dist_objective on NCCL at world size 1 against the single-process
+    model on the card: the value within 1e-5, θ̄ within 1e-4 relative L2
+    (both float32, summed in other orders); K1 runs."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_gp import make_dist_objective
+    from gpc_tpu_torch.parallel.mesh import data_mesh, shard_rows
+    X, y = _interop_data(n=1000)
+    kw = dict(num_active=64, seed=0) if approx != "ftc" else {}
+    model = GP(_cmpnd(3), X, y, approx=approx, device=dev, **kw)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = data_mesh()
+        nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, 1000)
+        Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(1000)))
+        before = LAUNCHES["dist_gram"]
+        f, g = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)(model.theta)
+        assert LAUNCHES["dist_gram"] > before
+    finally:
+        dist.destroy_process_group()
+    f0, g0 = model.value_and_grad_fn()(model.theta)
+    assert abs(f - f0) <= 1e-5 * abs(f0)
+    assert np.linalg.norm(g - g0) <= 1e-4 * np.linalg.norm(g0)

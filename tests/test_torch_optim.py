@@ -146,12 +146,15 @@ def test_lbfgs_python_matches_jax(monkeypatch, iters):
 
 
 def test_lbfgs_engine_builds_into_the_build_dir():
-    """The engine is a copy of gpc_tpu's source, built into
-    gpc_tpu_torch/_build/ under a name carrying the source's hash."""
-    so = TL._build()
+    """The engine is a copy of gpc_tpu's source, built by the port's one
+    native-build helper into gpc_tpu_torch/_build/ under a name carrying
+    the source's hash."""
+    from gpc_tpu_torch.native import build
+    so = build.library_path("lbfgs")
     assert so.parent.name == "_build" and so.parent.parent.name == "gpc_tpu_torch"
     assert so.exists() and so.name.startswith("liblbfgs_")
-    assert TL._SRC.parent.parent.name == "gpc_tpu_torch"
+    assert build.SOURCES["lbfgs"] == "lbfgs.cpp"
+    assert TL.native_lib() is build.load("lbfgs")
 
 
 @pytest.mark.parametrize("name", ["conjgrad", "graddesc", "quasinew"])
