@@ -65,10 +65,18 @@ client, twice, byte for byte the one-shot CLI's).  Phase 22, the
 distributed layer at world size 1 on NCCL, its group started here from a
 file store: make_dist_objective for FTC and DTC, DTCVAR, FITC (M = 1024)
 against the single-process model, 3 SCG iterations of make_dist_train_step,
-GPServer(mesh=) against GPServer, load_svml_sharded against read_svml; and
-two ranks on the one card over gloo with CUDA tensors (child processes,
-`chip_smoke.py --gloo-rank R STORE`).  The script fails if the Python
-SVM-light reader ran in its process.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
+GPServer(mesh=) against GPServer, load_svml_sharded against read_svml.
+Phase 23, the rest of the distributed layer in the same group: dist_ftc
+(evidence_distributed's panel sweep) and its posterior, dist_gplvm (plain
+at N = 16384; GPDM and back-constrained at 4096), dist_iterative on the
+single process's probes, dist_ivm's order against the graph's (N = 4096,
+d = 512), DTC/DTCVAR/FITC on mesh_2d(1, 1) at M = 1024 against the CPU
+float64 route, scaling_bench's run and census.  Then two ranks on the one
+card over gloo with CUDA tensors (child processes, `chip_smoke.py
+--gloo-rank R STORE REFS`): phase 22's DTC and FTC, and phase 23's dist_ftc
+on two panels, the 2×1 and 1×2 meshes, dist_ivm and scaling_bench at
+world 2.  The script fails if the Python SVM-light reader ran in its
+process.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
 the column-stripe Gram tile with its parameters on the card: phases 2–3
@@ -79,7 +87,9 @@ correction kernel alone to the float32 product of its bf16 operands, prints
 K3's device time by part (correction, leaf, solve, reduce) against its
 wall and the correction's byte floor, and holds K3 at N = 32768 to the dense
 f32 and f64 routes.  Each path runs with the launch counts
-set to 0 just before it and read just after.  Every check
+set to 0 just before it and read just after; in phase 23 each distributed
+call is so counted apart from the single-process references beside it,
+and each module must launch K1 (the 2-D mesh K4 too).  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -88,6 +98,7 @@ line before the last is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -2220,18 +2231,21 @@ def phase_gplvm_cli(dev, workdir):
     return out
 
 
-def iterative_check(tag, kern, p, X, m, mask=None):  # noqa: C901
+def iterative_check(tag, kern, p, X, m, mask=None, evidence=None, phase=20):  # noqa: C901
     """One iterative evidence at full size against float64: quad within
     the bound its CG residual gives (|mᵀK⁻¹r| ≤ Σⱼ‖αⱼ‖‖rⱼ‖, with r the
     true residual of the CG iterate, plus float32 rounding of the sum) and
     logdet within 0.05 relative (tests/test_iterative.py:120).  Returns the
     record: values, the achieved relative residual, CG iterations, ms and
-    K1 launches."""
+    K1 launches.  `evidence` () → (logdet, quad) replaces the
+    single-process engine (the distributed one of phase 23)."""
     from gpc_tpu_torch.ops import cuda_lib
     from gpc_tpu_torch.ops import iterative as TI
     before = cuda_lib.LAUNCHES["dist_gram"]
     with torch.no_grad():
-        if mask is None:
+        if evidence is not None:
+            (ld, quad), ms = timed(evidence)
+        elif mask is None:
             (ld, quad), ms = timed(lambda: TI.kern_evidence_iterative(kern, p, X, m))
         else:
             (ld, quad), ms = timed(lambda: TI.kern_evidence_iterative_masked(kern, p, X, m, mask))
@@ -2256,7 +2270,7 @@ def iterative_check(tag, kern, p, X, m, mask=None):  # noqa: C901
     rec = dict(logdet=ld, quad=quad, logdet_f64=ld64, quad_f64=q64, rel_logdet=rel_ld,
                quad_err=abs(quad - q64), quad_bound=bound_q, rel_residual=rel_res,
                cg_iters=int(sol.iters), ms=ms, k1_launches=launches)
-    log(f"phase 20 iterative {tag}: {json.dumps(rec)}")
+    log(f"phase {phase} iterative {tag}: {json.dumps(rec)}")
     return rec
 
 
@@ -2598,13 +2612,31 @@ def warm_median(fn, reps=3):
     return runs[-1][0], float(np.median([ms for _, ms in runs]))
 
 
-def phase_dist(dev, workdir):
-    """Phase 22: the distributed layer at world size 1 on NCCL, the group
-    started here from a file store.  make_dist_objective (FTC at N = 16384;
+@contextlib.contextmanager
+def world_one(dev, workdir):
+    """The world-size-1 group of phases 22 and 23 (NCCL on the card),
+    started from a file store; yields its data mesh."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.parallel.mesh import backend_for, data_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend_for(dev), init_method=f"file://{os.path.join(workdir, 'store')}",
+                            world_size=1, rank=0)
+    try:
+        mesh = data_mesh(dev)
+        check(mesh.size == 1 and mesh.device.type == dev.type, f"mesh {mesh}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist(dev, workdir, mesh):
+    """Phase 22: the distributed layer at world size 1 on NCCL (`mesh`, the
+    group world_one starts).  make_dist_objective (FTC at N = 16384;
     DTC, DTCVAR, FITC at M = 1024) against the single-process model; 3 SCG
     iterations of make_dist_train_step (DTC); GPServer(mesh=) against
-    GPServer; load_svml_sharded against read_svml; then two ranks on the one
-    card over gloo with CUDA tensors (child processes)."""
+    GPServer; load_svml_sharded against read_svml.  Its two ranks on the
+    one card over gloo run in gloo_two_ranks, after phase 23."""
     import torch.distributed as dist
 
     from gpc_tpu_torch.io import svml
@@ -2612,93 +2644,445 @@ def phase_dist(dev, workdir):
     from gpc_tpu_torch.optim import numpy_value_and_grad
     from gpc_tpu_torch.parallel import multihost
     from gpc_tpu_torch.parallel.dist_gp import make_dist_objective, make_dist_train_step
-    from gpc_tpu_torch.parallel.mesh import backend_for, data_mesh, shard_rows
+    from gpc_tpu_torch.parallel.mesh import shard_rows
     from gpc_tpu_torch.serving import GPServer
 
     X, y, rng = slice_data()
     out = {}
-    if dev.type == "cuda":
-        torch.cuda.set_device(0)
-    dist.init_process_group(backend_for(dev),                # NCCL on the card
-                            init_method=f"file://{os.path.join(workdir, 'store')}",
-                            world_size=1, rank=0)
-    try:
-        mesh = data_mesh(dev)
-        check(mesh.size == 1 and mesh.device.type == dev.type, f"mesh {mesh}")
-        # the backend's communicator starts at the first collective
-        _, out["first_collective_ms"] = timed(
-            lambda: dist.all_reduce(torch.ones(1, device=mesh.device)))
-        mask = np.ones(N)
-        Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, mask))
-        for approx in ("ftc", "dtc", "dtcvar", "fitc"):
-            model = (GP(default_kern(Q), X, y, device=dev) if approx == "ftc"
-                     else sparse_model(X, y, approx, dev))
-            nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, N)
-            vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
-            vag0 = model.value_and_grad_fn()
-            (f, g), ms = warm_median(lambda: vag(model.theta))
-            (f0, g0), ms0 = warm_median(lambda: vag0(model.theta))
-            tol_f, tol_g = DIST_FTC_TOL if approx == "ftc" else DIST_SPARSE_TOL
-            rf, rg = rel_err(f, f0), rel_l2(g, g0)
-            check(np.isfinite(f) and rf <= tol_f and rg <= tol_g,
-                  f"dist {approx} vs single: value rel {rf}, θ̄ rel L2 {rg}")
-            out[approx] = dict(value_rel=rf, grad_rel_l2=rg, dist_vag_ms=ms, single_vag_ms=ms0)
-            log(f"phase 22 dist {approx} world 1: value {f} vs {f0} (rel {rf}), θ̄ rel L2 {rg}; "
-                f"value_and_grad {ms} ms vs single {ms0} ms (median of 3 after a warm-up)")
-            del model, nlml, vag, vag0
-            torch.cuda.empty_cache()
-        # SCG at the full cell rejects its first steps (the reference's δ
-        # update, PERF.md §6), so a cut of the cell where it moves too
-        for n, M in ((N, M_SPARSE), (SCG_ROWS, SCG_M)):
-            model = sparse_model(X[:n], y[:n], "dtc", dev, M=M)
-            step = make_dist_train_step(model.spec, mesh, model.bias, model.fixed_scales, n)
-            f_start = model.value_and_grad_fn()(model.theta)[0]
-            parts = (shard_rows(mesh, a[:n]) for a in (X, y, mask))
-            res, scg_ms = timed(lambda: step(model.theta, *parts, 3))
-            ref = model.optimise(iters=3)
-            ro, rx = rel_err(res.obj, ref.obj), rel_l2(res.x, ref.x)
-            tol = DIST_SCG_TOL if n == N else DIST_SCG_MOVING_TOL
-            check(res.iters == ref.iters and res.obj <= f_start and ro <= tol[0]
-                  and rx <= tol[1],
-                  f"dist SCG vs single at N={n}: iterations {res.iters}/{ref.iters}, "
-                  f"objective rel {ro}, θ rel L2 {rx}")
-            out[f"scg_n{n}"] = dict(start=f_start, obj=res.obj, obj_rel=ro, theta_rel_l2=rx,
-                                    ms=scg_ms)
-            log(f"phase 22 dist SCG (DTC, N={n}, M={M}) -# 3: objective {f_start} -> {res.obj} "
-                f"vs single {ref.obj} (rel {ro}), θ rel L2 {rx}, {scg_ms} ms")
-        model = GP(default_kern(Q), X, y, device=dev)
-        plain = GPServer(model, chunk=CHUNK)
-        meshed = GPServer(model, chunk=CHUNK, mesh=mesh)
-        worst = 0.0
-        for t in (CHUNK, 1000, 37):
-            Xt = rng.standard_normal((t, Q))
-            for a, b in zip(meshed.predict(Xt), plain.predict(Xt)):
-                worst = max(worst, float(np.abs(a - b).max()))
-        check(worst <= 1e-6, f"GPServer(mesh=) vs GPServer: {worst}")
-        out["server_max_abs_diff"] = worst
-        data = os.path.join(workdir, "interop.svml")       # written by phase 21
-        Xs, ys, n_valid = multihost.load_svml_sharded(data, mesh)
-        Xr, yr = svml.read_svml(data)
-        check(n_valid == N and np.array_equal(Xs, Xr) and np.array_equal(ys, yr),
-              "load_svml_sharded differs from read_svml")
-        log(f"phase 22 GPServer(mesh=) vs GPServer on {CHUNK}/1000/37 rows: max |diff| {worst}; "
-            f"load_svml_sharded equals read_svml")
-    finally:
-        dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    out["gloo_two_ranks"] = gloo_two_ranks(workdir)
+    # the backend's communicator starts at the first collective
+    _, out["first_collective_ms"] = timed(
+        lambda: dist.all_reduce(torch.ones(1, device=mesh.device)))
+    mask = np.ones(N)
+    Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, mask))
+    for approx in ("ftc", "dtc", "dtcvar", "fitc"):
+        model = (GP(default_kern(Q), X, y, device=dev) if approx == "ftc"
+                 else sparse_model(X, y, approx, dev))
+        nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, N)
+        vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
+        vag0 = model.value_and_grad_fn()
+        (f, g), ms = warm_median(lambda: vag(model.theta))
+        (f0, g0), ms0 = warm_median(lambda: vag0(model.theta))
+        tol_f, tol_g = DIST_FTC_TOL if approx == "ftc" else DIST_SPARSE_TOL
+        rf, rg = rel_err(f, f0), rel_l2(g, g0)
+        check(np.isfinite(f) and rf <= tol_f and rg <= tol_g,
+              f"dist {approx} vs single: value rel {rf}, θ̄ rel L2 {rg}")
+        out[approx] = dict(value_rel=rf, grad_rel_l2=rg, dist_vag_ms=ms, single_vag_ms=ms0)
+        log(f"phase 22 dist {approx} world 1: value {f} vs {f0} (rel {rf}), θ̄ rel L2 {rg}; "
+            f"value_and_grad {ms} ms vs single {ms0} ms (median of 3 after a warm-up)")
+        del model, nlml, vag, vag0
+        torch.cuda.empty_cache()
+    # SCG at the full cell rejects its first steps (the reference's δ
+    # update, PERF.md §6), so a cut of the cell where it moves too
+    for n, M in ((N, M_SPARSE), (SCG_ROWS, SCG_M)):
+        model = sparse_model(X[:n], y[:n], "dtc", dev, M=M)
+        step = make_dist_train_step(model.spec, mesh, model.bias, model.fixed_scales, n)
+        f_start = model.value_and_grad_fn()(model.theta)[0]
+        parts = (shard_rows(mesh, a[:n]) for a in (X, y, mask))
+        res, scg_ms = timed(lambda: step(model.theta, *parts, 3))
+        ref = model.optimise(iters=3)
+        ro, rx = rel_err(res.obj, ref.obj), rel_l2(res.x, ref.x)
+        tol = DIST_SCG_TOL if n == N else DIST_SCG_MOVING_TOL
+        check(res.iters == ref.iters and res.obj <= f_start and ro <= tol[0]
+              and rx <= tol[1],
+              f"dist SCG vs single at N={n}: iterations {res.iters}/{ref.iters}, "
+              f"objective rel {ro}, θ rel L2 {rx}")
+        out[f"scg_n{n}"] = dict(start=f_start, obj=res.obj, obj_rel=ro, theta_rel_l2=rx,
+                                ms=scg_ms)
+        log(f"phase 22 dist SCG (DTC, N={n}, M={M}) -# 3: objective {f_start} -> {res.obj} "
+            f"vs single {ref.obj} (rel {ro}), θ rel L2 {rx}, {scg_ms} ms")
+    model = GP(default_kern(Q), X, y, device=dev)
+    plain = GPServer(model, chunk=CHUNK)
+    meshed = GPServer(model, chunk=CHUNK, mesh=mesh)
+    worst = 0.0
+    for t in (CHUNK, 1000, 37):
+        Xt = rng.standard_normal((t, Q))
+        for a, b in zip(meshed.predict(Xt), plain.predict(Xt)):
+            worst = max(worst, float(np.abs(a - b).max()))
+    check(worst <= 1e-6, f"GPServer(mesh=) vs GPServer: {worst}")
+    out["server_max_abs_diff"] = worst
+    data = os.path.join(workdir, "interop.svml")       # written by phase 21
+    Xs, ys, n_valid = multihost.load_svml_sharded(data, mesh)
+    Xr, yr = svml.read_svml(data)
+    check(n_valid == N and np.array_equal(Xs, Xr) and np.array_equal(ys, yr),
+          "load_svml_sharded differs from read_svml")
+    log(f"phase 22 GPServer(mesh=) vs GPServer on {CHUNK}/1000/37 rows: max |diff| {worst}; "
+        f"load_svml_sharded equals read_svml")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the rest of the distributed layer
+# ---------------------------------------------------------------------------
+
+DIST_POST_ROWS = 8192                 # the posterior's test rows, 23(a)
+DIST_GPLVM_TOL = (1e-4, 1e-3)         # phase 19's limits: value, θ̄ relative L2
+GPDM_BREAKS = (0, 1250, 3000)         # phase 20's breaks, scaled to GPLVM_SMALL rows
+DIST_ITER_LD_TOL = 1e-3               # dist logdet against the single process's, same probes
+GLOO_FTC_N = 4096                     # dist_ftc at two ranks: two panels of 2048
+# gpc_tpu's non-whitened 2-D sparse forms (A = K_uu/β + K_uf·K_fu) against
+# the CPU float64 route: value and θ̄ (relative L2) of the rbf cell, and the
+# -k mlp value.  κ(A) is 1.5e6 (rbf) and 6.3e6 (mlp) at this θ against
+# 1.9e3 and 4.3e3 for the single process's whitened form, so float32 misses
+# phase 17's limits: on an H100 80GB HBM3 at 700 W the first run read DTC /
+# DTCVAR 1.15e-5 / 8.7e-6 on the value, 1.5e-4 / 1.4e-4 on θ̄, and 2.0e-4 on
+# the mlp value, while the same form in float64 on the CPU is within 7.5e-16
+# of the route and FITC (factored in L_uu⁻¹ space) 9.5e-9.  The limits were
+# set after that reading (PERF.md §6).
+DIST2D_TOL = (5e-5, 1e-3)
+DIST2D_MLP_TOL = 1e-3
+SCALING_ROWS, SCALING_M = 2048, 256   # scaling_bench.run's defaults (gpc_tpu's)
+# phase 23's kernel launches, each distributed call's own: {module: Counter};
+# the single-process references beside those calls are not in it
+DIST2_LAUNCHES: dict = {}
+DIST2_MODULES = ("dist_ftc", "dist_gplvm", "dist_iterative", "dist_ivm", "dist_sparse2d",
+                 "scaling_bench")
+
+
+def dist2_call(module, fn):
+    """fn() with the kernel counts set to 0 just before it and read just
+    after, added to DIST2_LAUNCHES[module].  The counts from before come
+    back after it, so a reader around the call (iterative_check's K1
+    count) still sees them."""
+    from gpc_tpu_torch.ops import cuda_lib
+    outer = collections.Counter(cuda_lib.LAUNCHES)
+    cuda_lib.LAUNCHES.clear()
+    out = fn()
+    DIST2_LAUNCHES.setdefault(module, collections.Counter()).update(cuda_lib.LAUNCHES)
+    cuda_lib.LAUNCHES.update(outer)
+    return out
+
+
+def check_dist2_launches(where, modules, mlp):
+    """Each of `modules` launched K1 in its own calls (DIST2_LAUNCHES), and
+    the 2-D mesh K4 where it ran -k mlp."""
+    for module in modules:
+        check(DIST2_LAUNCHES.get(module, {}).get("dist_gram", 0) > 0,
+              f"{where}: kernel dist_gram was not launched by {module}")
+    if mlp:
+        check(DIST2_LAUNCHES.get("dist_sparse2d", {}).get("inner_gram", 0) > 0,
+              f"{where}: kernel inner_gram was not launched by dist_sparse2d -k mlp")
+
+
+def peak_of(fn):
+    """(fn(), peak GiB allocated above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def cpu_mesh_2d():
+    """A (1, 1) mesh of a gloo group on the CPU beside the card's NCCL
+    group: the float64 route of the 2-D form (same code, same θ)."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS, Mesh, Mesh2D
+    g = dist.new_group([0], backend="gloo")
+    cpu = torch.device("cpu")
+    return Mesh2D(mp=Mesh(group=g, rank=0, size=1, device=cpu, axis=MP_AXIS),
+                  dp=Mesh(group=g, rank=0, size=1, device=cpu, axis=DP_AXIS), device=cpu)
+
+
+def dist2_ftc(dev, mesh):
+    """23(a): dist_ftc / evidence_distributed on the slice (N = 16384,
+    q = 8, one panel at world 1): value and θ̄ against the single-process
+    dense model (DIST_FTC_TOL), value_and_grad ms (median of 3 after a
+    warm-up) and peak GiB beside it; the posterior of 8192 rows against
+    GP.predict (SERVE_TOL of each output's largest entry)."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_ftc import (make_dist_ftc_posterior,
+                                                 make_dist_ftc_value_and_grad)
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    X, y, rng = slice_data()
+    model = GP(default_kern(Q), X, y, device=dev)
+    Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(N)))
+    nlml = make_dist_ftc_value_and_grad(model.spec, mesh, model.bias, model.fixed_scales, N)
+    vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
+    ((f, g), ms), gib = peak_of(lambda: dist2_call(
+        "dist_ftc", lambda: warm_median(lambda: vag(model.theta))))
+    torch.cuda.empty_cache()
+    vag0 = model.value_and_grad_fn()
+    ((f0, g0), ms0), gib0 = peak_of(lambda: warm_median(lambda: vag0(model.theta)))
+    torch.cuda.empty_cache()
+    rf, rg = rel_err(f, f0), rel_l2(g, g0)
+    out = dict(value=f, single_value=f0, value_rel=rf, grad_rel_l2=rg, dist_vag_ms=ms,
+               single_vag_ms=ms0, dist_peak_gib=gib, single_peak_gib=gib0)
+    log(f"phase 23(a) dist_ftc N={N} q={Q}: {json.dumps(out)}")
+    check(np.isfinite(f) and rf <= DIST_FTC_TOL[0] and rg <= DIST_FTC_TOL[1],
+          f"dist_ftc vs single: value rel {rf}, θ̄ rel L2 {rg}")
+    Xt = rng.standard_normal((DIST_POST_ROWS, Q))
+    post = make_dist_ftc_posterior(model.spec, mesh, model.bias, model.fixed_scales, N)
+    theta = as_tensor(model.theta, dev)
+    (mu, var), post_ms = dist2_call("dist_ftc", lambda: timed(
+        lambda: post(theta, Xl, yl, ml, as_tensor(Xt, dev))))
+    (mu0, var0), pred_ms = timed(lambda: model.predict(Xt))
+    errs = {name: float(np.abs(a.cpu().numpy() - b).max() / np.abs(b).max())
+            for name, a, b in (("mean", mu, mu0), ("variance", var, var0))}
+    out.update(posterior_ms=post_ms, predict_ms=pred_ms, posterior_rel=errs)
+    log(f"phase 23(a) dist_ftc posterior of {DIST_POST_ROWS} rows: {post_ms} ms (GP.predict "
+        f"{pred_ms} ms), max |diff| relative to the largest entry {errs}")
+    check(all(e < SERVE_TOL for e in errs.values()), f"dist_ftc posterior vs predict: {errs}")
+    return out
+
+
+def dist2_gplvm(dev, mesh):
+    """23(b): dist_gplvm against the single-process dense GPLVM
+    (DIST_GPLVM_TOL): the plain bench model at N = 16384, D = 4, q = 2,
+    and on the first 4096 rows the GPDM (cmpnd(rbf, bias, white) dynamics,
+    breaks GPDM_BREAKS) and the back-constrained model (bK the rbf Gram of
+    Y from K1, as `gplvm learn -c rbf` builds it; A drawn as -I rand);
+    value_and_grad ms (median of 3 after a warm-up) of each."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch import kernels as KM
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_gplvm import make_dist_gplvm_value_and_grad
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    Y, _ = gplvm_data()
+    Ys, _ = gplvm_data(GPLVM_SMALL)
+    back = KM.Rbf(input_dim=GPLVM_D)
+    with torch.no_grad():
+        bK = back.gram(as_tensor(back.default_params(), dev), as_tensor(Ys, dev))
+    bK = bK.double().cpu().numpy()
+    cases = (("plain", Y, {}),
+             ("gpdm", Ys, dict(dyn_kern=default_kern(GPLVM_Q), dyn_breaks=GPDM_BREAKS)),
+             ("back", Ys, dict(back_kernel_matrix=bK, init="rand", seed=3)))
+    out = {}
+    for tag, Yc, kw in cases:
+        model = gplvm_model(Yc, dev, **kw)
+        vag_d = make_dist_gplvm_value_and_grad(model.spec, mesh, model.noise_bias,
+                                               model.fixed_scales, model.dyn_params_fixed)
+        args = [shard_rows(mesh, Yc)] + ([shard_rows(mesh, bK)] if tag == "back" else [])
+        vag = numpy_value_and_grad(lambda t: vag_d(t, *args), mesh.device)
+        (f, g), ms = dist2_call("dist_gplvm", lambda: warm_median(lambda: vag(model.theta)))
+        with evidence_env("dense"):
+            (f0, g0), ms0 = warm_median(lambda: model.value_and_grad_fn()(model.theta))
+        rf, rg = rel_err(f, f0), rel_l2(g, g0)
+        out[tag] = dict(n=Yc.shape[0], value=f, single_value=f0, value_rel=rf, grad_rel_l2=rg,
+                        dist_vag_ms=ms, single_vag_ms=ms0)
+        log(f"phase 23(b) dist_gplvm {tag}: {json.dumps(out[tag])}")
+        check(np.isfinite(f) and rf <= DIST_GPLVM_TOL[0] and rg <= DIST_GPLVM_TOL[1],
+              f"dist_gplvm {tag} vs single: value rel {rf}, θ̄ rel L2 {rg}")
+        del model, vag
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist2_iterative(dev, mesh):
+    """23(c): dist_iterative on the slice (N = 16384, q = 8, the engine's
+    defaults) with the single-process engine's probes: quad within the
+    bound its CG residual gives and logdet within 0.05 of float64
+    (iterative_check), logdet within DIST_ITER_LD_TOL of the single
+    process's estimate on the same probes; CG iterations, K1 launches and
+    ms of both evidences; dist_iterative_nlml's value and θ̄ against the
+    single process's iterative value_and_grad (DIST_FTC_TOL), ms of both."""
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.ops import iterative as TI
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_iterative import (dist_iterative_nlml,
+                                                       make_dist_iterative_evidence)
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    X, y, _ = slice_data()
+    gp = GP(default_kern(Q), X, y, device=dev)
+    theta, Xd, yd, bias, scales = gp._args()
+    _, kp, _, _ = gp.spec.unpack(theta)
+    m = (yd - bias) / scales
+    kern = gp.spec.kern
+    single = iterative_check("single-process FTC N=16384 q=8", kern, kp, Xd, m, phase="23(c)")
+    ev = make_dist_iterative_evidence(kern, mesh)
+    Xl, ml, kl = (shard_rows(mesh, a) for a in (X, m.cpu().numpy(), np.ones(N)))
+    rec = iterative_check("dist FTC N=16384 q=8", kern, kp, Xd, m, phase="23(c)",
+                          evidence=lambda: dist2_call("dist_iterative",
+                                                      lambda: ev(kp, Xl, ml, kl)))
+    rel = abs(rec["logdet"] - single["logdet"]) / abs(single["logdet"])
+    out = dict(dist=rec, single=single, logdet_rel_to_single=rel)
+    check(rel <= DIST_ITER_LD_TOL, f"dist iterative logdet vs single: rel {rel}")
+    nlml = dist_iterative_nlml(kern, mesh, gp.bias, gp.fixed_scales, N)
+    yl = shard_rows(mesh, y)
+    (f, g), out["dist_vag_ms"] = dist2_call("dist_iterative", lambda: timed(
+        lambda: numpy_value_and_grad(lambda t: nlml(t, Xl, yl, kl), dev)(gp.theta)))
+    with evidence_env("iterative"):
+        (f0, g0), out["single_vag_ms"] = timed(lambda: gp.value_and_grad_fn()(gp.theta))
+    out.update(value_rel=rel_err(f, f0), grad_rel_l2=rel_l2(g, g0))
+    check(np.isfinite(f) and np.isfinite(g).all() and out["value_rel"] <= DIST_FTC_TOL[0]
+          and out["grad_rel_l2"] <= DIST_FTC_TOL[1],
+          f"dist iterative value_and_grad vs single (same probes): value rel "
+          f"{out['value_rel']}, θ̄ rel L2 {out['grad_rel_l2']}")
+    log(f"phase 23(c) dist_iterative: logdet rel to single {rel}; value_and_grad "
+        f"{out['dist_vag_ms']} ms vs single {out['single_vag_ms']} ms, value rel "
+        f"{out['value_rel']}, θ̄ rel L2 {out['grad_rel_l2']}")
+    return out
+
+
+def ivm_order_check(tag, model, order, order0):
+    """A distributed selection order against the single process's graph:
+    the picks that differ, and, where any do, the order replayed through
+    the CPU float64 step with each pick within IVM_GAP_TOL of its step's
+    maximum."""
+    from gpc_tpu_torch.models.ivm import replay
+    X, y = ivm_select_data()
+    differ = int((np.asarray(order) != np.asarray(order0)).sum())
+    rec = dict(picks_differing_from_graph=differ)
+    check(len(set(np.asarray(order).tolist())) == IVM_D, f"{tag}: a point picked twice")
+    if differ:
+        first = int(np.argmax(np.asarray(order) != np.asarray(order0)))
+        (_, gaps), replay_ms = timed(lambda: replay(
+            model.spec, model.kern_params, model.noise_params, torch.as_tensor(X),
+            torch.as_tensor(y), np.asarray(order)))
+        rec.update(first_differing_step=first, worst_gap_rel=float(gaps.max()),
+                   replay_cpu_f64_ms=replay_ms)
+        check(float(gaps.max()) <= IVM_GAP_TOL,
+              f"{tag}: a pick's f64 score is {float(gaps.max())} below the step's maximum")
+    return rec
+
+
+def dist2_ivm(dev, mesh):
+    """23(d): make_select_points_dist at phase 18's geometry (N = 4096,
+    d = 512) against the single-process graph's order (ivm_order_check);
+    points/s of both (median of 3 passes after a warm-up).  Returns the
+    record and the graph's order and model (for 23(f))."""
+    from gpc_tpu_torch.models.ivm import IVM
+    from gpc_tpu_torch.noise import GaussianNoise
+    from gpc_tpu_torch.parallel.dist_ivm import make_select_points_dist
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    X, y = ivm_select_data()
+    model = IVM(default_kern(IVM_Q), GaussianNoise(output_dim=1), X, y, num_active=IVM_D,
+                device=dev)
+    st0, graph_ms = warm_median(model.init_and_select)
+    order0 = st0.active_idx.cpu().numpy()
+    select = make_select_points_dist(model.spec, mesh)
+    args = [shard_rows(mesh, a) for a in (X, y, np.ones(IVM_N))]
+    st, ms = dist2_call("dist_ivm", lambda: warm_median(
+        lambda: select(model.kern_params, model.noise_params, *args, np.zeros(IVM_D))))
+    out = dict(points_per_s=IVM_D / ms * 1e3, pass_ms=ms,
+               graph_points_per_s=IVM_D / graph_ms * 1e3, graph_pass_ms=graph_ms,
+               **ivm_order_check("dist_ivm world 1", model, st.active_idx.cpu().numpy(), order0))
+    log(f"phase 23(d) dist_ivm N={IVM_N} d={IVM_D}: {json.dumps(out)}")
+    return out, order0, model
+
+
+def dist2_sparse2d(dev, X, y):
+    """23(e): make_dist2d_objective on mesh_2d(1, 1) at phase 17's cell
+    (N = 16384, M = 1024): DTC, DTCVAR, FITC value and θ̄ against the CPU
+    float64 route (DIST2D_TOL), value_and_grad ms beside the single-process
+    model's on the card; the float64 value of the same 2-D form on the CPU
+    (cpu_mesh_2d) beside it, and one DTC evaluation with -k mlp (K4)
+    against the CPU float64 route (DIST2D_MLP_TOL).  Returns the record and the
+    float64 references (for 23(f))."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_sparse2d import make_dist2d_objective, shard_data_2d
+    from gpc_tpu_torch.parallel.mesh import mesh_2d
+    m2, mc = mesh_2d(1, 1, dev), cpu_mesh_2d()
+    args = [shard_data_2d(m2, a) for a in (X, y, np.ones(N))]
+    args_c = [shard_data_2d(mc, a) for a in (X, y, np.ones(N))]
+    out, refs = {}, {}
+    for approx in ("dtc", "dtcvar", "fitc"):
+        card, cpu = sparse_model(X, y, approx, dev), sparse_model(X, y, approx, "cpu")
+        nlml = make_dist2d_objective(card.spec, m2, card.bias, card.fixed_scales, N)
+        (f, g), ms = dist2_call("dist_sparse2d", lambda: warm_median(
+            lambda: numpy_value_and_grad(lambda t: nlml(t, *args), dev)(card.theta)))
+        (f1, g1), ms1 = warm_median(lambda: card.value_and_grad_fn()(card.theta))
+        (f64, g64), cpu_ms = timed(lambda: cpu.value_and_grad_fn()(cpu.theta))
+        nlml_c = make_dist2d_objective(cpu.spec, mc, cpu.bias, cpu.fixed_scales, N)
+        with torch.no_grad():
+            f64_2d = float(nlml_c(torch.as_tensor(cpu.theta), *args_c))
+        refs[approx] = dict(value=f64, grad=g64.tolist())
+        rec = dict(value=f, value_f64=f64, value_rel=rel_err(f, f64), grad_rel_l2=rel_l2(g, g64),
+                   single_value_rel=rel_err(f1, f64), single_grad_rel_l2=rel_l2(g1, g64),
+                   form_2d_f64_value_rel=rel_err(f64_2d, f64), dist_vag_ms=ms,
+                   single_vag_ms=ms1, cpu_f64_vag_ms=cpu_ms)
+        out[approx] = rec
+        log(f"phase 23(e) dist_sparse2d 1x1 {approx} N={N} M={M_SPARSE}: {json.dumps(rec)}")
+        check(np.isfinite(f) and rec["value_rel"] <= DIST2D_TOL[0]
+              and rec["grad_rel_l2"] <= DIST2D_TOL[1],
+              f"dist_sparse2d {approx} vs CPU f64: value rel {rec['value_rel']}, θ̄ rel L2 "
+              f"{rec['grad_rel_l2']}")
+        del card, cpu, nlml, nlml_c
+        torch.cuda.empty_cache()
+    for lead in ("rbf", "mlp"):
+        out[f"dtc_conditions_{lead}"] = dtc_conditions(sparse_model(X, y, "dtc", "cpu",
+                                                                    lead=lead))
+    log(f"phase 23(e) κ of DTC's A (gpc_tpu's 2-D form) and of the whitened Am, float64: "
+        f"{json.dumps({k: v for k, v in out.items() if k.startswith('dtc_cond')})}")
+    card = sparse_model(X, y, "dtc", dev, lead="mlp")
+    nlml = make_dist2d_objective(card.spec, m2, card.bias, card.fixed_scales, N)
+    with torch.no_grad():
+        f = float(dist2_call("dist_sparse2d", lambda: nlml(as_tensor(card.theta, dev), *args)))
+    f64 = -sparse_model(X, y, "dtc", "cpu", lead="mlp").log_likelihood()
+    out["dtc_mlp"] = dict(value=f, value_f64=f64, value_rel=rel_err(f, f64))
+    log(f"phase 23(e) dist_sparse2d 1x1 DTC -k mlp: {json.dumps(out['dtc_mlp'])}")
+    check(rel_err(f, f64) <= DIST2D_MLP_TOL,
+          f"dist_sparse2d DTC mlp vs CPU f64: {out['dtc_mlp']}")
+    return out, refs
+
+
+def dtc_conditions(model):
+    """The condition numbers of DTC's A = K_uu/β + K_uf·K_fu (gpc_tpu's
+    2-D form) and of the whitened Am = I/β + W·Wᵀ (the single process's) at
+    the model's θ, in float64 on the CPU."""
+    from gpc_tpu_torch import linalg
+    X_u, kp, _, beta = model.spec.unpack(torch.as_tensor(model.theta))
+    K_uu = model.spec.kern.gram(kp, X_u)
+    K_uf = model.spec.kern.compute(kp, X_u, torch.as_tensor(model.X))
+    W = linalg.tri_solve(linalg.jitchol(K_uu)[0], K_uf)
+    eye = torch.eye(K_uu.shape[0], dtype=K_uu.dtype)
+
+    def cond(A):
+        ev = torch.linalg.eigvalsh(A)
+        return float(ev[-1] / ev[0])
+    return dict(A=cond(K_uu / beta + K_uf @ K_uf.T), Am_whitened=cond(eye / beta + W @ W.T))
+
+
+def dist2_scaling(mesh):
+    """23(g), world 1: scaling_bench.run (DTC value_and_grad at 2048 rows
+    a rank, M = 256) and the census of one dist_ftc value_and_grad
+    (weak_scaling_artifact, 128 rows a rank)."""
+    from gpc_tpu_torch.parallel import scaling_bench
+    line = dist2_call("scaling_bench", lambda: scaling_bench.run(SCALING_ROWS, SCALING_M,
+                                                                 mesh=mesh))
+    art = dist2_call("scaling_bench", lambda: scaling_bench.weak_scaling_artifact(mesh.size,
+                                                                                  mesh=mesh))
+    log(f"phase 23(g) scaling_bench world 1 (NCCL): {json.dumps(line)}; weak-scaling record "
+        f"{json.dumps(art)}")
+    check(line["t_ms"] > 0 and "all-gather" in art["weak_scaling_proxy"]["collectives_measured"],
+          f"scaling_bench world 1: {line}")
+    return dict(run=line, artifact=art)
+
+
+def phase_dist2(dev, workdir, mesh):
+    """Phase 23: the rest of the distributed layer at world 1 on NCCL
+    (23(a)-(e), (g) world 1); writes the float64 sparse references and the
+    graph's IVM order for gloo_two_ranks (23(f), (g) world 2)."""
+    out = dict(ftc=dist2_ftc(dev, mesh))
+    torch.cuda.empty_cache()
+    out["gplvm"] = dist2_gplvm(dev, mesh)
+    torch.cuda.empty_cache()
+    out["iterative"] = dist2_iterative(dev, mesh)
+    torch.cuda.empty_cache()
+    out["ivm"], order0, ivm_model = dist2_ivm(dev, mesh)
+    torch.cuda.empty_cache()
+    X, y, _ = slice_data()
+    out["sparse2d"], refs = dist2_sparse2d(dev, X, y)
+    torch.cuda.empty_cache()
+    out["scaling"] = dist2_scaling(mesh)
+    with open(os.path.join(workdir, "dist2_refs.json"), "w") as f:
+        json.dump(dict(sparse2d=refs, ivm_order=order0.tolist()), f)
+    return out, ivm_model, order0
 
 
 def gloo_two_ranks(workdir):
     """Two ranks on the one card over gloo with CUDA tensors, each a child
-    process (`chip_smoke.py --gloo-rank R`): whether gloo takes CUDA tensors
-    in all_reduce and all_gather, and where it does, the DTC (all_reduce)
-    and FTC (all_gather too) objectives and θ̄ against the single-process
-    model."""
+    process (`chip_smoke.py --gloo-rank R STORE REFS`): phase 22's DTC
+    (all_reduce) and FTC (all_gather too) objectives and θ̄ against the
+    single-process model, and phase 23(f)-(g)'s dist_ftc, dist_sparse2d,
+    dist_ivm and scaling_bench at world 2.  Returns rank 0's record."""
     store = os.path.join(workdir, "gloo_store")
+    refs = os.path.join(workdir, "dist2_refs.json")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
-                               store], cwd=workdir, env=repo_env(), stdout=subprocess.PIPE,
+                               store, refs], cwd=workdir, env=repo_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in (0, 1)]
     outs = []
     try:
@@ -2711,11 +3095,11 @@ def gloo_two_ranks(workdir):
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=WAIT_S)
-    log(f"phase 22 gloo, two ranks on one card: {json.dumps(outs[0])}")
+    check(outs[0]["ivm_order"] == outs[1]["ivm_order"], "the gloo ranks' IVM orders differ")
     return outs[0]
 
 
-def gloo_rank_main(rank, store):
+def gloo_rank_main(rank, store, refs_path):
     """One rank of gloo_two_ranks; prints one JSON line."""
     import torch.distributed as dist
 
@@ -2731,19 +3115,18 @@ def gloo_rank_main(rank, store):
     t = torch.ones(4, device=mesh.device)
     for name, op in (("all_reduce", lambda: dist.all_reduce(t.clone())),
                      ("all_gather", lambda: dist.all_gather([torch.empty_like(t) for _ in (0, 1)],
-                                                            t))):
+                                                            t)),
+                     ("broadcast", lambda: dist.broadcast(t.clone(), src=0))):
         try:
             op()
             res[name] = "ok"
         except RuntimeError as e:       # the backend refuses CUDA tensors
             res[name] = "refused: " + str(e).splitlines()[0][:200]
+    check(all(v == "ok" for v in res.values()), f"gloo on CUDA tensors: {res}")
     X, y, _ = slice_data()
     Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(N)))
-    # DTC needs all_reduce; FTC all_gather too
-    for approx, needs, (tol_f, tol_g) in (("dtc", ("all_reduce",), DIST_SPARSE_TOL),
-                                          ("ftc", ("all_reduce", "all_gather"), DIST_FTC_TOL)):
-        if any(res[n] != "ok" for n in needs):
-            continue
+    # phase 22: DTC needs all_reduce; FTC all_gather too
+    for approx, (tol_f, tol_g) in (("dtc", DIST_SPARSE_TOL), ("ftc", DIST_FTC_TOL)):
         model = (sparse_model(X, y, approx, mesh.device) if approx == "dtc"
                  else GP(default_kern(Q), X, y, device=mesh.device))
         nlml = make_dist_objective(model.spec, mesh, model.bias, model.fixed_scales, N)
@@ -2757,8 +3140,73 @@ def gloo_rank_main(rank, store):
                     f"{approx}_vag_ms": ms})
         del model, nlml, vag
         torch.cuda.empty_cache()
+    with open(refs_path) as f:
+        refs = json.load(f)
+    res.update(gloo_dist2(rank, mesh, refs))
     dist.destroy_process_group()
     print(json.dumps(res), flush=True)
+
+
+def gloo_dist2(rank, mesh, refs):
+    """23(f)-(g) on a gloo rank of two: dist_ftc at N = 4096 (two panels)
+    against the single process (DIST_FTC_TOL); dist_sparse2d on (2, 1) and
+    (1, 2) against the parent's float64 references (DIST2D_TOL); dist_ivm's
+    order (checked by the parent); scaling_bench.run at world 2."""
+    from gpc_tpu_torch.models.gp import GP
+    from gpc_tpu_torch.models.ivm import IVM
+    from gpc_tpu_torch.noise import GaussianNoise
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel import scaling_bench
+    from gpc_tpu_torch.parallel.dist_ftc import make_dist_ftc_value_and_grad
+    from gpc_tpu_torch.parallel.dist_ivm import make_select_points_dist
+    from gpc_tpu_torch.parallel.dist_sparse2d import make_dist2d_objective, shard_data_2d
+    from gpc_tpu_torch.parallel.mesh import mesh_2d, shard_rows
+    dev = mesh.device
+    X, y, _ = slice_data()
+    res = {}
+    n = GLOO_FTC_N
+    model = GP(default_kern(Q), X[:n], y[:n], device=dev)
+    nlml = make_dist_ftc_value_and_grad(model.spec, mesh, model.bias, model.fixed_scales, n)
+    parts = [shard_rows(mesh, a) for a in (X[:n], y[:n], np.ones(n))]
+    (f, g), ms = dist2_call("dist_ftc", lambda: warm_median(lambda: numpy_value_and_grad(
+        lambda t: nlml(t, *parts), dev)(model.theta)))
+    (f0, g0), ms0 = warm_median(lambda: model.value_and_grad_fn()(model.theta))
+    res["dist_ftc"] = dict(n=n, value_rel=rel_err(f, f0), grad_rel_l2=rel_l2(g, g0),
+                           dist_vag_ms=ms, single_vag_ms=ms0)
+    check(res["dist_ftc"]["value_rel"] <= DIST_FTC_TOL[0]
+          and res["dist_ftc"]["grad_rel_l2"] <= DIST_FTC_TOL[1],
+          f"gloo rank {rank}: dist_ftc N={n}: {res['dist_ftc']}")
+    for grid in ((2, 1), (1, 2)):
+        m2 = mesh_2d(*grid, dev)
+        args = [shard_data_2d(m2, a) for a in (X, y, np.ones(N))]
+        for approx in ("dtc", "dtcvar", "fitc"):
+            card = sparse_model(X, y, approx, dev)
+            nlml2 = make_dist2d_objective(card.spec, m2, card.bias, card.fixed_scales, N)
+            (f, g), ms = dist2_call("dist_sparse2d", lambda: timed(lambda: numpy_value_and_grad(
+                lambda t: nlml2(t, *args), dev)(card.theta)))
+            ref = refs["sparse2d"][approx]
+            rec = dict(value_rel=rel_err(f, ref["value"]),
+                       grad_rel_l2=rel_l2(g, np.asarray(ref["grad"])), vag_ms=ms)
+            res[f"sparse2d_{grid[0]}x{grid[1]}_{approx}"] = rec
+            check(rec["value_rel"] <= DIST2D_TOL[0] and rec["grad_rel_l2"] <= DIST2D_TOL[1],
+                  f"gloo rank {rank}: dist_sparse2d {grid} {approx} vs CPU f64: {rec}")
+            del card, nlml2
+            torch.cuda.empty_cache()
+    Xi, yi = ivm_select_data()
+    ivm = IVM(default_kern(IVM_Q), GaussianNoise(output_dim=1), Xi, yi, num_active=IVM_D,
+              device=dev)
+    select = make_select_points_dist(ivm.spec, mesh)
+    args = [shard_rows(mesh, a) for a in (Xi, yi, np.ones(IVM_N))]
+    st, ms = dist2_call("dist_ivm", lambda: timed(
+        lambda: select(ivm.kern_params, ivm.noise_params, *args, np.zeros(IVM_D))))
+    res["ivm_order"] = st.active_idx.cpu().numpy().tolist()
+    res["ivm"] = dict(pass_ms=ms, points_per_s=IVM_D / ms * 1e3)
+    res["scaling"] = dist2_call("scaling_bench",
+                                lambda: scaling_bench.run(SCALING_ROWS, SCALING_M, mesh=mesh))
+    check_dist2_launches(f"gloo rank {rank}", ("dist_ftc", "dist_sparse2d", "dist_ivm",
+                                               "scaling_bench"), mlp=False)
+    res["dist2_launches"] = DIST2_LAUNCHES
+    return res
 
 
 def main():
@@ -2861,14 +3309,42 @@ def main():
         log("interop: " + json.dumps(interop))
         torch.cuda.empty_cache()
 
-        cuda_lib.LAUNCHES.clear()
-        distributed = phase_dist(dev, workdir)
-        dist_launches = dict(cuda_lib.LAUNCHES)
-        log(f"distributed-path launches: {dist_launches}")
-        check(dist_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on the "
-                                                     "distributed path")
-        log("distributed: " + json.dumps(distributed))
+        with world_one(dev, workdir) as mesh:
+            cuda_lib.LAUNCHES.clear()
+            distributed = phase_dist(dev, workdir, mesh)
+            dist_launches = dict(cuda_lib.LAUNCHES)
+            log(f"distributed-path launches: {dist_launches}")
+            check(dist_launches.get("dist_gram", 0) > 0, "kernel dist_gram was not launched on "
+                                                         "the distributed path")
+            torch.cuda.empty_cache()
+
+            DIST2_LAUNCHES.clear()
+            t23 = time.perf_counter()
+            dist2, ivm_model, ivm_order = phase_dist2(dev, workdir, mesh)
+            dist2_launches = sum(DIST2_LAUNCHES.values(), collections.Counter())
+            log(f"phase 23 (world 1) launches, the distributed calls' own: "
+                f"{json.dumps(DIST2_LAUNCHES)}; in all {dict(dist2_launches)}")
+            check_dist2_launches("phase 23 world 1", DIST2_MODULES, mlp=True)
         torch.cuda.empty_cache()
+        gloo = gloo_two_ranks(workdir)
+        log("phase 22 gloo, two ranks on one card: " + json.dumps(
+            {k: v for k, v in gloo.items() if k in ("all_reduce", "all_gather", "broadcast")
+             or k.startswith(("dtc_", "ftc_"))}))
+        distributed["gloo_two_ranks"] = gloo
+        dist2["gloo"] = {k: v for k, v in gloo.items() if k in ("dist_ftc", "ivm", "scaling")
+                         or k.startswith("sparse2d_")}
+        dist2["gloo"]["ivm"].update(ivm_order_check("dist_ivm gloo world 2", ivm_model,
+                                                    gloo["ivm_order"], ivm_order))
+        t1 = dist2["scaling"]["run"]["t_ms"]
+        for line in (dist2["scaling"]["run"], gloo["scaling"]):
+            log("phase 23(g) scaling_bench: " + json.dumps(
+                dict(devices=line["devices"], n=line["n"], t_ms=line["t_ms"],
+                     efficiency=t1 / line["t_ms"])))
+        dist2["gloo"]["launches_rank0"] = gloo["dist2_launches"]
+        log(f"phase 23(f) gloo, two ranks on one card: {json.dumps(dist2['gloo'])}")
+        log(f"phase 23 wall {time.perf_counter() - t23:.1f} s")
+        log("distributed: " + json.dumps(distributed))
+        log("distributed, the rest: " + json.dumps(dist2))
         from gpc_tpu_torch.io.svml import READS
         log(f"SVM-light reads in this process: {dict(READS)}")
         check(READS["python"] == 0 and READS["native"] > 0,
@@ -2931,7 +3407,8 @@ def main():
              iterative_launches=iter_launches["dist_gram"], gplvm_shapes=gplvm_k,
              interop_launches=interop_launches["dist_gram"],
              fgp_launches=interop["fgp_launches"]["dist_gram"],
-             dist_launches=dist_launches["dist_gram"]),
+             dist_launches=dist_launches["dist_gram"],
+             dist2_launches=dist2_launches["dist_gram"]),
         dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
                       "K1's batch axis)",
@@ -2953,7 +3430,8 @@ def main():
              **at_sparse["inner_gram"], ivm_launches=ivm_launches["inner_gram"],
              gplvm_launches=gplvm_launches["inner_gram"],
              ivm_shapes=ivm_k["inner_gram"], interop_launches=interop_launches["inner_gram"],
-             fgp_launches=interop["fgp_launches"]["inner_gram"]),
+             fgp_launches=interop["fgp_launches"]["inner_gram"],
+             dist2_launches=dist2_launches["inner_gram"]),
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
              launches=ragged_launches["chol_inv_block"],
@@ -2992,6 +3470,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
-        gloo_rank_main(int(sys.argv[2]), sys.argv[3])
+        gloo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
         main()

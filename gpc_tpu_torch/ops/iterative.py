@@ -67,26 +67,30 @@ def _blocks(n: int, block: int):
     return [(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
 
 
-def _raw_mvm(kern, p, X, V, block):
-    """Σ_blocks compute(p, X_b, X)·V without the white term, no autograd."""
-    out = torch.empty((X.shape[0], V.shape[1]), dtype=V.dtype, device=V.device)
-    for r0, r1 in _blocks(X.shape[0], block):
-        out[r0:r1] = kern.compute(p, X[r0:r1], X) @ V
+def _raw_mvm(kern, p, X, V, block, rows=None):
+    """Σ_blocks compute(p, X_b, X)·V without the white term, no autograd:
+    rows [lo, hi) = `rows` of X (all of them by default) against all of X,
+    so a rank of the distributed engine computes its row block."""
+    lo, hi = rows if rows is not None else (0, X.shape[0])
+    out = torch.empty((hi - lo, V.shape[1]), dtype=V.dtype, device=V.device)
+    for r0, r1 in _blocks(hi - lo, block):
+        out[r0:r1] = kern.compute(p, X[lo + r0:lo + r1], X) @ V
     return out
 
 
-def _mvm_vjp_raw(kern, p, X, V, G, block: int, need_p: bool, need_X: bool):
-    """(p̄, X̄) of Σ G∘(K₀·V), K₀ = the white-free Gram: each row block's
-    Gram is recomputed under autograd and its cotangent G_b·Vᵀ pulled back
-    at once, so no two blocks live together.  Entries not asked for are
-    None."""
+def _mvm_vjp_raw(kern, p, X, V, G, block: int, need_p: bool, need_X: bool, rows=None):
+    """(p̄, X̄) of Σ G∘(K₀[rows]·V), K₀ = the white-free Gram and G the
+    cotangent of those rows: each row block's Gram is recomputed under
+    autograd and its cotangent G_b·Vᵀ pulled back at once, so no two blocks
+    live together.  Entries not asked for are None."""
+    lo, hi = rows if rows is not None else (0, X.shape[0])
     with torch.enable_grad():
         pd = p.detach().requires_grad_(need_p)
         Xd = X.detach().requires_grad_(need_X)
         wanted = [t for t in (pd, Xd) if t.requires_grad]
         acc = [torch.zeros_like(t) for t in wanted]
-        for r0, r1 in _blocks(X.shape[0], block):
-            Kb = kern.compute(pd, Xd[r0:r1], Xd)
+        for r0, r1 in _blocks(hi - lo, block):
+            Kb = kern.compute(pd, Xd[lo + r0:lo + r1], Xd)
             if not Kb.requires_grad:
                 continue
             gs = torch.autograd.grad(Kb, wanted, G[r0:r1] @ V.T, allow_unused=True)
@@ -95,16 +99,19 @@ def _mvm_vjp_raw(kern, p, X, V, G, block: int, need_p: bool, need_X: bool):
     return (next(it) if need_p else None), (next(it) if need_X else None)
 
 
-def mvm_vjp(kern, p, X, V, G, block: int, need_p: bool = True, need_X: bool = True):
-    """(p̄, X̄) of Σ G∘(K·V), K = kern(X) with its white term, block by
-    block (`kernel_mvm`'s pullback without its forward)."""
-    pbar, Xbar = _mvm_vjp_raw(kern, p, X, V, G, block, need_p, need_X)
+def mvm_vjp(kern, p, X, V, G, block: int, need_p: bool = True, need_X: bool = True,
+            rows=None):
+    """(p̄, X̄) of Σ G∘(K[rows]·V), K = kern(X) with its white term, block
+    by block (`kernel_mvm`'s pullback without its forward); `rows` as in
+    `_raw_mvm`, G then the cotangent of those rows."""
+    pbar, Xbar = _mvm_vjp_raw(kern, p, X, V, G, block, need_p, need_X, rows)
     if need_p:
+        lo, hi = rows if rows is not None else (0, X.shape[0])
         with torch.enable_grad():
             pd = p.detach().requires_grad_(True)
             w = kern.white(pd)
             if w.requires_grad:
-                (gw,) = torch.autograd.grad(w * torch.sum(G * V), pd)
+                (gw,) = torch.autograd.grad(w * torch.sum(G * V[lo:hi]), pd)
                 pbar = pbar + gw
     return pbar, Xbar
 

@@ -25,19 +25,22 @@ A tensor crosses from the replicated graph into the local one through
 `_Share` (forward: the identity; backward: the sum over ranks of the local
 cotangents).  So θ̄ = ∂R/∂θ + Σ_r ∂s_r/∂θ on every rank, each part counted
 once: torch.autograd.grad of the objective is the single-process gradient.
+The backward's collectives pair up across ranks only if every rank builds
+the same graph: the autograd engine orders a backward by the graph, so a
+rank-dependent choice in differentiable code is a mask (torch.where), never
+a Python branch that creates other operations on some ranks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from gpc_tpu_torch import as_tensor, linalg, ndlutil
 from gpc_tpu_torch import priors as priors_mod
 from gpc_tpu_torch.models.gp import DTC, DTCVAR, FITC, FTC, GpSpec
 from gpc_tpu_torch.optim import numpy_value_and_grad, scg
-from gpc_tpu_torch.parallel.mesh import gather_rows
+from gpc_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_from, gather_rows
 
 APPROXES = (FTC, DTC, DTCVAR, FITC)
 
@@ -46,10 +49,8 @@ class _AllReduce(torch.autograd.Function):
     """Σ_r x_r on every rank; backward the identity."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(mesh, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -61,15 +62,13 @@ class _Share(torch.autograd.Function):
     identity; backward the all-reduced local cotangents."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return all_reduce_sum(ctx.mesh, g), None
 
 
 class _AllGather(torch.autograd.Function):
@@ -86,16 +85,34 @@ class _AllGather(torch.autograd.Function):
         return g.chunk(ctx.mesh.size, dim=0)[ctx.mesh.rank], None
 
 
+class _Broadcast(torch.autograd.Function):
+    """Rank src's x on every rank (replicated); backward: on src the
+    replicated cotangent, elsewhere zero, as `_AllGather` with one block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, src):
+        ctx.mesh, ctx.src = mesh, src
+        return broadcast_from(mesh, x, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mesh.rank == ctx.src else torch.zeros_like(g)), None, None
+
+
 def all_reduce(x, mesh):
-    return _AllReduce.apply(x, mesh.group)
+    return _AllReduce.apply(x, mesh)
 
 
 def share(x, mesh):
-    return _Share.apply(x, mesh.group)
+    return _Share.apply(x, mesh)
 
 
 def all_gather_rows(x, mesh):
     return _AllGather.apply(x, mesh)
+
+
+def broadcast(x, mesh, src: int):
+    return _Broadcast.apply(x, mesh, src)
 
 
 def _eye(n, like):

@@ -42,7 +42,17 @@ values, 1e-3 on θ̄).  Interop and the distributed layer: fgp on the card
 GP.predict), .mat round trips (1e-6), learn -f 1 against -f 0 (the same
 output), the native SVM-light reader on the card's machine, and
 make_dist_objective on NCCL at world size 1 against the single-process
-model (1e-5 on the value, 1e-4 relative L2 on θ̄).
+model (1e-5 on the value, 1e-4 relative L2 on θ̄).  The rest of the
+distributed layer at world size 1 on NCCL: chol_distributed against
+torch.linalg.cholesky (1e-5 of max|L|) and evidence_distributed's values and
+cotangents against the dense route (1e-5; 1e-4 relative L2); dist_ftc,
+dist_gplvm (plain and GPDM) against the single process (1e-5 / 1e-4, the
+posterior within 1e-4 of GP.predict); dist_iterative against the
+single-process engine on its probes (1e-5); dist_ivm's order against the
+single process's graph (where a pick differs, within IVM_GAP_TOL of the
+f64 step maximum); dist_sparse2d on mesh_2d(1, 1) against the CPU float64
+route (1e-4 on the value, 1e-3 relative L2 on θ̄ at N = 1000, M = 64); and
+`python -m gpc_tpu_torch.parallel.scaling_bench --worlds 1`'s line.
 """
 
 import numpy as np
@@ -1192,3 +1202,176 @@ def test_dist_objective_world_size_1_on_card(dev, tmp_path, approx):
     f0, g0 = model.value_and_grad_fn()(model.theta)
     assert abs(f - f0) <= 1e-5 * abs(f0)
     assert np.linalg.norm(g - g0) <= 1e-4 * np.linalg.norm(g0)
+
+
+@pytest.fixture
+def nccl_world_one(dev, tmp_path):
+    """A world-size-1 NCCL group (file store under tmp_path); its mesh."""
+    import torch.distributed as dist
+
+    from gpc_tpu_torch.parallel.mesh import data_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        yield data_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b)) / np.linalg.norm(b))
+
+
+def test_chol_distributed_world_size_1_on_card(nccl_world_one):
+    """chol_distributed and evidence_distributed's (logdet, quad) and their
+    cotangents against the dense float32 route on the card."""
+    from gpc_tpu_torch.parallel.chol_distributed import chol_distributed, evidence_distributed
+    mesh = nccl_world_one
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((512, 512))
+    K = torch.tensor(A @ A.T / 512 + np.eye(512), dtype=torch.float32, device=mesh.device)
+    m = torch.tensor(rng.standard_normal((512, 2)), dtype=torch.float32, device=mesh.device)
+    L0 = torch.linalg.cholesky(K)
+    L = chol_distributed(mesh, K)
+    assert float((L - L0).abs().max()) <= 1e-5 * float(L0.abs().max())
+    Kr, mr = K.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    ld, quad = evidence_distributed(mesh, Kr, mr)
+    Kbar, mbar = torch.autograd.grad(3.0 * ld + 0.5 * quad, (Kr, mr))
+    ld, quad = ld.detach(), quad.detach()
+    alpha = torch.cholesky_solve(m, L0)
+    assert abs(float(ld) - float(torch.logdet(K))) <= 1e-5 * abs(float(torch.logdet(K)))
+    assert abs(float(quad) - float(torch.sum(m * alpha))) <= 1e-5 * float(torch.sum(m * alpha))
+    want = 3.0 * torch.cholesky_inverse(L0) - 0.5 * alpha @ alpha.T
+    assert _rel_l2(Kbar.cpu(), want.cpu()) <= 1e-4
+    assert _rel_l2(mbar.cpu(), alpha.cpu()) <= 1e-4
+
+
+def test_dist_ftc_world_size_1_on_card(nccl_world_one):
+    """make_dist_ftc_value_and_grad against the single-process model (value
+    1e-5, θ̄ 1e-4 relative L2; K1 runs) and the posterior against
+    GP.predict (1e-4 of each output's largest entry)."""
+    from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_ftc import (make_dist_ftc_posterior,
+                                                 make_dist_ftc_value_and_grad)
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    mesh = nccl_world_one
+    X, y = _interop_data(n=1000)
+    model = GP(_cmpnd(3), X, y, device=mesh.device)
+    Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(1000)))
+    nlml = make_dist_ftc_value_and_grad(model.spec, mesh, model.bias, model.fixed_scales, 1000)
+    before = LAUNCHES["dist_gram"]
+    f, g = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)(model.theta)
+    assert LAUNCHES["dist_gram"] > before
+    f0, g0 = model.value_and_grad_fn()(model.theta)
+    assert abs(f - f0) <= 1e-5 * abs(f0) and _rel_l2(g, g0) <= 1e-4
+    Xt = np.random.default_rng(4).standard_normal((300, 3))
+    post = make_dist_ftc_posterior(model.spec, mesh, model.bias, model.fixed_scales, 1000)
+    mu, var = post(as_tensor(model.theta, mesh.device), Xl, yl, ml, as_tensor(Xt, mesh.device))
+    for a, b in zip((mu, var), model.predict(Xt)):
+        assert np.abs(a.cpu().numpy() - b).max() <= 1e-4 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("dynamics", [False, True])
+def test_dist_gplvm_world_size_1_on_card(nccl_world_one, dynamics):
+    """make_dist_gplvm_value_and_grad (plain; GPDM with breaks) against the
+    single-process dense GPLVM on the card (value 1e-5, θ̄ 1e-4)."""
+    from gpc_tpu_torch.models.gplvm import GPLVM
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_gplvm import make_dist_gplvm_value_and_grad
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    mesh = nccl_world_one
+    Y = np.random.default_rng(5).standard_normal((512, 4))
+    kw = dict(dyn_kern=_cmpnd(2), dyn_breaks=(0, 200)) if dynamics else {}
+    model = GPLVM(_cmpnd(2), Y, latent_dim=2, device=mesh.device, **kw)
+    nlml = make_dist_gplvm_value_and_grad(model.spec, mesh, model.noise_bias,
+                                          model.fixed_scales, model.dyn_params_fixed)
+    yl = shard_rows(mesh, Y)
+    f, g = numpy_value_and_grad(lambda t: nlml(t, yl), mesh.device)(model.theta)
+    f0, g0 = model.value_and_grad_fn()(model.theta)
+    assert abs(f - f0) <= 1e-5 * abs(f0) and _rel_l2(g, g0) <= 1e-4
+
+
+def test_dist_iterative_world_size_1_on_card(nccl_world_one):
+    """make_dist_iterative_evidence on the single-process engine's probes
+    against kern_evidence_iterative (1e-5); K1 runs a row block."""
+    from gpc_tpu_torch.ops import iterative as TI
+    from gpc_tpu_torch.parallel.dist_iterative import make_dist_iterative_evidence
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    mesh = nccl_world_one
+    X, y = _interop_data(n=1024)
+    kern = _cmpnd(3)
+    p = torch.tensor([1.0, 1.0, 0.1, 0.05], device=mesh.device)
+    cfg = TI.IterConfig(block=256, probes=8, lanczos_iters=16, cg_iters=64, trace_probes=8)
+    m = torch.tensor(y, dtype=torch.float32, device=mesh.device)
+    with torch.no_grad():
+        ld0, quad0 = TI.kern_evidence_iterative(kern, p, shard_rows(mesh, X), m, cfg)
+        before = LAUNCHES["dist_gram"]
+        ld, quad = make_dist_iterative_evidence(kern, mesh, cfg)(
+            p, shard_rows(mesh, X), m, shard_rows(mesh, np.ones(1024)))
+    assert LAUNCHES["dist_gram"] > before
+    assert abs(float(ld) - float(ld0)) <= 1e-5 * abs(float(ld0))
+    assert abs(float(quad) - float(quad0)) <= 1e-5 * abs(float(quad0))
+
+
+def test_dist_ivm_world_size_1_on_card(nccl_world_one):
+    """make_select_points_dist's order against the single process's graph;
+    a pick that differs must lie within IVM_GAP_TOL of its step's f64
+    maximum (the CPU float64 replay)."""
+    from gpc_tpu_torch.models.ivm import IVM, replay
+    from gpc_tpu_torch.noise import GaussianNoise
+    from gpc_tpu_torch.parallel.dist_ivm import make_select_points_dist
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+    mesh = nccl_world_one
+    X, y = _interop_data(n=512, q=2)
+    model = IVM(_cmpnd(2), GaussianNoise(output_dim=1), X, y, num_active=64,
+                device=mesh.device)
+    order0 = model.init_and_select().active_idx.cpu().numpy()
+    st = make_select_points_dist(model.spec, mesh)(
+        model.kern_params, model.noise_params,
+        *(shard_rows(mesh, a) for a in (X, y, np.ones(512))), np.zeros(64))
+    order = st.active_idx.cpu().numpy()
+    assert len(set(order.tolist())) == 64
+    if not np.array_equal(order, order0):
+        _, gaps = replay(model.spec, model.kern_params, model.noise_params,
+                         torch.as_tensor(X), torch.as_tensor(y), order)
+        assert gaps.max() <= IVM_GAP_TOL
+
+
+@pytest.mark.parametrize("approx", ["dtc", "dtcvar", "fitc"])
+def test_dist_sparse2d_mesh_2d_1x1_on_card(nccl_world_one, approx):
+    """make_dist2d_objective on mesh_2d(1, 1) (gpc_tpu's non-whitened
+    forms) against the CPU float64 route at N = 1000, M = 64 (value 1e-4, θ̄
+    1e-3 relative L2); K1 runs."""
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+    from gpc_tpu_torch.parallel.dist_sparse2d import make_dist2d_objective, shard_data_2d
+    from gpc_tpu_torch.parallel.mesh import mesh_2d
+    m2 = mesh_2d(1, 1)
+    assert (m2.mp.size, m2.dp.size, m2.device) == (1, 1, nccl_world_one.device)
+    X, y = _interop_data(n=1000)
+    card = GP(_cmpnd(3), X, y, approx=approx, num_active=64, seed=0, device=m2.device)
+    cpu = GP(_cmpnd(3), X, y, approx=approx, num_active=64, seed=0, device="cpu")
+    nlml = make_dist2d_objective(card.spec, m2, card.bias, card.fixed_scales, 1000)
+    args = [shard_data_2d(m2, a) for a in (X, y, np.ones(1000))]
+    before = LAUNCHES["dist_gram"]
+    f, g = numpy_value_and_grad(lambda t: nlml(t, *args), m2.device)(card.theta)
+    assert LAUNCHES["dist_gram"] > before
+    f0, g0 = cpu.value_and_grad_fn()(cpu.theta)
+    assert abs(f - f0) <= 1e-4 * abs(f0) and _rel_l2(g, g0) <= 1e-3
+
+
+def test_scaling_bench_main_world_size_1_on_card(dev, tmp_path):
+    """`python -m gpc_tpu_torch.parallel.scaling_bench 256 32 --worlds 1`
+    on NCCL prints gpc_tpu's one line for the world."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-m", "gpc_tpu_torch.parallel.scaling_bench", "256",
+                          "32", "--worlds", "1"], cwd=tmp_path, capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert (line["devices"], line["n"], line["efficiency"]) == (1, 256, 1.0) and line["t_ms"] > 0
+
