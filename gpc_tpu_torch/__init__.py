@@ -17,6 +17,9 @@ import torch
 # Single-pass reduced-precision GEMMs (TF32 keeps ~3 decimal digits) break
 # positive-definiteness in Cholesky-heavy GP algebra; the counterpart of
 # gpc_tpu's default HIGH matmul precision (gpc_tpu/__init__.py:22-30).
+# gpc_tpu's GPC_TPU_MATMUL_PRECISION is not ported: it counts the TPU's bf16
+# matrix-unit passes, and torch's same-named "high" means TF32, less precise
+# than the TPU's three-pass bf16, so full float32 is fixed.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -4,7 +4,10 @@ ported gp and ivm commands use): the argument cursor with `-v` verbosity,
 (SVM-light, or under -f 1 a MATLAB .mat file), the kernel-spec grammar of
 `learn` (gp.cpp:150-250) with ivm's default kernel and variance priors and
 gplvm's usage axis (the latent kernel, -c back constraints, -D dynamics),
-and unheaded matrix output."""
+and unheaded matrix output.  gpc_tpu's `setup_jax` and its
+GPC_TPU_PLATFORM / GPC_TPU_CACHE_DIR variables configure the JAX runtime
+and are not ported: the port has `--device` and builds its kernels into
+gpc_tpu_torch/_build/."""
 
 from __future__ import annotations
 

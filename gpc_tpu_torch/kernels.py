@@ -815,3 +815,18 @@ def make_kern(kind: str, input_dim: int, **kwargs) -> Kern:
     if kind not in _LEAF_TYPES:
         raise ValueError(f"Unknown kernel type {kind}")
     return _LEAF_TYPES[kind](input_dim=input_dim, **kwargs)
+
+
+def gram(kern: Kern, p, X):
+    """kern's Gram of X (the diagonal from `diag`), as gpc_tpu.kernels.gram."""
+    return kern.gram(p, X)
+
+
+def cross(kern: Kern, p, X1, X2):
+    """kern's cross-covariance of X1 and X2 (no white term)."""
+    return kern.compute(p, X1, X2)
+
+
+def diag(kern: Kern, p, X):
+    """The diagonal of kern's Gram of X."""
+    return kern.diag(p, X)

@@ -11,11 +11,26 @@ counterpart of gpc_tpu's `_chol_nansafe` — the Φ-rule Cholesky backward,
 which is a no-op (zero cotangent) when the factor is NaN.  Jitter discovery
 runs on a detached copy and builds no graph; the jitter is a plain float, as
 gpc_tpu's `stop_gradient` makes it.
+
+GPC_TPU_FAST_JITCHOL=1 (`FAST_JITCHOL`, read once at import, off by
+default) is gpc_tpu's fast path: a fixed base jitter 1e-6·mean|diag| and
+one factorization through ops/chol_blocked (`cholesky` in `jitchol`, the
+fused `evidence_fused` in `evidence_terms`), never the discovery loop.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from gpc_tpu_torch.ops.chol_blocked import cholesky, evidence_fused
+
+FAST_JITCHOL = os.environ.get("GPC_TPU_FAST_JITCHOL", "0") == "1"
+
+
+def _base_jitter(A):
+    return 1e-6 * torch.abs(torch.trace(A)) / A.shape[-1]
 
 
 def _phi_(X):
@@ -59,7 +74,11 @@ def jitchol(A: torch.Tensor, max_tries: int = 10):
     """(L, jitter_used): lower Cholesky factor of A with escalating jitter.
     The common case (PD at zero jitter) pays one factorization; otherwise
     the jitter is found on a detached copy and the factor is recomputed once,
-    differentiably, at that jitter."""
+    differentiably, at that jitter.  Under FAST_JITCHOL: the base jitter
+    and one blocked factorization, whatever it gives."""
+    if FAST_JITCHOL:
+        jitter = _base_jitter(A)
+        return cholesky(A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)), jitter
     L = chol_nansafe(A)
     if bool(torch.isfinite(L[-1, -1])):       # a failed factor is NaN throughout
         return L, 0.0
@@ -102,7 +121,12 @@ def quad_form(L, m):
 
 
 def evidence_terms(A, m):
-    """(logdet A, Σⱼ mⱼᵀA⁻¹mⱼ, L) — the dense FTC evidence block."""
+    """(logdet A, Σⱼ mⱼᵀA⁻¹mⱼ, L) — the dense FTC evidence block.  Under
+    FAST_JITCHOL: the base jitter and one fused blocked factor-and-solve
+    sweep (ops/chol_blocked.evidence_fused)."""
+    if FAST_JITCHOL:
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        return evidence_fused(A + _base_jitter(A) * eye, m)
     L, _ = jitchol(A)
     return chol_logdet(L), quad_form(L, m), L
 
@@ -124,6 +148,14 @@ def blocked_tri_inv(L: torch.Tensor, block: int = 2048) -> torch.Tensor:
     out[h:, h:] = I2
     out[h:, :h] = -I2 @ (L[h:, :h] @ I1)
     return out
+
+
+def pdinv(A):
+    """Explicit PD inverse (a parity helper; model code solves with the
+    factor instead)."""
+    L, _ = jitchol(A)
+    inv = chol_solve(L, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+    return 0.5 * (inv + inv.T)
 
 
 def dist2(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ Counterpart of gpc_tpu/ops/chol_pallas.py:
                   multiple of 128, the masked sweep with a forward-substitution
                   inverse for any other n); the leaf of
                   ops/evidence_fast.py's default Policy.
+                  `chol_inv_block_fused` is the same call under the name
+                  of gpc_tpu's fused kernel (n a multiple of 128).
 
 Both run the blocked factorization of csrc/chol_panel.cu
 (`gpc_chol_blocked`), float32, any n with 0 < n ≤ 1024: a ragged n is padded
@@ -156,3 +158,13 @@ def chol_inv_block(A: torch.Tensor):
     if A.device.type == "cpu":
         return chol_inv_block_plain(A)
     return _launch("chol_inv_block", A, inverse=True)
+
+
+def chol_inv_block_fused(A: torch.Tensor):
+    """K5 under the name of gpc_tpu's fused kernel (n a multiple of 128,
+    gpc_tpu/ops/chol_pallas.py:204): the same launch plan as
+    `chol_inv_block`, which takes both of gpc_tpu's branches.  It is here
+    for parity of names only: the port's own paths call `chol_inv_block`."""
+    if A.shape[0] % _PAD:
+        raise ValueError(f"chol_inv_block_fused: n = {A.shape[0]} is not a multiple of {_PAD}")
+    return chol_inv_block(A)

@@ -14,7 +14,7 @@ from gpc_tpu_torch.optim.cg import CgResult, cg  # noqa: F401
 from gpc_tpu_torch.optim.checkgrad import check_gradients  # noqa: F401
 from gpc_tpu_torch.optim.gd import GdResult, gd, gd_pullback  # noqa: F401
 from gpc_tpu_torch.optim.lbfgs import LbfgsResult, lbfgs  # noqa: F401
-from gpc_tpu_torch.optim.scg import ScgResult, scg, scg_checkpointed  # noqa: F401
+from gpc_tpu_torch.optim.scg import ScgResult, scg, scg_checkpointed, scg_minimize  # noqa: F401
 
 OPTIMISERS = ("scg", "conjgrad", "graddesc", "quasinew")
 

@@ -205,3 +205,16 @@ def scg_checkpointed(value_and_grad_fn: Callable, x0, max_iters: int = 1000,
         if on_checkpoint is not None:
             on_checkpoint(st["iter"], {k: np.asarray(st[k]) for k in STATE_KEYS})
     return _result(st)
+
+
+def scg_minimize(fn: Callable, x0, max_iters: int = 1000, param_tol: float = 1e-6,
+                 obj_tol: float = 1e-6, jit: bool = True) -> ScgResult:
+    """scg() of a scalar objective fn(x) of a float64 CPU tensor x, its
+    gradient from torch.autograd (optim.numpy_value_and_grad).  `jit` is
+    accepted for gpc_tpu's signature and has no effect: the port runs
+    eagerly."""
+    from gpc_tpu_torch.optim import numpy_value_and_grad
+
+    del jit
+    return scg(numpy_value_and_grad(fn, "cpu"), np.asarray(x0, dtype=np.float64),
+               max_iters=max_iters, param_tol=param_tol, obj_tol=obj_tol)

@@ -107,3 +107,61 @@ def make_dist_gplvm_value_and_grad(spec: GplvmSpec, mesh: Mesh, noise_bias, fixe
         return -L
 
     return nlml
+
+
+def _check_case(mesh: Mesh, n_devices: int, model, tag: str, rtol=2e-3, atol=5e-4):
+    """The distributed value and θ̄ of `model` against the single process's
+    log_likelihood on the same device (gpc_tpu's smoke tolerances, which
+    cover float32 reduction order; the CPU tests hold float64 to 1e-10)."""
+    from gpc_tpu_torch.models.gplvm import log_likelihood
+    from gpc_tpu_torch.parallel.mesh import shard_rows
+
+    dev = mesh.device
+    nb, fs = (as_tensor(a, dev) for a in (model.noise_bias, model.fixed_scales))
+    dpf = as_tensor(model.dyn_params_fixed, dev) if model.dyn_params_fixed is not None else None
+    nlml = make_dist_gplvm_value_and_grad(model.spec, mesh, model.noise_bias, model.fixed_scales,
+                                          dyn_params_fixed=model.dyn_params_fixed)
+    args = [shard_rows(mesh, model.y)]
+    if model.bK is not None:
+        args.append(shard_rows(mesh, model.bK))
+
+    def value_and_grad(f):
+        t = as_tensor(model.theta, dev).requires_grad_(True)
+        v = f(t)
+        (g,) = torch.autograd.grad(v, t)
+        return float(v.detach()), g.cpu().numpy()
+
+    val, grad = value_and_grad(lambda t: nlml(t, *args))
+    want, g_single = value_and_grad(lambda t: -log_likelihood(
+        model.spec, t, model.yd, nb, fs, dyn_params_fixed=dpf, bK=model.bKd))
+    if abs(val - want) / max(abs(want), 1.0) >= 1e-4:
+        raise AssertionError(f"dist_gplvm dryrun [{tag}]: value {val}, single process {want}")
+    np.testing.assert_allclose(grad, g_single, rtol=rtol, atol=atol, err_msg=tag)
+    if mesh.rank == 0:
+        print(f"dryrun_multichip({n_devices}): OK — distributed GP-LVM [{tag}] "
+              f"value+grad {val:.6f} matches single-chip {want:.6f}")
+
+
+def dryrun(mesh: Mesh, n_devices: int) -> None:
+    """The distributed GP-LVM value and gradient on tiny shapes (N = 8 a
+    rank) against the single process on `mesh`: plain, GPDM dynamics and
+    back-constrained.  Raises on a mismatch."""
+    from gpc_tpu_torch import kernels as K
+    from gpc_tpu_torch.models.gplvm import GPLVM
+
+    N, D, q = 8 * n_devices, 3, 2
+    y = np.random.default_rng(4).standard_normal((N, D))
+    kern = K.Cmpnd(input_dim=q, components=(
+        K.Rbf(input_dim=q), K.Bias(input_dim=q), K.White(input_dim=q)))
+    dev = mesh.device
+    _check_case(mesh, n_devices, GPLVM(kern, y, latent_dim=q, device=dev), "plain")
+
+    dyn = K.Cmpnd(input_dim=q, components=(K.Rbf(input_dim=q), K.White(input_dim=q)))
+    model_dyn = GPLVM(kern, y, latent_dim=q, dyn_kern=dyn, dyn_breaks=(0, N // 2), device=dev)
+    _check_case(mesh, n_devices, model_dyn, "dynamics")
+
+    back = K.Rbf(input_dim=D)
+    yd = torch.as_tensor(y)
+    bK = back.gram(torch.as_tensor(back.default_params()), yd).numpy() + 1e-4 * np.eye(N)
+    model_bc = GPLVM(kern, y, latent_dim=q, back_kernel_matrix=bK, device=dev)
+    _check_case(mesh, n_devices, model_bc, "back-constrained")

@@ -40,7 +40,8 @@ from gpc_tpu_torch import priors as priors_mod
 from gpc_tpu_torch.models.gp import DTC, DTCVAR, FITC, GpSpec
 from gpc_tpu_torch.parallel.chol_distributed import _local_factor_step
 from gpc_tpu_torch.parallel.dist_gp import all_reduce, broadcast, share
-from gpc_tpu_torch.parallel.mesh import Mesh, Mesh2D, replicated, shard_rows
+# mesh_2d is re-exported for parity of names with gpc_tpu's module only.
+from gpc_tpu_torch.parallel.mesh import Mesh, Mesh2D, mesh_2d, replicated, shard_rows  # noqa: F401
 
 
 def _chol_rows(S_rows, mp: Mesh, Mb: int, M: int):

@@ -6,7 +6,7 @@ count in one process.  The port runs one process a rank, so:
 
   * the census is measured: every collective of the distributed layer
     counts its calls and output bytes in parallel.mesh.COLLECTIVES, and
-    `collective_census(fn)` returns what one call of fn ran;
+    `collective_stats(fn, *args)` returns what one call of fn ran;
   * `weak_scaling_artifact` reports the census of one dist_ftc
     value_and_grad and of the iterative proxy beside gpc_tpu's analytic
     bytes (one (N, B) panel all-gather a panel step);
@@ -52,19 +52,20 @@ def _kern(q):
                                             K.White(input_dim=q)))
 
 
-def collective_census(fn, *args):
-    """(fn(*args), {op: {"count", "bytes"}}): the collectives one call ran,
-    by op ("all-gather", "all-reduce", "broadcast"), with the bytes of
-    their outputs summed."""
+def collective_stats(fn, *args):
+    """{op: {"count", "bytes"}}: the collectives one call fn(*args) ran, by
+    op ("all-gather", "all-reduce", "broadcast"), with the bytes of their
+    outputs summed (gpc_tpu's return shape; it reads a static HLO census
+    where the port counts the calls)."""
     before = copy.deepcopy(dict(mesh_mod.COLLECTIVES))
-    out = fn(*args)
+    fn(*args)
     census = {}
     for op, ent in mesh_mod.COLLECTIVES.items():
         was = before.get(op, {"count": 0, "bytes": 0})
         if ent["count"] > was["count"]:
             census[op] = {"count": ent["count"] - was["count"],
                           "bytes": ent["bytes"] - was["bytes"]}
-    return out, census
+    return census
 
 
 def weak_scaling_artifact(n_devices: int, rows_per_device: int = 128, q: int = 4,
@@ -87,7 +88,7 @@ def weak_scaling_artifact(n_devices: int, rows_per_device: int = 128, q: int = 4
     Xl, yl, ml = (shard_rows(mesh, a) for a in (X, y, np.ones(N)))
     nlml = make_dist_ftc_value_and_grad(model.spec, mesh, model.bias, model.fixed_scales, N)
     vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
-    _, census = collective_census(vag, model.theta)
+    census = collective_stats(vag, model.theta)
     dtype_bytes = torch.finfo(Xl.dtype).bits // 8
     return {
         "weak_scaling_proxy": {
@@ -123,7 +124,7 @@ def _iterative_proxy(mesh, rows_per_device, q, model, Xl, yl, ml):
                      cg_iters=20, trace_probes=2, seed=0)
     nlml = dist_iterative_nlml(model.spec.kern, mesh, model.bias, model.fixed_scales, N, cfg)
     vag = numpy_value_and_grad(lambda t: nlml(t, Xl, yl, ml), mesh.device)
-    _, census = collective_census(vag, model.theta)
+    census = collective_stats(vag, model.theta)
     return {
         "program": "dist_iterative value+grad (row-sharded CG+SLQ)",
         "collectives_measured": census,
@@ -164,7 +165,7 @@ def run(rows_per_device: int = 2048, num_active: int = 256, q: int = 8, mesh=Non
         (g,) = torch.autograd.grad(f, t)
         return f, g
 
-    _, census = collective_census(vag)
+    census = collective_stats(vag)
     _sync(mesh.device)
     t0 = time.perf_counter()
     for _ in range(reps):

@@ -1,6 +1,7 @@
 """One rank of the tests of the port's panel Cholesky, dist_ftc,
 dist_gplvm, dist_iterative, dist_ivm, dist_sparse2d and scaling_bench
-(tests/test_torch_chol_distributed.py ... test_torch_scaling_bench.py).
+(tests/test_torch_chol_distributed.py ... test_torch_scaling_bench.py), and
+of the dryruns and collective_stats (tests/test_torch_surface.py).
 
     GPC_TPU_COORDINATOR=file:///tmp/store GPC_TPU_NUM_PROCS=3 GPC_TPU_PROC_ID=0 \\
         python tests/helpers/torch_dist2_worker.py CASE IN.npz OUT.npz [N_MP N_DP]
@@ -283,8 +284,28 @@ def case_scaling(mesh, a):
     return {"artifact": json.dumps(rec), "run": json.dumps(line)}
 
 
+def case_dryrun(mesh, a):
+    """dist_gplvm.dryrun and dist_ivm.dryrun on this world (their printed
+    lines), and collective_stats of one all_reduce_sum and one gather_rows."""
+    import contextlib
+    import io
+    import json
+
+    from gpc_tpu_torch.parallel import dist_gplvm, dist_ivm
+    from gpc_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
+    from gpc_tpu_torch.parallel.scaling_bench import collective_stats
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dist_gplvm.dryrun(mesh, mesh.size)
+        dist_ivm.dryrun(mesh, mesh.size)
+    x = torch.ones((2, 3), dtype=torch.float64)
+    stats = collective_stats(lambda: (all_reduce_sum(mesh, x), gather_rows(mesh, x)))
+    return {"lines": buf.getvalue(), "stats": json.dumps(stats)}
+
+
 CASES = dict(chol=case_chol, ftc=case_ftc, gplvm=case_gplvm, iterative=case_iterative,
-             ivm=case_ivm, sparse2d=case_sparse2d, scaling=case_scaling)
+             ivm=case_ivm, sparse2d=case_sparse2d, scaling=case_scaling, dryrun=case_dryrun)
 
 
 def main(case, in_path, out_path, *grid):
