@@ -23,8 +23,9 @@ as a standalone op on an mlp Gram block; and the Hopper probes: K7, the
 whole evidence in one launch, at N = 16384 in its five modes against the
 plain version, the dense f32 evidence and K3, and K8a, the overlap probes
 at the TPU probe's shapes; K8b and K8c, the chained bf16 dots of the TPU
-probes in three operand forms and four read patterns, beside one
-torch.matmul a dot (phase 15); and K8d, the exp tile, the rbf Gram tile,
+probes in three operand forms and four read patterns on wgmma, beside
+one torch.matmul a dot, each product's share of its bound (over 105 %
+fails) (phase 15); and K8d, the exp tile, the rbf Gram tile,
 the matvec chain and the staged bf16 store in its bulk and direct modes
 (phase 16).  Phase 17, the sparse slice at gpc_tpu's geometry (N = 16384,
 M = 1024, q = 8): DTC, DTCVAR, FITC and PITC (blocks of 1024 and of 1000)
@@ -1800,10 +1801,14 @@ def phase_dots(dev):
     """K8b and K8c at the TPU probes' shapes (K = 8192, B = 512, REPS =
     1024): each form (hoisted operands) and each read pattern (form c0) at
     REPS and at 64 products, launches counted; µs per product by the
-    differential pair; one torch.matmul (cuBLAS) of the same bf16 operands
-    and form per product, the yardstick (library_ms: REPS of them); then each
+    differential pair, its TFLOP/s and its share of the bound (a product's
+    operations over the bf16 peak), ms at REPS and its share of the REPS
+    bound; one torch.matmul (cuBLAS) of the same bf16 operands and form per
+    product, the yardstick (library_ms: REPS of them); for the streamed
+    patterns the L2 bytes of A a product (dot_plan's count); then each
     against its plain version at REPS, within 1e-4 of the largest entry
-    (1024 sums of bf16 products near 9e4, float32 in another order)."""
+    (1024 sums of bf16 products near 9e4, float32 in another order).  A
+    share over 105 % fails the run: some products did not run."""
     from gpc_tpu_torch.ops import cuda_lib
     from gpc_tpu_torch.probes import dotform as DF
     from gpc_tpu_torch.probes import refread as RR
@@ -1825,12 +1830,25 @@ def phase_dots(dev):
     for name in ("dotform_probe", "refread_probe"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
     flop = 2 * K * B * B
+    bound_us = flop / PEAK["bf16"] * 1e6
+    l2_bytes = DF.dot_plan(K, B).streamed_bytes
     lib_us = {f: cuda_ms(lambda f=f: DF.library_dot(*forms[f], f), 20) * 1e3 for f in DF.FORMS}
+    share, share_reps = {}, {}
     for (kind, which), (us, ms) in timing.items():
+        form = which if kind == "dotform" else "c0"
+        streamed = kind == "refread" and which != "hoisted"
+        reps_ms = (k8b_bound(K, B, REPS) if kind == "dotform" else
+                   k8c_bound(K, B, REPS, which))[0]
+        share[f"{kind} {which}"], share_reps[f"{kind} {which}"] = bound_us / us, reps_ms / ms
         log(f"phase 15 {'K8b' if kind == 'dotform' else 'K8c'} {kind} {which} K={K} B={B}: "
-            f"{us} us/dot ({flop / us / 1e6} TFLOP/s) by the 64/{REPS} pair, {ms} ms at {REPS}"
-            + (f"; torch.matmul {lib_us[which]} us/dot ({flop / lib_us[which] / 1e6} TFLOP/s)"
-               if kind == "dotform" else ""))
+            f"{us} us/dot ({flop / us / 1e6} TFLOP/s, {bound_us / us:.1%} of the {bound_us} us "
+            f"bound) by the 64/{REPS} pair, {ms} ms at {REPS} ({reps_ms / ms:.1%} of "
+            f"{reps_ms} ms); torch.matmul {form} {lib_us[form]} us/dot "
+            f"({flop / lib_us[form] / 1e6} TFLOP/s)"
+            + (f"; L2 bytes of A a product {l2_bytes}" if streamed else ""))
+        check(bound_us / us <= 1.05 and reps_ms / ms <= 1.05,
+              f"{kind} {which}: {bound_us / us:.1%} / {reps_ms / ms:.1%} of its bound, "
+              f"over 105 %: some products did not run")
     worst, plain_ms = {}, {}
     for key, run in runs.items():
         got, want = run(REPS), plains[key]()
@@ -1854,7 +1872,8 @@ def phase_dots(dev):
     return launches, entries, dict(
         us_per_dot={f"{k} {w}": us for (k, w), (us, _) in timing.items()},
         ms_at_reps={f"{k} {w}": ms for (k, w), (_, ms) in timing.items()},
-        torch_matmul_us_per_dot=lib_us)
+        share_of_bound=share, share_of_bound_at_reps=share_reps,
+        l2_bytes_a_product_streamed=l2_bytes, torch_matmul_us_per_dot=lib_us)
 
 
 def phase_vpu(dev):

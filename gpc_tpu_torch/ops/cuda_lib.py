@@ -57,7 +57,7 @@ _SIGNATURES = {
                           _I, _P],
     "gpc_dma_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpc_leaf_parts": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "gpc_dot_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gpc_dot_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpc_vpu_exp": [_P, _P, _I, _I, _P],
     "gpc_vpu_gram": [_P, _P, _P, _I, _I, _P],
     "gpc_vpu_matvec": [_P, _P, _P, _I, _I, _P],

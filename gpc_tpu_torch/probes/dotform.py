@@ -9,10 +9,12 @@ contraction width K, output (B, B), in three forms:
   std   A Bv,  A (B, K), Bv (K, B)
   dotT  A Bvᵀ, A and Bv (B, K)   (both row-major)
 
-The kernel (csrc/probes_dots.cu) stages each block's K-slice of both
-operands in shared memory once, as the TPU kernel read its operands before
-its loop, and computes every one of the `reps` products on the tensor
-cores.  A CPU tensor takes the plain version.
+The kernel (csrc/probes_dots.cu) loads each block's K-slice of both
+operands into shared memory once by TMA, as the TPU kernel read its
+operands before its loop, and computes every one of the `reps` products
+with wgmma, each form's operands in their own layout (wgmma's transpose
+bits: c0's both MN-major, dotT's both K-major).  `dot_plan` is its split
+of the work into blocks.  A CPU tensor takes the plain version.
 
     python -m gpc_tpu_torch.probes.dotform [--reps 3]
 
@@ -25,6 +27,7 @@ counterpart of the TPU probe's XLA loop (:107-129).  Needs CUDA.
 from __future__ import annotations
 
 import argparse
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +39,42 @@ K, B, REPS = 8192, 512, 1024
 FORMS = ("c0", "std", "dotT")
 PATTERNS = ("hoisted", "read_each", "reshape_each", "dynslot")   # K8c's (probes/refread.py)
 KS = 256      # the kernel's K-slice: a block's share of the contraction
+TILE = 128    # a block's output tile: TILE x TILE
+BF16_PEAK = 989e12   # the H100's dense bf16 tensor-core rate (FLOP/s), the probes' bound
+
+
+class DotPlan(NamedTuple):
+    """The kernel's split of one call: nt² output tiles of TILE x TILE
+    times `slices` slices of ks along the contraction, one block each."""
+    ks: int
+    nt: int
+    slices: int
+
+    @property
+    def blocks(self) -> int:
+        return self.nt ** 2 * self.slices
+
+    def block(self, i: int):
+        """(r0, s0, k0, k1) of block i: output rows r0 .. r0 + TILE,
+        columns s0 .. s0 + TILE, contraction k0 .. k1, as dots_kernel
+        reads blockIdx.x (tile i mod nt², slice i // nt²)."""
+        tile, s = i % self.nt ** 2, i // self.nt ** 2
+        return (tile // self.nt) * TILE, (tile % self.nt) * TILE, s * self.ks, (s + 1) * self.ks
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Bytes of A that the streamed patterns read from L2 a product:
+        each block its TILE x ks slice (A once per column tile)."""
+        return self.blocks * TILE * self.ks * 2
+
+
+def dot_plan(k: int, b: int) -> DotPlan:
+    """The blocks of a call at contraction k (a multiple of KS), output
+    (b, b) (b a multiple of TILE)."""
+    if k <= 0 or k % KS or b <= 0 or b % TILE:
+        raise ValueError(f"dot_plan: want K a multiple of {KS} and B of {TILE}; "
+                         f"got K = {k}, B = {b}")
+    return DotPlan(KS, b // TILE, k // KS)
 
 
 def operand_shapes(form: str, k: int = K, b: int = B):
@@ -78,11 +117,12 @@ def launch_dots(count_as: str, a, Bv, form: str, pattern: str, reps: int, k: int
     dev = a.device
     if dev.type != "cuda" or Bv.device != dev:
         raise ValueError(f"{count_as}: tensors on {dev}, {Bv.device}; the kernel needs CUDA")
-    part = torch.empty((k // KS, b, b), dtype=torch.float32, device=dev)
+    plan = dot_plan(k, b)
+    part = torch.empty((plan.slices, b, b), dtype=torch.float32, device=dev)
     out = torch.empty((b, b), dtype=torch.float32, device=dev)
     cuda_lib.launch(count_as, "gpc_dot_probe", a.data_ptr(), Bv.data_ptr(), part.data_ptr(),
                     out.data_ptr(), FORMS.index(form), PATTERNS.index(pattern), k, b, reps,
-                    cuda_lib.stream_of(a))
+                    plan.ks, cuda_lib.stream_of(a))
     return out
 
 
@@ -142,9 +182,9 @@ def main(argv=None):
         A, Bv = inp[form]
         us, ms = per_dot_us(lambda n: dotform_probe(A, Bv, form, n), a.reps)
         lib_us = cuda_ms(lambda: library_dot(A, Bv, form), 20) * 1e3
-        print(f"form {form:4s}: {us} us/dot ({flop / us / 1e6} TFLOP/s), {ms} ms at "
-              f"{REPS}; torch.matmul {lib_us} us/dot ({flop / lib_us / 1e6} TFLOP/s)",
-              flush=True)
+        print(f"form {form:4s}: {us} us/dot ({flop / us / 1e6} TFLOP/s, "
+              f"{flop / BF16_PEAK * 1e6 / us:.1%} of the bf16 bound), {ms} ms at {REPS}; "
+              f"torch.matmul {lib_us} us/dot ({flop / lib_us / 1e6} TFLOP/s)", flush=True)
 
 
 if __name__ == "__main__":

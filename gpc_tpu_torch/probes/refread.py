@@ -4,12 +4,13 @@ Hopper version of tools/tpu_refread_probe.py (kernels :51-85, the call at
 :111): the sum over `reps` of the c0 product aᵀ Bv (a, Bv bf16, contraction
 K, output (B, B) float32) under four read patterns of a:
 
-  hoisted       a (K, B); each block stages its K-slice in shared memory
-                once and runs every product from there
-  read_each     a (K, B); every product re-streams the slice from device
-                memory (L2) through a cp.async double buffer
+  hoisted       a (K, B); each block loads its K-slice into shared memory
+                once by TMA and runs every product from there
+  read_each     a (K, B); Bv's slice stays resident and every product
+                streams a's slice again from device memory (L2) through a
+                ring of TMA stages
   reshape_each  a (K / B, B, B), read as (K, B) every product: the same
-                bytes under a 3-D index
+                bytes under a 3-D index (a rank-3 tensor map)
   dynslot       a (2, K / B, B, B); product it reads slot it mod 2, so two
                 8 MB copies of a and Bv make a 24 MB working set
 
@@ -34,8 +35,8 @@ import argparse
 import numpy as np
 import torch
 
-from gpc_tpu_torch.probes.dotform import (PATTERNS, launch_dots, per_dot_us, product,
-                                          sum_products)
+from gpc_tpu_torch.probes.dotform import (BF16_PEAK, PATTERNS, dot_plan, launch_dots,
+                                          per_dot_us, product, sum_products)
 
 K, B, REPS = 8192, 512, 1024
 
@@ -93,10 +94,12 @@ def main(argv=None):
     print(require_card(), flush=True)
     a, Bv = probe_inputs(torch.device("cuda"))
     flop = 2 * K * B * B
+    l2 = dot_plan(K, B).streamed_bytes
     for pattern in PATTERNS:
         us, ms = per_dot_us(lambda n: refread_probe(a[pattern], Bv, pattern, n), args.reps)
-        print(f"{pattern:13s} {us} us/dot ({flop / us / 1e6} TFLOP/s), {ms} ms at {REPS}",
-              flush=True)
+        print(f"{pattern:13s} {us} us/dot ({flop / us / 1e6} TFLOP/s, "
+              f"{flop / BF16_PEAK * 1e6 / us:.1%} of the bf16 bound), {ms} ms at {REPS}"
+              + ("" if pattern == "hoisted" else f"; L2 bytes of a a product {l2}"), flush=True)
 
 
 if __name__ == "__main__":

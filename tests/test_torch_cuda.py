@@ -26,7 +26,8 @@ probes: K7 to its plain version (the same bf16 policy) at 2e-4 and to the
 dense float32 evidence at 2e-3; K8a's (8, 128) corners to their plain
 versions within 1e-5 of the largest entry (bf16 products summed in float32
 in another order), 5e-5 where they hold sums of float32 leaves; K8b's and
-K8c's sums of bf16 products within 1e-4 of the largest entry, K8d's exp and
+K8c's sums of bf16 products within 1e-4 of the largest entry (the three
+forms on the same data within 1e-4 of c0's largest entry), K8d's exp and
 Gram tiles within 1e-5, its matvec chain within 1e-4, and its staged store
 bit for bit.  The IVM: K1/K4 at the selection column (m = 1) within rtol
 1e-5; a selection pass (N = 1024, d = 128) makes no host sync; the pass
@@ -700,7 +701,10 @@ def _rel_close(got, want, tol):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
-DOT_SHAPES = [(512, 256, 5), (8192, 512, 1024)]   # (K, B, reps): small, and the TPU probes'
+# (K, B, reps): small, the TPU probes', and the edges of the wgmma tiling (one
+# slice of 256 at B = 128, three slices at B = 384, no product and one product)
+DOT_SHAPES = [(512, 256, 5), (8192, 512, 1024), (256, 128, 0), (256, 128, 1), (768, 128, 1),
+              (768, 384, 3)]
 
 
 @pytest.mark.parametrize("k,b,reps", DOT_SHAPES)
@@ -727,6 +731,39 @@ def test_refread_kernel_matches_plain(dev, pattern, k, b, reps):
     got = TRR.refread_probe(a[pattern], Bv, pattern, reps)
     assert LAUNCHES["refread_probe"] == before + 1
     _rel_close(got, TRR.refread_probe_plain(a[pattern], Bv, pattern, reps), 1e-4)
+
+
+@pytest.mark.parametrize("k,b", [(256, 128), (768, 384), (8192, 512)])
+def test_dot_forms_agree_on_the_same_data(dev, k, b):
+    """K8b: c0 on (A, Bv), std on (Aᵀ, Bv) and dotT on (Aᵀ, Bvᵀ) compute
+    the same sum through three operand layouts (MN-major and K-major A and
+    B): each within 1e-4 of c0's largest entry."""
+    from gpc_tpu_torch.probes import dotform as TDF
+    A, Bv = TDF.probe_inputs(dev, k=k, b=b, seed=14)["c0"]
+    At, Bvt = A.T.contiguous(), Bv.T.contiguous()
+    c0 = TDF.dotform_probe(A, Bv, "c0", 3)
+    _rel_close(TDF.dotform_probe(At, Bv, "std", 3), c0, 1e-4)
+    _rel_close(TDF.dotform_probe(At, Bvt, "dotT", 3), c0, 1e-4)
+    _rel_close(c0, TDF.dotform_probe_plain(A, Bv, "c0", 3), 1e-4)
+
+
+@pytest.mark.parametrize("form", ["c0", "std", "dotT"])
+def test_dot_form_one_slice_at_b128(dev, form):
+    """One block, one 128 x 128 tile, one slice of 256 k, one product: a
+    wrong MN-major descriptor (c0's A and B, std's B) shows as a permuted
+    tile.  Every row and column of both operands carries its own scale, so
+    no permutation of the tile agrees with the plain version."""
+    from gpc_tpu_torch.probes import dotform as TDF
+    k, b = 256, 128
+    assert TDF.dot_plan(k, b).blocks == 1
+    A, Bv = TDF.probe_inputs("cpu", k=k, b=b, seed=15)[form]
+
+    def scaled(t):
+        rows, cols = (torch.linspace(0.25, 4.0, n) for n in t.shape)
+        return (t.float() * rows[:, None] * cols[None, :]).to(torch.bfloat16)
+    A, Bv = scaled(A), scaled(Bv)
+    got = TDF.dotform_probe(A.to(dev), Bv.to(dev), form, 1).cpu()
+    _rel_close(got, TDF.dotform_probe_plain(A, Bv, form, 1), 1e-4)
 
 
 @pytest.mark.parametrize("b,reps", [(128, 8), (512, 2048)])

@@ -15,7 +15,9 @@ float32 in another order), exp, the Gram tile and the matvec chain (float32
 in another order); the store is exact (bf16 of the same unfused float32
 sum) in the slots it writes, and o is exact.  The CUDA kernels are held
 against these plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py).  K8b/K8c's slice plan (dotform.dot_plan), which the kernel
+reads as its blockIdx split, is checked here for covering every output
+tile and every k once at the card tests' shapes.
 """
 
 import importlib.util
@@ -196,6 +198,32 @@ def test_vpu_stage_store_plain_wraps_round_the_slots():
             torch.bfloat16)
     assert torch.equal(big, want) and bool((o == n).all())
     assert not torch.equal(big[0], big[1])
+
+
+# the card tests' shapes (tests/test_torch_cuda.py DOT_SHAPES and the layout
+# tests) and the TPU probes'
+PLAN_SHAPES = [(256, 128), (512, 256), (768, 128), (768, 384), (8192, 512)]
+
+
+@pytest.mark.parametrize("k,b", PLAN_SHAPES)
+def test_dot_plan_covers_each_tile_and_k_once(k, b):
+    """dot_plan's blocks, read as the kernel reads blockIdx.x, cover every
+    128 x 128 output tile and every 64-k chunk of its contraction exactly
+    once; the streamed patterns read A once for each column tile."""
+    plan = TDF.dot_plan(k, b)
+    seen = np.zeros((b // 128, b // 128, k // 64), int)
+    for i in range(plan.blocks):
+        r0, s0, k0, k1 = plan.block(i)
+        assert r0 % 128 == 0 and s0 % 128 == 0 and k0 % 64 == 0 and k1 - k0 == plan.ks
+        seen[r0 // 128, s0 // 128, k0 // 64:k1 // 64] += 1
+    assert (seen == 1).all()
+    assert plan.streamed_bytes == (b // 128) * k * b * 2
+
+
+@pytest.mark.parametrize("k,b", [(200, 128), (0, 128), (512, 200), (256, 0)])
+def test_dot_plan_rejects_what_the_kernel_cannot_split(k, b):
+    with pytest.raises(ValueError, match="dot_plan"):
+        TDF.dot_plan(k, b)
 
 
 def _meta(shape, dtype=torch.float32):
