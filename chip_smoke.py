@@ -22,7 +22,11 @@ in phase 3, evidence_left_fast at N = 10000 (the slice's first 10000 rows,
 as a standalone op on an mlp Gram block; and the Hopper probes: K7, the
 whole evidence in one launch, at N = 16384 in its five modes against the
 plain version, the dense f32 evidence and K3, and K8a, the overlap probes
-at the TPU probe's shapes; K8b and K8c, the chained bf16 dots of the TPU
+at the TPU probe's shapes on leaf128 and wgmma/TMA: µs a dot (with and
+without its K split, and the SMs it holds), a leaf, a slab and each leaf
+part beside its bound (one SM's share for the one-block parts; over 105 %
+fails), inter / max and seq / sum, and torch.matmul on one dot's and on
+gemm512's operands (phase 14); K8b and K8c, the chained bf16 dots of the TPU
 probes in three operand forms and four read patterns on wgmma, beside
 one torch.matmul a dot, each product's share of its bound (over 105 %
 fails) (phase 15); and K8d, the exp tile, the rbf Gram tile,
@@ -1721,25 +1725,47 @@ def phase_mega(dev, k3_ms):
 
 
 def phase_overlap(dev):
-    """K8a at the TPU probe's shapes (RC = KC = 2048, B = 512): the probes'
-    runs (dots, leaves, interleaved and sequential; the slab stream with and
-    without the dot; each leaf part), launches counted, then each probe
-    against its plain version: 1e-5 of the largest entry for the stream
-    without the dot (sums of bf16 values), 5e-5 for the stream with it
-    (float32 sums over 5 x 2048 products, in another order) and where
-    float32 leaves are summed."""
+    """K8a at the TPU probe's shapes (RC = KC = 2048, B = 512), on leaf128
+    and wgmma/TMA: the probes' runs (dots with overlap_plan's K split and
+    without it, independent dots, leaves, interleaved and sequential; the
+    slab stream with and without the dot; each leaf part), launches
+    counted.  Logged: µs a dot and TFLOP/s with the SMs the dots occupy;
+    µs a leaf at B = 512 and each part's µs beside one SM's share of the
+    card's bound (f32 67/132, bf16 989/132 TFLOP/s: a leaf and a part run
+    on one block); inter / max(dots, leaves) and seq / (dots + leaves); µs
+    a slab with and without the dot; the yardsticks torch.matmul on one
+    dot's operands and on gemm512's (captured in one CUDA graph: eager
+    calls that short time the host).  Then each probe against its plain
+    version: 1e-5 of the largest entry for the stream without the dot
+    (sums of bf16 values), 5e-5 for the stream with it (float32 sums over
+    5 x 2048 products, in another order) and where float32 leaves are
+    summed; the leaves also on rbf Gram blocks, with the last leaf's L and
+    L⁻¹ held to 5e-5 of their largest entries.  A share of a bound over
+    105 % fails the run."""
     from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.ops.chol_pallas import chol_inv_block_plain
     from gpc_tpu_torch.probes import overlap as OV
     inp = OV.probe_inputs(dev, n_bufs=64)
     s, v, al, a512, a128, hbm = (inp[k] for k in ("slab", "vrow", "aleaf", "a512", "a128", "hbm"))
     RC, KC, B = OV.RC, OV.KC, OV.B
     nd, nl = 64, 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = OV._grid()
+    plans = {"dots": OV.overlap_plan(RC, KC, B, nd, 0, False, False, grid),
+             "dots_unsplit": OV.overlap_plan(RC, KC, B, nd, 0, False, False, grid, ksplit=1),
+             "dots_indep": OV.overlap_plan(RC, KC, B, nd, 0, False, True, grid),
+             "inter": OV.overlap_plan(RC, KC, B, nd, nl, True, False, grid)}
     cuda_lib.LAUNCHES.clear()
-    t = {name: cuda_ms(lambda: OV.overlap_probe(s, v, al, *args), 3) for name, args in (
-        ("dots", (nd, 0, False)), ("leaves", (0, nl, False)), ("inter", (nd, nl, True)),
-        ("seq", (nd, nl, False)), ("dots_indep", (nd, 0, False, True)))}
+    t = {name: cuda_ms(lambda: OV.overlap_probe(s, v, al, *args, _ksplit=ks), 3)
+         for name, args, ks in (
+             ("dots", (nd, 0, False), None), ("leaves", (0, nl, False), None),
+             ("inter", (nd, nl, True), None), ("seq", (nd, nl, False), None),
+             ("dots_indep", (nd, 0, False, True), None), ("dots_unsplit", (nd, 0, False), 1))}
+    # 64 and 640 slabs: the difference of 16 and 64 read 1.99 µs a slab, 126 %
+    # of the bound; a 16-slab call is shorter than its host path, so calls
+    # back to back time the host (in a CUDA graph 16 -> 64 reads as 64 -> 640)
     dma = {(n, d): cuda_ms(lambda: OV.dma_probe(hbm, v, n, d), 3)
-           for d in (False, True) for n in (16, 64)}
+           for d in (False, True) for n in (64, 640)}
     parts = {}
     for kind, lo in (("sweep128", 8), ("fsweep128", 8), ("gemm512", 16), ("gemm128", 16),
                      ("fdiag", 2), ("ffdiag", 2)):
@@ -1751,25 +1777,79 @@ def phase_overlap(dev):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
     flop = 2 * RC * KC * B
     slab_bytes = RC * KC * 2
-    log(f"phase 14 K8a make_probe {nd} dots + {nl} leaves: {t} ms; per dot {t['dots'] / nd * 1e3} us "
-        f"({flop * nd / t['dots'] / 1e9} TFLOP/s), independent {t['dots_indep'] / nd * 1e3} us; "
-        f"per leaf {t['leaves'] / nl * 1e3} us; inter / max(dots, leaves) "
+    one_sm = {kind: PEAK[kind] / sms for kind in PEAK}   # FLOP/s of one SM's share
+    leaf_ops = 2 * B ** 3 / 3                            # (L, L⁻¹) of B, as the bound counts it
+    shares = {}
+    dot_us = {k: t[k] / nd * 1e3 for k in ("dots", "dots_unsplit", "dots_indep")}
+    for k, us in dot_us.items():
+        shares[k] = flop / PEAK["bf16"] * 1e6 / us
+    leaf_us = t["leaves"] / nl * 1e3
+    shares["leaf"] = leaf_ops / one_sm["f32"] * 1e6 / leaf_us
+    log(f"phase 14 K8a make_probe {nd} dots + {nl} leaves: {t} ms; per dot {dot_us['dots']} us "
+        f"({flop / dot_us['dots'] / 1e6} TFLOP/s, {shares['dots']} of the bf16 bound) on "
+        f"{plans['dots'].sms} SMs (K split {plans['dots'].ksplit}); unsplit "
+        f"{dot_us['dots_unsplit']} us ({flop / dot_us['dots_unsplit'] / 1e6} TFLOP/s) on "
+        f"{plans['dots_unsplit'].sms} SMs; independent {dot_us['dots_indep']} us "
+        f"({flop / dot_us['dots_indep'] / 1e6} TFLOP/s) on {plans['dots_indep'].sms} SMs (K split "
+        f"{plans['dots_indep'].ksplit}); beside the leaves {plans['inter'].sms} SMs (K split "
+        f"{plans['inter'].ksplit}); per leaf {leaf_us} us ({shares['leaf']} of one SM's f32 "
+        f"bound, {leaf_ops / one_sm['f32'] * 1e6} us); inter / max(dots, leaves) "
         f"{t['inter'] / max(t['dots'], t['leaves'])}, seq / (dots + leaves) "
         f"{t['seq'] / (t['dots'] + t['leaves'])}")
     for d in (False, True):
-        per = (dma[(64, d)] - dma[(16, d)]) / 48 * 1e-3
+        per = (dma[(640, d)] - dma[(64, d)]) / 576 * 1e-3
+        bound_s = max(slab_bytes / HBM_BPS, flop / PEAK["bf16"] if d else 0.0)
+        shares[f"slab{'+dot' if d else ''}"] = bound_s / per
         log(f"phase 14 K8a slab stream {'with' if d else 'without'} the dot: {per * 1e6} us a slab, "
-            f"{slab_bytes / per / 1e9} GB/s" + (f", {flop / per / 1e12} TFLOP/s" if d else ""))
-    log(f"phase 14 K8a leaf parts, us each (differential): {parts}")
-    # each probe against its plain version
+            f"{slab_bytes / per / 1e9} GB/s" + (f", {flop / per / 1e12} TFLOP/s" if d else "")
+            + f", {bound_s / per} of its bound ({bound_s * 1e6} us)")
+    part_ops = {"sweep128": ("f32", 2 * 128 ** 3 / 3), "fsweep128": ("f32", 2 * 128 ** 3 / 3),
+                "gemm512": ("bf16", 2 * 512 ** 3), "gemm128": ("f32", 2 * 128 ** 3),
+                "fdiag": ("f32", 2 * 512 ** 3 / 3), "ffdiag": ("f32", 2 * 512 ** 3 / 3)}
+    part_bound = {k: n / one_sm[kind] * 1e6 for k, (kind, n) in part_ops.items()}
+    for k, us in parts.items():
+        shares[k] = part_bound[k] / us
+    log(f"phase 14 K8a leaf parts, us each (differential): {parts}; one SM's bound, us: "
+        f"{part_bound}; share: { {k: shares[k] for k in parts} }")
+    a512b = a512.to(torch.bfloat16)
+    vt = v.mT
+    (lib_dots_ms, _, _), (lib_g512_ms, _, _) = graph_paired_ms(
+        lambda: [torch.matmul(s[i % 2], vt) for i in range(nd)],
+        lambda: torch.matmul(a512b, a512b))
+    lib_dot_us, lib_g512_us = lib_dots_ms / nd * 1e3, lib_g512_ms * 1e3
+    log(f"phase 14 K8a yardsticks (torch.matmul, bf16, captured in one CUDA graph, median of "
+        f"the replays): {nd} calls on the dots' operands (2048, 2048) x (2048, 512)^T "
+        f"{lib_dots_ms} ms, {lib_dot_us} us a dot ({flop / lib_dot_us / 1e6} TFLOP/s); "
+        f"gemm512's (512, 512) x (512, 512) {lib_g512_us} us "
+        f"({2 * 512 ** 3 / lib_g512_us / 1e6} TFLOP/s)")
+    for k, share in shares.items():
+        check(share <= 1.05, f"K8a {k}: {share} of its bound (over 105 %: a timing or bound error)")
+    # each probe against its plain version; the leaves also on rbf Gram blocks,
+    # whose logdet and L⁻¹ move far past the limit when a step of the factor is
+    # wrong, with the last leaf's (L, L⁻¹) read back from the workspace
+    gl, g512, g128 = inp["gleaf"], inp["g512"], inp["g128"]
+    lw = torch.full((3, B, B), float("nan"), dtype=torch.float32, device=dev)
+    L_g, M_g = chol_inv_block_plain(gl + 1e-3 * torch.eye(B, device=dev))
     worst = {}
     for name, got, want, tol in (
             ("overlap_probe", OV.overlap_probe(s, v, al, 4, 2, True),
              OV.overlap_probe_plain(s, v, al, 4, 2, True), 5e-5),
+            ("overlap_probe", OV.overlap_probe(s, v, al, 4, 2, False, True),
+             OV.overlap_probe_plain(s, v, al, 4, 2, False, True), 5e-5),
+            ("overlap_probe", OV.overlap_probe(s, v, al, 4, 0, False, _ksplit=1),
+             OV.overlap_probe_plain(s, v, al, 4, 0, False), 5e-5),
+            ("overlap_probe", OV.overlap_probe(s, v, gl, 0, 2, False, _lw=lw),
+             OV.overlap_probe_plain(s, v, gl, 0, 2, False), 5e-5),
+            ("overlap_probe", lw[1], L_g, 5e-5), ("overlap_probe", lw[2], M_g, 5e-5),
+            ("overlap_probe", OV.overlap_probe(s, v, gl, 4, 2, True),
+             OV.overlap_probe_plain(s, v, gl, 4, 2, True), 5e-5),
             ("dma_probe", OV.dma_probe(hbm, v, 5, True), OV.dma_probe_plain(hbm, v, 5, True), 5e-5),
             ("dma_probe", OV.dma_probe(hbm, v, 5, False), OV.dma_probe_plain(hbm, v, 5, False), 1e-5),
             *(("leaf_parts_probe", OV.leaf_parts_probe(k, 2, a512, a128),
-               OV.leaf_parts_probe_plain(k, 2, a512, a128), 5e-5) for k in OV.PARTS)):
+               OV.leaf_parts_probe_plain(k, 2, a512, a128), 5e-5) for k in OV.PARTS),
+            *(("leaf_parts_probe", OV.leaf_parts_probe(k, 2, g512, g128),
+               OV.leaf_parts_probe_plain(k, 2, g512, g128), 5e-5)
+              for k in ("sweep128", "fsweep128", "fdiag", "ffdiag"))):
         err = float((got - want).abs().max())
         check(err <= tol * float(want.abs().max()), f"{name} vs its plain version: max abs {err}")
         worst[name] = max(worst.get(name, 0.0), err)
@@ -1778,7 +1858,7 @@ def phase_overlap(dev):
     p_ms = cuda_ms(lambda: OV.overlap_probe_plain(s, v, al, nd, nl, True), 1)
     rows["overlap_probe"] = (t["inter"], p_ms, bound(
         2 * (2 * RC * KC + B * KC) + 4 * (B * B + 8 * 128),
-        {"bf16": flop * nd, "f32": nl * 2 * B ** 3 / 3}))
+        {"bf16": flop * nd, "f32": nl * leaf_ops}))
     p_ms = cuda_ms(lambda: OV.dma_probe_plain(hbm, v, 64, False), 1)
     rows["dma_probe"] = (dma[(64, False)], p_ms, bound(64 * slab_bytes + 4 * 8 * 128, {}))
     k_ms = cuda_ms(lambda: OV.leaf_parts_probe("fdiag", 8, a512, a128), 2)
@@ -1794,7 +1874,10 @@ def phase_overlap(dev):
             f"bound {bound_ms} ms ({bound_by})")
     return launches, entries, dict(overlap_ms=t, dma_ms={f"{n}{'+dot' if d else ''}": x
                                                          for (n, d), x in dma.items()},
-                                   parts_us=parts)
+                                   parts_us=parts, k8a_shares=shares,
+                                   k8a_dot_sms={k: p.sms for k, p in plans.items()},
+                                   k8a_yardsticks_us=dict(dot=lib_dot_us, gemm512=lib_g512_us,
+                                                          dots_ms=lib_dots_ms))
 
 
 def phase_dots(dev):

@@ -2,7 +2,9 @@
 // swizzle, wgmma descriptors of K-major and MN-major bf16 tiles, and the
 // m64n128k16 product with its transpose bits.  Taken from K3's correction
 // (chol_panel.cu, which keeps its own copies) and extended with the
-// MN-major descriptor, the rank-3 box and the host-side tensor maps.
+// MN-major descriptor, the rank-3 box, the host-side tensor maps, an
+// mbarrier wait that times out and the predicated issue of a TMA box, an
+// expect_tx and an arrive (K8a's ring, csrc/probes.cu).
 //
 // Layouts.  A wgmma operand tile is K-major when k is its contiguous index
 // (a row of 64 bf16 k is one 128-byte swizzle row, 8-row groups 1024 bytes
@@ -18,6 +20,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_sync.cuh"
 
 namespace wg {
 
@@ -54,6 +58,56 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+      "selp.u32 %0, 1, 0, p; }"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// mbar_wait that traps after gsync::TIMEOUT_NS: a load that never lands
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_timed(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = gsync::now_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (gsync::now_ns() - t0 > gsync::TIMEOUT_NS) __trap();
+}
+
+// mbar_expect_tx, mbar_arrive and tma_load_2d issued only where `on` holds,
+// through a predicate and not a branch: a thread-divergent branch inside a
+// wgmma loop (a producer's issue on one thread) makes ptxas serialize the
+// wgmmas (C7518).
+__device__ __forceinline__ void mbar_expect_tx_if(bool on, uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0;\n"
+      "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1; }" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"((int)on)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_if(bool on, uint64_t* bar) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %1, 0;\n"
+      "@q mbarrier.arrive.shared::cta.b64 _, [%0]; }" ::"r"(smem_u32(bar)), "r"((int)on)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d_if(bool on, uint32_t dst, const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %5, 0;\n"
+      "@q cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4]; }" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)),
+      "r"((int)on)
+      : "memory");
 }
 
 // One TMA box of a rank-2 map at (c0, c1), innermost first, into dst.

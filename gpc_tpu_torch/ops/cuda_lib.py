@@ -53,9 +53,9 @@ _SIGNATURES = {
     "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],
     "gpc_probe_grid": [],
-    "gpc_overlap_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
-    "gpc_dma_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpc_overlap_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
+    "gpc_dma_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpc_leaf_parts": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "gpc_dot_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpc_vpu_exp": [_P, _P, _I, _I, _P],

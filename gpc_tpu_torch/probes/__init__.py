@@ -39,6 +39,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, rounds: int = 3) -> float:
+    """Device time of `fn` in ms a call: `calls` calls captured in one CUDA
+    graph, the fastest of `rounds` replays (CUDA events).  No host work
+    between the launches, so a call shorter than its host path is timed
+    alone, which cuda_ms cannot do."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                      # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
 def require_card() -> str:
     """The card's name and power limit as nvidia-smi gives them; exits
     non-zero without a CUDA device (nothing here measures on the CPU)."""

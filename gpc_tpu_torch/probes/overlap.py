@@ -16,18 +16,23 @@ and what each mode means on the H100 in csrc/probes.cu):
 
 Each returns the (8, 128) float32 corner the TPU probe returns, every
 accumulator zero on entry; each has a plain version that computes it.  A CPU
-tensor takes the plain version.
+tensor takes the plain version.  `overlap_plan` is the kernels' split of
+the dots into blocks, overlap_probe's and dma_probe's (128 x 128 tiles of
+acc, each tile's K over two blocks when twice the tiles fit the blocks that
+run them).
 
     python -m gpc_tpu_torch.probes.overlap [--reps 3]
 
 times them on the card at the TPU probe's shapes (RC = KC = 2048, B = 512)
-with its differential pairs, and prints per-dot, per-leaf, per-slab and
-per-part costs.  Needs CUDA.
+with its differential pairs, and prints per-dot (with overlap_plan's K
+split and without it), per-leaf, per-slab (and the stream's ms a call at
+16 to 640 slabs) and per-part costs.  Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +52,60 @@ def _grid() -> int:
     if g < 2:
         raise RuntimeError("probe: fewer than two blocks are co-resident")
     return g
+
+
+class OverlapPlan(NamedTuple):
+    """overlap_probe's dots on the cooperative grid: units (K part s,
+    target, 128 x 128 tile of acc), unit u on block first + u mod workers,
+    as overlap_kernel walks them."""
+    rc: int
+    kc: int
+    nb: int
+    ntgt: int      # accumulators the dots alternate over (2 under indep)
+    ksplit: int    # blocks a tile's contraction is split over
+    first: int     # the first block that runs dots (1 when the leaves run beside them)
+    workers: int   # blocks that run dots
+
+    @property
+    def units(self) -> int:
+        return self.ksplit * self.ntgt * (self.rc // LEAF) * (self.nb // LEAF)
+
+    @property
+    def sms(self) -> int:
+        """Blocks (one an SM) that run dots."""
+        return min(self.units, self.workers)
+
+    def unit(self, u: int, n_dots: int):
+        """(block, tgt, r0, c0, k0, k1, dots) of unit u: rows r0 .. r0 +
+        128 and columns c0 .. c0 + 128 of acc[tgt], contraction k0 .. k1 of
+        the dots i = tgt, tgt + ntgt, ... < n_dots."""
+        cts = self.nb // LEAF
+        tiles = (self.rc // LEAF) * cts
+        s, tgt, tile = u // (self.ntgt * tiles), u // tiles % self.ntgt, u % tiles
+        ks = self.kc // self.ksplit
+        return (self.first + u % self.workers, tgt, tile // cts * LEAF, tile % cts * LEAF,
+                s * ks, (s + 1) * ks, range(tgt, n_dots, self.ntgt))
+
+
+def overlap_plan(rc: int, kc: int, nb: int, n_dots: int, n_leaves: int, interleave: bool,
+                 indep: bool, grid: int, ksplit: int | None = None) -> OverlapPlan:
+    """The split of overlap_probe's dots (and dma_probe's, with no leaves)
+    on `grid` co-resident blocks: the leaf chain takes block 0 when it runs
+    beside the dots; each tile's K is split over two blocks when twice the
+    tiles fit the rest and KC splits into 64-k chunks (`ksplit` forces a
+    split)."""
+    if rc <= 0 or rc % LEAF or nb <= 0 or nb % LEAF or kc <= 0 or kc % 64 or grid < 2:
+        raise ValueError(f"overlap_plan: want RC and B multiples of 128, KC of 64 and two "
+                         f"blocks; got RC = {rc}, KC = {kc}, B = {nb}, grid = {grid}")
+    inter = interleave and n_leaves > 0
+    ntgt = 2 if indep else 1
+    first, workers = (1, grid - 1) if inter else (0, grid)
+    tiles = ntgt * (rc // LEAF) * (nb // LEAF)
+    if ksplit is None:
+        ksplit = 2 if n_dots > 0 and 2 * tiles <= workers and kc % 128 == 0 else 1
+    if ksplit < 1 or kc % (64 * ksplit):
+        raise ValueError(f"overlap_plan: KC = {kc} does not split into {ksplit} parts of 64 k")
+    return OverlapPlan(rc, kc, nb, ntgt, ksplit, first, workers)
 
 
 # ---------------------------------------------------------------------------
@@ -77,14 +136,22 @@ def overlap_probe_plain(slab, vrow, aleaf, n_dots: int, n_leaves: int,
 
 
 def overlap_probe(slab, vrow, aleaf, n_dots: int, n_leaves: int, interleave: bool,
-                  indep: bool = False, overwrite: bool = False):
+                  indep: bool = False, overwrite: bool = False, *, _ksplit: int | None = None,
+                  _lw=None):
     """make_probe on the card: slab (2, RC, KC) and vrow (B, KC) bfloat16,
     aleaf (B, B) float32 PD; RC, B multiples of 128, KC of 64.  CPU: the
-    plain version."""
+    plain version.  For timings and checks only: `_ksplit` forces the K
+    split of the tiles (None: overlap_plan's choice); `_lw`, a float32 (3,
+    B, B) tensor on the card, is the leaf chain's workspace: after the call
+    _lw[1] and _lw[2] hold the last leaf's L and L⁻¹ (zeros above the
+    diagonal)."""
     if slab.device.type == "cpu":
         return overlap_probe_plain(slab, vrow, aleaf, n_dots, n_leaves, interleave,
                                    indep, overwrite)
     cuda_lib.require_cuda("overlap_probe", aleaf)
+    if slab.device != aleaf.device or vrow.device != aleaf.device:
+        raise ValueError(f"overlap_probe: tensors on {slab.device}, {vrow.device}, "
+                         f"{aleaf.device}; the kernel needs them on one card")
     _, rc, kc = slab.shape
     nb = vrow.shape[0]
     if (slab.dtype != torch.bfloat16 or vrow.dtype != torch.bfloat16 or slab.shape[0] != 2
@@ -93,15 +160,23 @@ def overlap_probe(slab, vrow, aleaf, n_dots: int, n_leaves: int, interleave: boo
         raise ValueError(f"overlap_probe: want bf16 slab (2, RC, KC), vrow (B, KC) and f32 "
                          f"aleaf (B, B), RC and B multiples of 128, KC of 64; got "
                          f"{tuple(slab.shape)}, {tuple(vrow.shape)}, {tuple(aleaf.shape)}")
+    grid = _grid()
+    plan = overlap_plan(rc, kc, nb, n_dots, n_leaves, interleave, indep, grid, _ksplit)
     dev = slab.device
     acc = torch.zeros((2, rc, nb), dtype=torch.float32, device=dev)
-    lw = torch.empty((3, nb, nb), dtype=torch.float32, device=dev)
+    part = (acc if plan.ksplit == 1 else
+            torch.empty((plan.ksplit, 2, rc, nb), dtype=torch.float32, device=dev))
+    lw = torch.empty((3, nb, nb), dtype=torch.float32, device=dev) if _lw is None else _lw
+    if lw.shape != (3, nb, nb) or lw.dtype != torch.float32 or lw.device != dev \
+            or not lw.is_contiguous():
+        raise ValueError(f"overlap_probe: _lw wants a contiguous float32 (3, B, B) on {dev}")
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
     cuda_lib.launch("overlap_probe", "gpc_overlap_probe", slab.data_ptr(), vrow.data_ptr(),
-                    aleaf.data_ptr(), acc.data_ptr(), lw.data_ptr(), bar.data_ptr(),
-                    out.data_ptr(), rc, kc, nb, n_dots, n_leaves, int(interleave),
-                    int(indep), int(overwrite), _grid(), cuda_lib.stream_of(slab))
+                    aleaf.data_ptr(), acc.data_ptr(), part.data_ptr(), lw.data_ptr(),
+                    bar.data_ptr(), out.data_ptr(), rc, kc, nb, n_dots, n_leaves,
+                    int(interleave), int(indep), int(overwrite), plan.ksplit, grid,
+                    cuda_lib.stream_of(slab))
     return out
 
 
@@ -134,15 +209,20 @@ def dma_probe(hbm, vrow, n_iters: int, with_dots: bool):
         return dma_probe_plain(hbm, vrow, n_iters, with_dots)
     n_bufs, rc, kc = hbm.shape
     nb = vrow.shape[0]
+    if hbm.device.type != "cuda" or vrow.device != hbm.device:
+        raise ValueError(f"dma_probe: tensors on {hbm.device}, {vrow.device}; the kernel "
+                         f"needs CUDA")
     if (hbm.dtype != torch.bfloat16 or vrow.dtype != torch.bfloat16 or vrow.shape[1] != kc
             or rc % LEAF or nb % LEAF or kc % 256 or n_iters < 1
             or not (hbm.is_contiguous() and vrow.is_contiguous())):
         raise ValueError(f"dma_probe: want bf16 hbm (n_bufs, RC, KC) and vrow (B, KC), RC "
                          f"and B multiples of 128, KC of 256; got {tuple(hbm.shape)}, "
                          f"{tuple(vrow.shape)}")
-    out = torch.empty((8, 128), dtype=torch.float32, device=hbm.device)
+    grid = _grid()
+    ksplit = overlap_plan(rc, kc, nb, n_iters, 0, False, False, grid).ksplit
+    out = torch.zeros((8, 128), dtype=torch.float32, device=hbm.device)   # the dot's parts add in
     cuda_lib.launch("dma_probe", "gpc_dma_probe", hbm.data_ptr(), vrow.data_ptr(),
-                    out.data_ptr(), rc, kc, nb, n_iters, n_bufs, int(with_dots), _grid(),
+                    out.data_ptr(), rc, kc, nb, n_iters, n_bufs, int(with_dots), ksplit, grid,
                     cuda_lib.stream_of(hbm))
     return out
 
@@ -212,7 +292,13 @@ def probe_inputs(dev, rc=RC, kc=KC, b=B, n_bufs=2, seed=0):
     vrow; aleaf, a512, a128 = 50 I + 0.01 Z with Z symmetrised.  The TPU
     probe's Z was not symmetric, which its masked sweep ignores (it reads
     the lower triangle, as Cholesky does); K2's sweep reads the pivot row,
-    so a leaf's input is the symmetric PD block a factorization gives it."""
+    so a leaf's input is the symmetric PD block a factorization gives it.
+
+    gleaf, g512, g128 (for the checks, not the timings): rbf Gram blocks
+    of as many standard-normal points in 2-D, lengthscale 1, plus 0.1 I.
+    Near 50 I a leaf's logdet is about Σ log A_ii whatever the factor does;
+    a Gram block's off-diagonal mass moves it by far more than the limits
+    when a panel solve, a trailing update or the noise is missing."""
     rng = np.random.default_rng(seed)
 
     def t(a, dtype):
@@ -221,15 +307,22 @@ def probe_inputs(dev, rc=RC, kc=KC, b=B, n_bufs=2, seed=0):
     def pd(n):
         Z = rng.standard_normal((n, n))
         return t(np.eye(n) * 50.0 + 0.005 * (Z + Z.T), torch.float32)
+
+    def gram(n):
+        X = rng.standard_normal((n, 2))
+        d2 = ((X[:, None] - X[None]) ** 2).sum(-1)
+        return t(np.exp(-0.5 * d2) + 0.1 * np.eye(n), torch.float32)
     slab = t(rng.standard_normal((2, rc, kc)), torch.bfloat16)
     vrow = t(rng.standard_normal((b, kc)), torch.bfloat16)
     aleaf, a512, a128 = pd(b), pd(_PN), pd(LEAF)
     hbm = t(rng.standard_normal((n_bufs, rc, kc)), torch.bfloat16)
-    return dict(slab=slab, vrow=vrow, aleaf=aleaf, a512=a512, a128=a128, hbm=hbm)
+    gleaf, g512, g128 = gram(b), gram(_PN), gram(LEAF)
+    return dict(slab=slab, vrow=vrow, aleaf=aleaf, a512=a512, a128=a128, hbm=hbm, gleaf=gleaf,
+                g512=g512, g128=g128)
 
 
 def main(argv=None):
-    from gpc_tpu_torch.probes import cuda_ms, require_card
+    from gpc_tpu_torch.probes import cuda_ms, graph_ms, require_card
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
     a = ap.parse_args(argv)
@@ -239,22 +332,27 @@ def main(argv=None):
     s, v, al, r = inp["slab"], inp["vrow"], inp["aleaf"], a.reps
     flop = 2 * RC * KC * B
     times = {}
-    for name, nd, nl, inter, indep in (("dots-640", 640, 0, False, False),
-                                       ("dots-64", 64, 0, False, False),
-                                       ("dotsI-640", 640, 0, False, True),
-                                       ("dotsI-64", 64, 0, False, True),
-                                       ("leaves-64", 0, 64, False, False),
-                                       ("leaves-8", 0, 8, False, False),
-                                       ("seq-640+20", 640, 20, False, False),
-                                       ("inter-640+20", 640, 20, True, False),
-                                       ("seq-640+80", 640, 80, False, False),
-                                       ("inter-640+80", 640, 80, True, False)):
-        times[name] = cuda_ms(lambda: overlap_probe(s, v, al, nd, nl, inter, indep), r)
+    grid = _grid()
+    for name, nd, nl, inter, indep, ks in (("dots-640", 640, 0, False, False, None),
+                                           ("dots-64", 64, 0, False, False, None),
+                                           ("dotsU-640", 640, 0, False, False, 1),
+                                           ("dotsU-64", 64, 0, False, False, 1),
+                                           ("dotsI-640", 640, 0, False, True, None),
+                                           ("dotsI-64", 64, 0, False, True, None),
+                                           ("leaves-64", 0, 64, False, False, None),
+                                           ("leaves-8", 0, 8, False, False, None),
+                                           ("seq-640+20", 640, 20, False, False, None),
+                                           ("inter-640+20", 640, 20, True, False, None),
+                                           ("seq-640+80", 640, 80, False, False, None),
+                                           ("inter-640+80", 640, 80, True, False, None)):
+        times[name] = cuda_ms(
+            lambda: overlap_probe(s, v, al, nd, nl, inter, indep, _ksplit=ks), r)
         print(f"{name:14s} {times[name]} ms", flush=True)
-    for tag in ("", "I"):
+    for tag, indep, ks in (("", False, None), ("U", False, 1), ("I", True, None)):
+        plan = overlap_plan(RC, KC, B, 64, 0, False, indep, grid, ks)
         us = (times[f"dots{tag}-640"] - times[f"dots{tag}-64"]) / 576 * 1e3
-        print(f"per-dot{' independent' if tag else ''} (differential): {us} us "
-              f"({flop / us / 1e6} TFLOP/s)", flush=True)
+        print(f"per-dot{' independent' if indep else ''} (differential, K split "
+              f"{plan.ksplit}, {plan.sms} SMs): {us} us ({flop / us / 1e6} TFLOP/s)", flush=True)
     print(f"per-leaf (differential): {(times['leaves-64'] - times['leaves-8']) / 56 * 1e3} us",
           flush=True)
     for nl in (20, 80):
@@ -269,11 +367,17 @@ def main(argv=None):
         print(f"{kind:10s} {(ts[1] - ts[0]) / (hi - lo) * 1e3} us each (differential)",
               flush=True)
     for with_dots in (False, True):
-        ts = [cuda_ms(lambda: dma_probe(inp["hbm"], v, n, with_dots), r) for n in (64, 640)]
-        per = (ts[1] - ts[0]) / 576 * 1e-3
+        ts = {n: cuda_ms(lambda: dma_probe(inp["hbm"], v, n, with_dots), r)
+              for n in (16, 64, 160, 640)}
+        per = (ts[640] - ts[64]) / 576 * 1e-3
         extra = f", {flop / per / 1e12} TFLOP/s" if with_dots else ""
         print(f"{'dma+dots' if with_dots else 'dma-only':12s} {per * 1e6} us/slab "
-              f"({RC * KC * 2 / per / 1e9} GB/s{extra})", flush=True)
+              f"({RC * KC * 2 / per / 1e9} GB/s{extra}); ms a call at 16/64/160/640 slabs "
+              f"{list(ts.values())}, 16 -> 64: {(ts[64] - ts[16]) / 48 * 1e3} us/slab",
+              flush=True)
+        gs = {n: graph_ms(lambda: dma_probe(inp["hbm"], v, n, with_dots)) for n in (16, 64)}
+        print(f"{'':12s} in a CUDA graph, ms a call at 16/64 slabs {list(gs.values())}, "
+              f"16 -> 64: {(gs[64] - gs[16]) / 48 * 1e3} us/slab", flush=True)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,11 @@ leaves under K5 are held to its Cholesky leaves at 2e-4
 probes: K7 to its plain version (the same bf16 policy) at 2e-4 and to the
 dense float32 evidence at 2e-3; K8a's (8, 128) corners to their plain
 versions within 1e-5 of the largest entry (bf16 products summed in float32
-in another order), 5e-5 where they hold sums of float32 leaves; K8b's and
+in another order), 5e-5 where they hold sums of float32 leaves (also at
+B = 128, 384 and 512 on an rbf Gram block, with the last leaf's L and L⁻¹
+held to 5e-5 of their largest entries, RC = 128 at one dot and none, KC =
+128 split to one 64-k box a block, each leaf part at 0 and 1 repetitions,
+and the leaf parts on Gram blocks); K8b's and
 K8c's sums of bf16 products within 1e-4 of the largest entry (the three
 forms on the same data within 1e-4 of c0's largest entry), K8d's exp and
 Gram tiles within 1e-5, its matvec chain within 1e-4, and its staged store
@@ -606,6 +610,70 @@ def test_leaf_parts_probe_kernel_matches_plain(dev, kind):
     got = TOV.leaf_parts_probe(kind, 3, inp["a512"], inp["a128"])
     assert LAUNCHES["leaf_parts_probe"] == before + 1
     _probe_close(got, TOV.leaf_parts_probe_plain(kind, 3, inp["a512"], inp["a128"]), 5e-5)
+
+
+@pytest.mark.parametrize("b", [128, 384, 512])
+def test_overlap_probe_leaf_at_each_block_count(dev, b):
+    """The in-block (L, L⁻¹) at 1, 3 and 4 diagonal blocks of 128, on an
+    rbf Gram block (its logdet moves far past the limit when a panel solve,
+    a trailing update or the noise 1e-3 l is missing): two leaves alone,
+    then beside three dots and after them, against the plain version; the
+    last leaf's L and L⁻¹, read back from the workspace, against those of
+    gleaf + 1e-3 I."""
+    from gpc_tpu_torch.probes import overlap as TOV
+    inp = TOV.probe_inputs(dev, rc=256, kc=256, b=b, n_bufs=2, seed=3)
+    g = inp["gleaf"]
+    lw = torch.full((3, b, b), float("nan"), dtype=torch.float32, device=dev)
+    for n_dots, interleave in ((0, False), (3, True), (3, False)):
+        args = (inp["slab"], inp["vrow"], g, n_dots, 2, interleave)
+        _probe_close(TOV.overlap_probe(*args, _lw=lw), TOV.overlap_probe_plain(*args), 5e-5)
+        L, M = TCPL.chol_inv_block_plain(g + 1e-3 * torch.eye(b, device=dev))
+        for got, want in ((lw[1], L), (lw[2], M)):
+            assert float((got - want).abs().max()) <= 5e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n_dots", [0, 1])
+@pytest.mark.parametrize("indep,overwrite", [(True, False), (False, True), (True, True)])
+def test_overlap_probe_one_row_tile(dev, n_dots, indep, overwrite):
+    """RC = 128 (one row of tiles) at 1 dot and at 0 dots: under indep the
+    second accumulator gets no dot."""
+    from gpc_tpu_torch.probes import overlap as TOV
+    inp = TOV.probe_inputs(dev, rc=128, kc=256, b=256, n_bufs=2, seed=4)
+    args = (inp["slab"], inp["vrow"], inp["aleaf"], n_dots, 0, False, indep, overwrite)
+    _probe_close(TOV.overlap_probe(*args), TOV.overlap_probe_plain(*args), 5e-5)
+
+
+def test_overlap_probe_split_leaves_one_box_a_block(dev):
+    """KC = 128 split over two blocks: each holds one 64-k box of every
+    dot; the split and the unsplit kernel agree with the plain version."""
+    from gpc_tpu_torch.probes import overlap as TOV
+    inp = TOV.probe_inputs(dev, rc=256, kc=128, b=256, n_bufs=2, seed=5)
+    plan = TOV.overlap_plan(256, 128, 256, 5, 0, False, False, TOV._grid())
+    assert plan.ksplit == 2 and plan.kc // plan.ksplit == 64
+    for indep in (False, True):
+        args = (inp["slab"], inp["vrow"], inp["aleaf"], 5, 0, False, indep)
+        want = TOV.overlap_probe_plain(*args)
+        for ksplit in (None, 1, 2):
+            _probe_close(TOV.overlap_probe(*args, _ksplit=ksplit), want, 5e-5)
+
+
+@pytest.mark.parametrize("kind", ["sweep128", "fsweep128", "gemm512", "gemm128", "fdiag",
+                                  "ffdiag"])
+@pytest.mark.parametrize("n", [0, 1])
+def test_leaf_parts_probe_zero_and_one_repetition(dev, kind, n):
+    TOV, inp = _probe_inputs(dev)
+    got = TOV.leaf_parts_probe(kind, n, inp["a512"], inp["a128"])
+    _probe_close(got, TOV.leaf_parts_probe_plain(kind, n, inp["a512"], inp["a128"]), 5e-5)
+
+
+@pytest.mark.parametrize("kind", ["sweep128", "fsweep128", "fdiag", "ffdiag"])
+def test_leaf_parts_probe_on_a_gram_block(dev, kind):
+    """The leaf parts on rbf Gram blocks (g512, g128), whose L⁻¹ has large
+    off-diagonal entries: a wrong step of the factor moves the column sums
+    by far more than the limit."""
+    TOV, inp = _probe_inputs(dev)
+    got = TOV.leaf_parts_probe(kind, 3, inp["g512"], inp["g128"])
+    _probe_close(got, TOV.leaf_parts_probe_plain(kind, 3, inp["g512"], inp["g128"]), 5e-5)
 
 
 def _mlp_data(N, seed=8):

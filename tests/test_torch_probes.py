@@ -19,7 +19,11 @@ memory zero on entry, as the Hopper kernels' accumulators are.
     Cholesky and triangular inverse against the TPU's sweeps).
 
 The CUDA kernels are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py).  K8a's split of the overlap's
+dots (overlap.overlap_plan), which the kernel reads as its block walk, is
+checked here for giving every tile of acc every 64-k chunk of each dot
+once at the card tests' shapes and the TPU probe's; the three K8a wrappers
+refuse a tensor that is on neither the CPU nor the card.
 """
 
 import importlib.util
@@ -139,3 +143,68 @@ def test_leaf_parts_probe_plain_matches_tpu_interpret(small, kind):
     want = jprobe.make_leaf_parts_probe(kind, 2)(jx["a512"], jx["a128"])
     got = TOV.leaf_parts_probe(kind, 2, inp["a512"], inp["a128"])
     _close(got, want, 5e-5)
+
+
+@pytest.mark.parametrize("rc,kc,nb,n_dots,n_leaves,interleave,indep,ksplit", [
+    (512, 512, 256, 3, 0, False, False, 2), (512, 512, 256, 4, 2, True, False, 2),
+    (512, 512, 256, 4, 2, False, True, 2), (512, 512, 256, 4, 1, False, False, 2),
+    (256, 256, 128, 3, 2, True, False, 2), (256, 256, 384, 3, 2, True, False, 2),
+    (256, 256, 512, 3, 2, False, False, 2), (128, 256, 256, 1, 0, False, True, 2),
+    (128, 256, 256, 0, 0, False, True, 1), (256, 128, 256, 5, 0, False, False, 2),
+    (256, 128, 256, 5, 0, False, True, 2), (2048, 2048, 512, 64, 8, True, False, 2),
+    (2048, 2048, 512, 64, 0, False, True, 1), (2048, 2048, 512, 64, 0, False, False, 2)])
+def test_overlap_plan_covers_each_tile_and_k_once(rc, kc, nb, n_dots, n_leaves, interleave,
+                                                  indep, ksplit):
+    """overlap_plan's units, read as overlap_kernel reads them on the H100's
+    132 co-resident blocks, give every 128 x 128 tile of acc[i mod 2] (of
+    acc[0] without indep) every 64-k chunk of each dot i exactly once, and
+    run on the blocks that do not hold the leaf chain.  The card tests'
+    shapes and the TPU probe's; KC = 128 leaves each part one 64-k box."""
+    plan = TOV.overlap_plan(rc, kc, nb, n_dots, n_leaves, interleave, indep, 132)
+    assert plan.ksplit == ksplit
+    seen = np.zeros((2, rc // 128, nb // 128, max(n_dots, 1), kc // 64), int)
+    for u in range(plan.units):
+        block, tgt, r0, c0, k0, k1, dots = plan.unit(u, n_dots)
+        assert plan.first <= block < plan.first + plan.workers
+        assert r0 % 128 == 0 and c0 % 128 == 0 and k0 % 64 == 0 and k1 - k0 == kc // ksplit
+        for i in dots:
+            seen[tgt, r0 // 128, c0 // 128, i, k0 // 64:k1 // 64] += 1
+    for i in range(n_dots):
+        tgt = i % 2 if indep else 0
+        assert (seen[tgt, :, :, i] == 1).all() and (seen[1 - tgt, :, :, i] == 0).all()
+    assert plan.first == (1 if interleave and n_leaves else 0)
+    assert plan.sms == min(plan.units, plan.workers)
+
+
+def test_overlap_plan_at_the_tpu_probe_shapes():
+    """RC = KC = 2048, B = 512: the 64 dependent tiles split K over 128 of
+    the 131 blocks beside the leaf chain; the 128 independent tiles do not
+    split (256 parts would not fit 132 blocks)."""
+    inter = TOV.overlap_plan(2048, 2048, 512, 64, 8, True, False, 132)
+    assert (inter.ksplit, inter.units, inter.sms, inter.first) == (2, 128, 128, 1)
+    indep = TOV.overlap_plan(2048, 2048, 512, 64, 0, False, True, 132)
+    assert (indep.ksplit, indep.units, indep.sms) == (1, 128, 128)
+    unsplit = TOV.overlap_plan(2048, 2048, 512, 64, 0, False, False, 132, ksplit=1)
+    assert (unsplit.units, unsplit.sms) == (64, 64)
+
+
+@pytest.mark.parametrize("args", [(200, 256, 128, 1, 0, False, False, 132),
+                                  (256, 96, 128, 1, 0, False, False, 132),
+                                  (256, 256, 128, 1, 0, False, False, 1),
+                                  (256, 192, 128, 1, 0, False, False, 132, 2)])
+def test_overlap_plan_rejects_what_the_kernel_cannot_split(args):
+    with pytest.raises(ValueError, match="overlap_plan"):
+        TOV.overlap_plan(*args)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: TOV.dma_probe(m((2, 128, 256), torch.bfloat16), m((128, 256), torch.bfloat16), 1,
+                            False),
+    lambda m: TOV.overlap_probe(m((2, 128, 256), torch.bfloat16), m((128, 256), torch.bfloat16),
+                                m((128, 128)), 1, 0, False),
+    lambda m: TOV.leaf_parts_probe("gemm128", 1, m((512, 512)), m((128, 128)))])
+def test_k8a_wrappers_refuse_tensors_off_the_card(call):
+    """A tensor that is neither on the CPU nor on the card raises; it is
+    never launched."""
+    with pytest.raises(ValueError, match="CUDA"):
+        call(lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta"))
