@@ -131,7 +131,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpc_tpu_torch.probes import cuda_ms, require_card  # noqa: E402
+from gpc_tpu_torch.probes import cuda_ms, graph_ms, require_card  # noqa: E402
 
 N, Q, CHUNK = 16384, 8, 8192
 SEED = 0
@@ -1683,17 +1683,26 @@ def phase_chol_block_path(dev):
     return launches
 
 
+# PR 16's predictions for K7 at N = 16384, D = 2 (ms; PERF.md, written before
+# the first timed run): full, nodot, noleaf; nodma and nogram within 20 % of full
+K7_PREDICTED_MS = {"full": (5.5, 11.0), "nodot": (4.5, 7.0), "noleaf": (3.5, 6.0)}
+
+
 def phase_mega(dev, k3_ms):
     """K7 at N = 16384 on the panel phase's inputs: the probe's entry point
     once per mode (the launches are this run's), then logdet and quad
     against the plain version (the same bf16 policy, 1e-3: the leaves'
     last-bit differences flip bf16 roundings of L across 128 columns; 2e-4
     at N = 2048 in tests/test_torch_cuda.py) and the dense f32 evidence
-    (gpc_tpu's panel bound, 2e-3); ms per mode beside K3's on the same
-    inputs."""
+    (gpc_tpu's panel bound, 2e-3), and two `full` calls bit for bit; ms
+    per mode beside PR 16's predictions, K7 against K3 on the same inputs
+    (in turns, K3, K7, K7, K3), K7's share of its bound (over 105 % fails
+    the run) and its ms over the leaf chain's (nodot's ms, and the chain
+    read from a traced call)."""
     from gpc_tpu_torch.ops import cuda_lib
-    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf_plain
-    from gpc_tpu_torch.probes.chol_mega import MODES, evidence_mega_rbf, evidence_mega_rbf_plain
+    from gpc_tpu_torch.ops.chol_panel import panel_state_rbf, panel_state_rbf_plain
+    from gpc_tpu_torch.probes.chol_mega import (MODES, evidence_mega_rbf,
+                                                evidence_mega_rbf_plain, trace_summary)
     args = panel_args(dev)
     cuda_lib.LAUNCHES.clear()
     outs = {mode: evidence_mega_rbf(*args, mode=mode) for mode in MODES}
@@ -1703,6 +1712,9 @@ def phase_mega(dev, k3_ms):
     check(launches.get("evidence_mega_rbf", 0) == len(MODES),
           "evidence_mega_rbf was not launched once per mode")
     ld, quad = (float(x) for x in outs["full"])
+    again = evidence_mega_rbf(*args)
+    check(all(torch.equal(a, b) for a, b in zip(outs["full"], again)),
+          f"K7: two calls differ: {[float(x) for x in again]} vs {[ld, quad]}")
     ld_p, quad_p = (float(x) for x in evidence_mega_rbf_plain(*args))
     ld_d, G_d, _, _ = panel_state_rbf_plain(*args)
     ld_d, quad_d = float(ld_d), float(torch.trace(G_d))
@@ -1713,15 +1725,33 @@ def phase_mega(dev, k3_ms):
         rel = abs(a - b) / abs(b)
         check(np.isfinite(a) and rel <= tol, f"K7 vs {name}: {a} vs {b} (rel {rel})")
     log(f"phase 13 K7 N={N}: logdet {ld} quad {quad}; plain {ld_p} {quad_p}; dense f32 {ld_d} "
-        f"{quad_d} (rel {abs(ld - ld_d) / abs(ld_d)}, {abs(quad - quad_d) / abs(quad_d)})")
+        f"{quad_d} (rel {abs(ld - ld_d) / abs(ld_d)}, {abs(quad - quad_d) / abs(quad_d)}); "
+        f"two calls bit for bit")
     ms_modes = {mode: cuda_ms(lambda: evidence_mega_rbf(*args, mode=mode), 3) for mode in MODES}
+    predicted = dict(K7_PREDICTED_MS, nodma=(0.8 * ms_modes["full"], 1.2 * ms_modes["full"]),
+                     nogram=(0.8 * ms_modes["full"], 1.2 * ms_modes["full"]))
+    log("phase 13 K7 N=16384 ms per mode (PR 16's prediction beside each): " + "; ".join(
+        f"{mode} {ms_modes[mode]} (predicted {predicted[mode][0]}-{predicted[mode][1]}: "
+        f"{'inside' if predicted[mode][0] <= ms_modes[mode] <= predicted[mode][1] else 'outside'})"
+        for mode in MODES))
     ms, plain_ms = paired_ms(lambda: evidence_mega_rbf(*args),
                              lambda: evidence_mega_rbf_plain(*args), 2)
-    log(f"phase 13 K7 N={N} ms per mode: {ms_modes}; full kernel {ms} ms, plain {plain_ms} ms; "
-        f"K3 on the same inputs {k3_ms} ms (phase 4)")
+    k7_ms, k3_pair_ms = paired_ms(lambda: evidence_mega_rbf(*args),
+                                  lambda: panel_state_rbf(*args), 3)
     bound_ms, bound_by = k3_bound(N, Q, D_PANEL)
+    share = bound_ms / ms
+    check(share <= 1.05, f"K7: {share} of its bound (over 105 %: a timing or bound error)")
+    trace = trace_summary(*args)
+    log(f"phase 13 K7 N={N}: full kernel {ms} ms, plain {plain_ms} ms; K7 {k7_ms} ms against "
+        f"K3 {k3_pair_ms} ms on the same inputs in turns (phase 4: {k3_ms}): "
+        f"{'K7' if k7_ms < k3_pair_ms else 'K3'} is faster, K7 / K3 = {k7_ms / k3_pair_ms}; "
+        f"share of the bound {share} ({bound_ms} ms, {bound_by}); over the leaf chain: "
+        f"full / nodot {ms_modes['full'] / ms_modes['nodot']}; traced call {json.dumps(trace)}, "
+        f"span / chain {trace['span_us'] / trace['chain_us']}")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None), ms_modes
+                          bound_by=bound_by, library_ms=None, k3_ms=k3_pair_ms,
+                          chain_ms=trace["chain_us"] / 1e3), \
+        dict(ms=ms_modes, k3_ms=k3_pair_ms, share_of_bound=share, trace=trace)
 
 
 def phase_overlap(dev):
@@ -1963,10 +1993,12 @@ def phase_vpu(dev):
     """K8d at the TPU probe's shapes (B = 512; REPS = 2048, and 1024
     iterations for the matvec and the store, in both modes): each kernel at
     its full count and an eighth of it, launches counted; µs per iteration
-    by the differential pair; then each against its plain version: exp and
-    the Gram tile within 1e-5 of the largest entry, the matvec chain within
-    1e-4 (float32 in another order over the chain), the store's written
-    slots and o bit for bit."""
+    by the differential pair; the matvec's cluster size and where its A
+    lives, its µs a step at each cluster size, and as a reference line (not
+    the bound) the plain chain captured in one CUDA graph; then each against
+    its plain version: exp and the Gram tile within 1e-5 of the largest
+    entry, the matvec chain within 1e-4 (float32 in another order over the
+    chain), the store's written slots and o bit for bit."""
     from gpc_tpu_torch.ops import cuda_lib
     from gpc_tpu_torch.probes import vpu as VP
     B, REPS = VP.B, VP.REPS
@@ -1983,6 +2015,17 @@ def phase_vpu(dev):
     log(f"K8d-probe launches: {launches}")
     for name in ("vpu_exp", "vpu_gram_tile", "vpu_matvec", "vpu_stage_store"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched by its probe")
+    cs = VP.matvec_cluster(B)
+    where = VP.matvec_home(B, cs)
+    mv_us = {c: (cuda_ms(lambda c=c: VP.vpu_matvec(A, v, REPS // 2, _cluster=c), 3)
+                 - cuda_ms(lambda c=c: VP.vpu_matvec(A, v, REPS // 16, _cluster=c), 3))
+             / (REPS // 2 - REPS // 16) * 1e3 for c in sorted({8, cs})}
+    plain_graph_us = graph_ms(lambda: VP.vpu_matvec_plain(A, v, REPS // 2), calls=1) \
+        / (REPS // 2) * 1e3
+    log(f"phase 16 K8d matvec B={B}: one cluster of {cs} blocks (the largest this card "
+        f"runs), A's {B // cs} columns a block in {where}; {timing['matvec'][0]} us a step "
+        f"(differential), by cluster size {mv_us}; reference, not the bound: the plain chain "
+        f"captured in one CUDA graph {plain_graph_us} us a step")
     written = REPS // 2 * B * B * 2
     for name, (us, ms) in timing.items():
         extra = (f"; {written} bytes written, {written / (ms * 1e-3) / 1e9} GB/s"
@@ -2020,10 +2063,14 @@ def phase_vpu(dev):
         entries[entry] = dict(max_abs_err=errs[name.split("-")[0]], ms=timing[name][1],
                               plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=None)
+        if entry == "vpu_matvec":
+            entries[entry].update(cluster=cs, plain_graph_us_a_step=plain_graph_us)
         log(f"phase 16 K8d {entry} ({name} at {runs[name][1]}): kernel {timing[name][1]} ms, "
             f"plain {p_ms} ms, bound {bound_ms} ms ({bound_by}; SFU {sfu / 1e12} T exp/s)")
     return launches, entries, dict(us_per_iter={k: us for k, (us, _) in timing.items()},
-                                   ms_at_full={k: ms for k, (_, ms) in timing.items()})
+                                   ms_at_full={k: ms for k, (_, ms) in timing.items()},
+                                   matvec_cluster=cs, matvec_us_by_cluster=mv_us,
+                                   matvec_plain_graph_us=plain_graph_us)
 
 
 def phase_zoo_timing(dev):
@@ -3656,7 +3703,7 @@ def main():
     log("launches in the kernels line count wrapper calls; a K5 or K6 call launches several "
         "kernels (phase 3 prints how many); a K3 call is one walk of its plan, N/128 fills and "
         "leaves, N/128 - 1 solves, and corr_launches counts its wgmma correction launches")
-    log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7_ms_by_mode=mega_modes,
+    log("probes: " + json.dumps(dict(ragged_path_ms=ragged_ms, k7=mega_modes,
                                      k3_drift_n32768=drift,
                                      k3_ms=k3["ms"], **probes, k8bc=dots, k8d=vpu)))
 

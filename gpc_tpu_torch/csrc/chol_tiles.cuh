@@ -2,13 +2,12 @@
 // 128-leaf without a block barrier per column, and a register-tiled f32
 // 128^3 tile GEMM for the multi-block assembly of wider blocks.  Every
 // routine here is run by one block of TILE_THREADS = 256 threads.  The probes
-// K7 and K8a keep the first design (leaf.cuh); the two headers are never
-// included together.
+// K7 (chol_mega.cu) and K8a (probes.cu) run them too.
 //
-// What bounded the first design (leaf.cuh) on the H100, and what this one
-// does about it:
+// What bounded the first design (a Gauss-Jordan leaf, since deleted) on the
+// H100, and what this one does about it:
 //
-//  * leaf.cuh's Gauss-Jordan sweep paid two barriers of 1024 threads per
+//  * the Gauss-Jordan sweep paid two barriers of 1024 threads per
 //    column, 256 a leaf (~1.1 us a column, 0.133 ms a leaf).  leaf128 below
 //    factors by 32-wide sub-panels instead: one warp factors the 32 x 32
 //    diagonal block in registers (shuffles, no block barrier), one thread per

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "gpc_panel_state": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _P, _I, _P, _P],
     "gpc_panel_corr": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "gpc_mega_grid": [_I],
-    "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P],
+    "gpc_mega_grid": [],
+    "gpc_evidence_mega": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P],
     "gpc_probe_grid": [],
     "gpc_overlap_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P],
@@ -60,7 +60,9 @@ _SIGNATURES = {
     "gpc_dot_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpc_vpu_exp": [_P, _P, _I, _I, _P],
     "gpc_vpu_gram": [_P, _P, _P, _I, _I, _P],
-    "gpc_vpu_matvec": [_P, _P, _P, _I, _I, _P],
+    "gpc_vpu_matvec_cluster": [_I],
+    "gpc_vpu_matvec_home": [_I, _I],
+    "gpc_vpu_matvec": [_P, _P, _P, _I, _I, _I, _P],
     "gpc_vpu_store": [_P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -67,14 +67,25 @@ def _blocks(n: int, block: int):
     return [(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
 
 
+def _self_entries(kern, p, X, lo, r0, r1):
+    """The white-free Gram's entries of rows [lo + r0, lo + r1) of X against
+    themselves: diag less the white variance, as the dense route's gram()
+    overwrites them (finite gradients where compute's are not: exp's
+    √(d2 + tiny) at zero distance; gpc_tpu keeps compute's, a deviation)."""
+    return kern.diag(p, X[lo + r0:lo + r1]) - kern.white(p)
+
+
 def _raw_mvm(kern, p, X, V, block, rows=None):
-    """Σ_blocks compute(p, X_b, X)·V without the white term, no autograd:
-    rows [lo, hi) = `rows` of X (all of them by default) against all of X,
-    so a rank of the distributed engine computes its row block."""
+    """Σ_blocks K₀(X_b, X)·V, K₀ the Gram without the white term, no
+    autograd: rows [lo, hi) = `rows` of X (all of them by default) against
+    all of X, so a rank of the distributed engine computes its row block.
+    A block's entries of a point against itself are `_self_entries`."""
     lo, hi = rows if rows is not None else (0, X.shape[0])
     out = torch.empty((hi - lo, V.shape[1]), dtype=V.dtype, device=V.device)
     for r0, r1 in _blocks(hi - lo, block):
-        out[r0:r1] = kern.compute(p, X[lo + r0:lo + r1], X) @ V
+        Kb = kern.compute(p, X[lo + r0:lo + r1], X)
+        Kb.diagonal(offset=lo + r0).copy_(_self_entries(kern, p, X, lo, r0, r1))
+        out[r0:r1] = Kb @ V
     return out
 
 
@@ -90,7 +101,9 @@ def _mvm_vjp_raw(kern, p, X, V, G, block: int, need_p: bool, need_X: bool, rows=
         wanted = [t for t in (pd, Xd) if t.requires_grad]
         acc = [torch.zeros_like(t) for t in wanted]
         for r0, r1 in _blocks(hi - lo, block):
-            Kb = kern.compute(pd, Xd[lo + r0:lo + r1], Xd)
+            Kb = torch.diagonal_scatter(kern.compute(pd, Xd[lo + r0:lo + r1], Xd),
+                                        _self_entries(kern, pd, Xd, lo, r0, r1),
+                                        offset=lo + r0)
             if not Kb.requires_grad:
                 continue
             gs = torch.autograd.grad(Kb, wanted, G[r0:r1] @ V.T, allow_unused=True)

@@ -131,16 +131,18 @@ def evidence_fused_left(kfn, n, m):
 
 def kern_block_fn(kern, p, X, ridge=0.0):
     """Block thunk for any kernel: K blocks from the kernel's cross compute
-    (white-free off the diagonal), with the white variance plus `ridge`
-    added on diagonal blocks.  Relies on diag(p, X) equalling the diagonal
-    of compute(p, X, X) plus white(p), which every kernel of kernels.py
-    keeps (the dense route's gram() overwrite is exactly the white shift)."""
-    shift = kern.white(p) + ridge
+    (white-free off the diagonal); a diagonal block's diagonal is the
+    kernel's own diag(p, X_b) (which holds the white variance) plus `ridge`,
+    as the dense route's gram() overwrites it.  The values are those of
+    compute's diagonal plus the white shift, which every kernel of
+    kernels.py keeps; the gradient is diag's, finite where compute's is
+    not (exp's √(d2 + tiny) at zero distance).  gpc_tpu's lazy engine adds
+    the shift to compute's diagonal (a deviation, ROADMAP.md)."""
 
     def kfn(i0, j0, bi, bj):
         K = kern.compute(p, X[i0:i0 + bi], X[j0:j0 + bj])
         if i0 == j0:
-            K = torch.diagonal_scatter(K, K.diagonal() + shift)
+            K = torch.diagonal_scatter(K, kern.diag(p, X[i0:i0 + bi]) + ridge)
         return K
 
     return kfn

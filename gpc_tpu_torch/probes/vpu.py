@@ -10,7 +10,8 @@ bounds in csrc/probes_vpu.cu):
                    n2ᵀ − 2 XXᵀ + 1e-9 acc[0, 0], 0)), X (B, 8) f32, XXᵀ
                    formed every rep
   vpu_matvec       kern_matvec (:57-65, call :128): v ← (Aᵀv) / (1 +
-                   |(Aᵀv)₀|), `reps` times, v (B, 1)
+                   |(Aᵀv)₀|), `reps` times, v (B, 1); one thread-block
+                   cluster, A on chip
   vpu_stage_store  kern_store_dma (:68-87, call :134): n times, stage
                    bf16(A + 1e-9 it) and copy it to big[it mod 64]; returns
                    big (64, B, B) bf16 and o (B, B) = n.  mode "bulk" copies
@@ -124,18 +125,42 @@ def vpu_matvec_plain(A, v, reps: int):
     return v
 
 
-def vpu_matvec(A, v, reps: int):
-    """kern_matvec on the card (one block): A (B, B) and v (B, 1) float32,
-    B a power of two from 64 to 1024.  CPU: the plain version."""
+def matvec_cluster(b: int = B) -> int:
+    """The matvec's cluster size on this card at width b: 16 where a
+    cluster of 16 of its blocks fits (the non-portable size), else 8."""
+    cs = cuda_lib.library().gpc_vpu_matvec_cluster(b)
+    if cs not in (8, 16):
+        raise RuntimeError(f"vpu_matvec: no cluster of 8 or 16 blocks fits at B = {b}")
+    return cs
+
+
+MATVEC_HOMES = ("registers", "shared memory", "L2, streamed every step")
+
+
+def matvec_home(b: int, cs: int) -> str:
+    """Where each block of the matvec keeps its b/cs columns of A: in
+    registers (32 entries a thread at most), in shared memory (160 KB at
+    most) or read from L2 every step (csrc/probes_vpu.cu's mv_home)."""
+    return MATVEC_HOMES[cuda_lib.library().gpc_vpu_matvec_home(b, cs)]
+
+
+def vpu_matvec(A, v, reps: int, *, _cluster: int | None = None):
+    """kern_matvec on the card (one launch of a cluster of matvec_cluster's
+    size; `_cluster`, 8 or 16, forces one, for the timings): A (B, B) and v
+    (B, 1) float32, B a power of two from 64 to 1024.  CPU: the plain
+    version."""
     if A.device.type == "cpu":
         return vpu_matvec_plain(A, v, reps)
     b = A.shape[0]
     _check("vpu_matvec", _square(A, lambda n: 64 <= n <= 1024 and n & (n - 1) == 0)
            and tuple(v.shape) == (b, 1), "A (B, B) and v (B, 1), B a power of two in [64, 1024]",
            A, v)
+    cs = matvec_cluster(b) if _cluster is None else _cluster
+    if cs not in (8, 16):
+        raise ValueError(f"vpu_matvec: cluster {cs} (want 8 or 16)")
     out = torch.empty_like(v)
     cuda_lib.launch("vpu_matvec", "gpc_vpu_matvec", A.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, reps, cuda_lib.stream_of(A))
+                    b, reps, cs, cuda_lib.stream_of(A))
     return out
 
 
@@ -211,6 +236,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     a = ap.parse_args(argv)
     print(require_card(), flush=True)
+    cs = matvec_cluster(B)
+    print(f"matvec: one cluster of {cs} blocks, A in {matvec_home(B, cs)}", flush=True)
     for name, (fn, n) in runs(probe_inputs(torch.device("cuda"))).items():
         t_lo, t_hi = (cuda_ms(lambda: fn(m), a.reps) for m in (n // 8, n))
         per = (t_hi - t_lo) / (n - n // 8) * 1e3

@@ -568,6 +568,45 @@ def test_evidence_mega_kernel_matches_plain(dev):
         assert abs(float(a) - float(b)) <= 2e-4 * abs(float(b))
 
 
+@pytest.mark.parametrize("n,dense_rel", [(384, None), (2048, 2e-3), (4096, 2e-3)])
+def test_evidence_mega_dataflow_matches_plain_and_repeats(dev, n, dense_rel):
+    """K7's dataflow grid at nb = 3 (fewer tiles than blocks), 16 and 32:
+    logdet and quad within 2e-4 of the plain version (the same bf16 policy),
+    every mode launching once a call, and two `full` calls equal bit for
+    bit (the ranges of a tile's correction are summed in a fixed order).
+    Against the dense float32 evidence: within 2e-3 (gpc_tpu's panel
+    bound), and never farther than the plain version is plus 2e-4.  At N =
+    384 the bf16 policy itself sits 2.27e-3 from the dense logdet (-21.80,
+    whose terms of both signs cancel; the absolute gap 0.050 is that of
+    larger N), so there the second bound alone holds the logdet."""
+    from gpc_tpu_torch.probes import chol_mega as TCM
+    args = TCM.probe_args(n, 8, dev)
+    ld, quad = TCM.evidence_mega_rbf(*args)
+    ld2, quad2 = TCM.evidence_mega_rbf(*args)
+    assert torch.equal(ld, ld2) and torch.equal(quad, quad2)
+    ld_p, quad_p = TCM.evidence_mega_rbf_plain(*args)
+    assert abs(float(ld) - float(ld_p)) <= 2e-4 * abs(float(ld_p))
+    assert abs(float(quad) - float(quad_p)) <= 2e-4 * abs(float(quad_p))
+    ld_d, G_d, _, _ = TCP.panel_state_rbf_plain(*args)
+    quad_d = float(torch.trace(G_d))
+    for got, plain, dense in ((float(ld), float(ld_p), float(ld_d)),
+                              (float(quad), float(quad_p), quad_d)):
+        assert abs(got - dense) <= abs(plain - dense) + 2e-4 * abs(plain)
+    if dense_rel is not None:
+        assert abs(float(ld) - float(ld_d)) <= dense_rel * abs(float(ld_d))
+    assert abs(float(quad) - quad_d) <= 2e-3 * quad_d
+    for mode in TCM.MODES[1:]:
+        before = LAUNCHES["evidence_mega_rbf"]
+        out = TCM.evidence_mega_rbf(*args, mode=mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES["evidence_mega_rbf"] == before + 1
+        assert all(o.shape == () for o in out)
+        if mode == "noleaf":
+            want = TCM.evidence_mega_rbf_plain(*args, mode=mode)
+            for a, b in zip(out, want):
+                assert abs(float(a) - float(b)) <= 2e-4 * abs(float(b))
+
+
 def _probe_inputs(dev):
     from gpc_tpu_torch.probes import overlap as TOV
     return TOV, TOV.probe_inputs(dev, rc=512, kc=512, b=256, n_bufs=3, seed=2)
@@ -851,6 +890,25 @@ def test_vpu_kernels_match_plain(dev, name, b, reps):
     got = fn(*args, n)
     assert LAUNCHES[fn.__name__] == before + 1
     _rel_close(got, plain(*args, n), tol)
+
+
+@pytest.mark.parametrize("b", [64, 128, 512, 1024])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_vpu_matvec_cluster_matches_plain(dev, b, cluster):
+    """K8d's matvec on a cluster of 8 and of 16 blocks (16 where the card
+    runs it), A in registers (B = 64, 128, 512 at 16), in shared memory (512
+    at 8) or streamed from L2 (1024): the TPU probe's 1024 steps within 1e-4
+    of the plain chain's largest entry (float32 in another order over the
+    chain), one launch; no step returns v."""
+    from gpc_tpu_torch.probes import vpu as TVPU
+    if cluster > TVPU.matvec_cluster(b):
+        pytest.skip(f"the card runs no cluster of {cluster} matvec blocks at B = {b}")
+    inp = TVPU.probe_inputs(dev, b=b, seed=15)
+    before = LAUNCHES["vpu_matvec"]
+    got = TVPU.vpu_matvec(inp["A"], inp["v"], 1024, _cluster=cluster)
+    assert LAUNCHES["vpu_matvec"] == before + 1
+    _rel_close(got, TVPU.vpu_matvec_plain(inp["A"], inp["v"], 1024), 1e-4)
+    assert torch.equal(TVPU.vpu_matvec(inp["A"], inp["v"], 0, _cluster=cluster), inp["v"])
 
 
 @pytest.mark.parametrize("b,n", [(128, 4), (512, 1024)])

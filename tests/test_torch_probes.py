@@ -19,7 +19,12 @@ memory zero on entry, as the Hopper kernels' accumulators are.
     Cholesky and triangular inverse against the TPU's sweeps).
 
 The CUDA kernels are held against these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).  K8a's split of the overlap's
+(tests/test_torch_cuda.py, chip_smoke.py).  K7's work list (chol_mega.
+mega_plan), which its blocks walk with a ticket, is checked here at nb = 3,
+4, 16 and 128 on grids of 2 to 132 blocks: each column of each tile's
+correction in exactly one range, each item after all it waits for (the
+kernel's rules, written out again here), tile (j+1, j) first in its column,
+and nb < 3 or fewer than two blocks refused.  K8a's split of the overlap's
 dots (overlap.overlap_plan), which the kernel reads as its block walk, is
 checked here for giving every tile of acc every 64-k chunk of each dot
 once at the card tests' shapes and the TPU probe's; the three K8a wrappers
@@ -113,6 +118,86 @@ def test_evidence_mega_rejects_what_the_schedule_does_not_take():
     with pytest.raises(ValueError, match="mode"):
         TCM.evidence_mega_rbf(torch.zeros((384, 3)), torch.zeros((384, 1)), 1.0, 1.0, 0.1,
                               mode="fast")
+
+
+def _plan_waits(plan):
+    """What each item of K7's list waits for, by the kernel's rules
+    (csrc/chol_mega.cu), as list positions: a range (i, j, k0, k1) on tiles
+    (i, k1 - 1) and (j, k1 - 1) done, on tile (i, j)'s running sum up to k0
+    and, if it is the tile's last (k1 = j), on leaf j; leaf j on tile (j,
+    j - 1) done.  A tile is done at its last item."""
+    done, upto, leaf = {}, {}, {}
+    for x, (kind, i, j, k0, k1) in enumerate(plan):
+        if kind == TCM.LEAF_ITEM:
+            leaf[j] = x
+        else:
+            upto[(i, j, k1)] = x
+            if k1 == j:
+                done[(i, j)] = x
+    waits = []
+    for kind, i, j, k0, k1 in plan:
+        if kind == TCM.LEAF_ITEM:
+            waits.append([done[(j, j - 1)]] if j else [])
+            continue
+        w = [done[(i, k1 - 1)], done[(j, k1 - 1)]] if k1 else []
+        if k0:
+            w.append(upto[(i, j, k0)])
+        if k1 == j:
+            w.append(leaf[j])
+        waits.append(w)
+    return waits
+
+
+@pytest.mark.parametrize("nb", [3, 4, 16, 128])
+@pytest.mark.parametrize("grid", [2, 3, 7, 66, 132])
+def test_mega_plan_covers_each_tile_once_and_orders_its_waits(nb, grid):
+    """K7's work list: every tile (i, j) of the strict lower triangle has
+    each column k < j of its correction in exactly one range and one last
+    range (k1 = j; j = 0: the epilogue alone); every leaf once, in order;
+    every item after all it waits for, so that blocks taking items in list
+    order with a ticket and block 0 running the leaves finish on any grid
+    of two or more co-resident blocks; and in each column tile (j+1, j)'s
+    last item before every other tile's of that column (lookahead)."""
+    plan = TCM.mega_plan(nb, grid)
+    assert plan.dtype == np.int32 and plan.shape[1] == 5 and not plan.flags.writeable
+    kinds = plan[:, 0]
+    assert set(kinds.tolist()) == {TCM.LEAF_ITEM, TCM.RANGE_ITEM}
+    assert plan[kinds == TCM.LEAF_ITEM, 2].tolist() == list(range(nb))
+    cover = {(i, j): np.zeros(max(j, 1), int) for j in range(nb) for i in range(j + 1, nb)}
+    lasts = {}
+    for x, (kind, i, j, k0, k1) in enumerate(plan):
+        if kind == TCM.LEAF_ITEM:
+            continue
+        assert 0 <= j < i < nb and 0 <= k0 <= k1 <= j
+        assert k1 > k0 or (j == 0 and k0 == k1 == 0)
+        cover[(i, j)][k0:k1] += 1
+        if k1 == j:
+            assert (i, j) not in lasts
+            lasts[(i, j)] = x
+    assert set(lasts) == set(cover)
+    for (i, j), c in cover.items():
+        assert (c[:j] == 1).all(), (i, j)
+    for x, w in enumerate(_plan_waits(plan)):
+        assert all(y < x for y in w), (plan[x], [plan[y] for y in w if y >= x])
+    for j in range(nb - 1):
+        assert lasts[(j + 1, j)] == min(lasts[(i, j)] for i in range(j + 1, nb))
+
+
+@pytest.mark.parametrize("nb,grid", [(2, 132), (0, 132), (16, 1), (16, 0)])
+def test_mega_plan_rejects_what_the_kernel_cannot_take(nb, grid):
+    with pytest.raises(ValueError, match="mega_plan"):
+        TCM.mega_plan(nb, grid)
+
+
+def test_mega_ranges_split_late_corrections():
+    """A tile's correction splits into ranges of RANGE_COLS columns from 0,
+    the last one the rest, so most of a late tile's correction is ready
+    long before its column comes up."""
+    assert TCM.mega_ranges(0) == [(0, 0)]
+    assert TCM.mega_ranges(5) == [(0, 5)]
+    r = TCM.RANGE_COLS
+    assert TCM.mega_ranges(2 * r + 3) == [(0, r), (r, 2 * r), (2 * r, 2 * r + 3)]
+    assert TCM.mega_ranges(2 * r) == [(0, r), (r, 2 * r)]
 
 
 @pytest.mark.parametrize("n_dots,n_leaves,interleave,indep,overwrite",
