@@ -142,7 +142,7 @@ D_PANEL = 2          # K3's right-hand sides in phase 4: m and the bias column
 # (each input read once, each output written once) over HBM_BPS and
 # operations over their peak.
 HBM_BPS = 3.35e12
-PEAK = {"f32": 67e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # The special-function units (exp) are not on the data sheet: 16 results a
 # clock an SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
 # compute capability 9.0), times the SMs and the SM clock nvidia-smi reports;
@@ -232,14 +232,17 @@ def k8d_exp_bound(b, reps, sfu):
     return max(bound(8 * b * b, {"f32": 4 * n}), bound(8 * b * b, {"sfu": n}, dict(PEAK, sfu=sfu)))
 
 
-def k8d_gram_bound(b, reps, sfu, d=8):
-    """rbf Gram tile: X, n2 in, the tile out; per element a rep the d-dot
-    (2d), the distance and its clamp (6), acc·0 + exp (2) in float32 and
-    one exp."""
+def k8d_gram_bound(b, reps, sfu, d=8, passes=3):
+    """rbf Gram tile: X, n2 in, the tile out.  Per element a rep: one exp on
+    the special-function units; 8 float32 operations (the distance, its
+    clamp, acc·0 + exp) on the FMA pipes; the d-dot (2d) on the tensor
+    cores at the TF32 rate, `passes` times (3: hi·hi + hi·lo + lo·hi, the
+    least that keeps it near float32; the kernel runs a fourth, lo·lo).
+    Each unit runs beside the others, so the slowest bounds it."""
     n = b * b * reps
     nbytes = 4 * (b * d + b + b * b)
-    return max(bound(nbytes, {"f32": (2 * d + 8) * n}),
-               bound(nbytes, {"sfu": n}, dict(PEAK, sfu=sfu)))
+    return max(bound(nbytes, {"sfu": n}, dict(PEAK, sfu=sfu)), bound(nbytes, {"f32": 8 * n}),
+               bound(nbytes, {"tf32": passes * 2 * d * n}))
 
 
 def k8d_matvec_bound(b, reps):
@@ -251,7 +254,10 @@ def k8d_matvec_bound(b, reps):
 
 def k8d_store_bound(b, slots=64):
     """The staged store: A (float32) in, big (slots bf16 tiles) and o out,
-    each byte once; the n·2b² bytes a run writes are printed beside it."""
+    each byte once.  The n·2b² bytes a run writes (512 MiB at B = 512, n =
+    1024) pass through the 50 MB L2 (big is 32 MiB), which absorbs part of
+    them; they lie outside this bound, and phase 16 prints their rate (TB/s
+    written) beside it."""
     return bound(4 * b * b + 2 * slots * b * b + 4 * b * b, {})
 
 
@@ -1992,8 +1998,11 @@ def phase_dots(dev):
 def phase_vpu(dev):
     """K8d at the TPU probe's shapes (B = 512; REPS = 2048, and 1024
     iterations for the matvec and the store, in both modes): each kernel at
-    its full count and an eighth of it, launches counted; µs per iteration
-    by the differential pair; the matvec's cluster size and where its A
+    its full count and an eighth of it, 10 calls captured in a CUDA graph
+    (the store and the Gram tile are shorter than their host path), launches
+    counted; µs per iteration by the differential pair; the full count also
+    eager (3 calls back to back, as phase 16 timed it before); the store's
+    split among warps and its TB/s written; the matvec's cluster size and where its A
     lives, its µs a step at each cluster size, and as a reference line (not
     the bound) the plain chain captured in one CUDA graph; then each against
     its plain version: exp and the Gram tile within 1e-5 of the largest
@@ -2006,10 +2015,11 @@ def phase_vpu(dev):
     A, X, n2, v = inp["A"], inp["X"], inp["n2"], inp["v"]
     runs = VP.runs(inp)
     cuda_lib.LAUNCHES.clear()
-    timing = {}
+    timing, eager = {}, {}
     for name, (fn, n) in runs.items():
-        t_lo, t_hi = (cuda_ms(lambda m=m: fn(m), 3) for m in (n // 8, n))
+        t_lo, t_hi = (graph_ms(lambda m=m: fn(m), calls=10) for m in (n // 8, n))
         timing[name] = ((t_hi - t_lo) / (n - n // 8) * 1e3, t_hi)
+        eager[name] = cuda_ms(lambda: fn(n), 3)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     log(f"K8d-probe launches: {launches}")
@@ -2027,11 +2037,17 @@ def phase_vpu(dev):
         f"(differential), by cluster size {mv_us}; reference, not the bound: the plain chain "
         f"captured in one CUDA graph {plain_graph_us} us a step")
     written = REPS // 2 * B * B * 2
+    plan = VP.store_plan(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"phase 16 K8d store plan B={B}: {plan.chunks} chunks of 8 KiB x {plan.classes} "
+        f"iteration classes, {plan.blocks} blocks of {VP.STORE_WARPS} warps")
     for name, (us, ms) in timing.items():
-        extra = (f"; {written} bytes written, {written / (ms * 1e-3) / 1e9} GB/s"
+        extra = (f"; {written} bytes written through L2 (outside the byte bound), "
+                 f"{written / (ms * 1e-3) / 1e12} TB/s written, "
+                 f"{B * B * 2 / us / 1e6} TB/s by the differential"
                  if name.startswith("store") else "")
         log(f"phase 16 K8d {name} B={B}: {us} us/iter (differential), {ms} ms at "
-            f"{runs[name][1]}{extra}")
+            f"{runs[name][1]} (10 calls in a CUDA graph; eager, 3 calls back to back: "
+            f"{eager[name]} ms){extra}")
     plains = {"exp": lambda: VP.vpu_exp_plain(A, REPS),
               "gram": lambda: VP.vpu_gram_tile_plain(X, n2, REPS),
               "matvec": lambda: VP.vpu_matvec_plain(A, v, REPS // 2),
@@ -2062,13 +2078,14 @@ def phase_vpu(dev):
         p_ms = cuda_ms(plains[name], 1)
         entries[entry] = dict(max_abs_err=errs[name.split("-")[0]], ms=timing[name][1],
                               plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None)
+                              library_ms=None, ms_eager=eager[name])
         if entry == "vpu_matvec":
             entries[entry].update(cluster=cs, plain_graph_us_a_step=plain_graph_us)
         log(f"phase 16 K8d {entry} ({name} at {runs[name][1]}): kernel {timing[name][1]} ms, "
             f"plain {p_ms} ms, bound {bound_ms} ms ({bound_by}; SFU {sfu / 1e12} T exp/s)")
     return launches, entries, dict(us_per_iter={k: us for k, (us, _) in timing.items()},
                                    ms_at_full={k: ms for k, (_, ms) in timing.items()},
+                                   ms_at_full_eager=eager, store_plan=plan._asdict(),
                                    matvec_cluster=cs, matvec_us_by_cluster=mv_us,
                                    matvec_plain_graph_us=plain_graph_us)
 

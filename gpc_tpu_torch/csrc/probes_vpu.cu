@@ -12,9 +12,31 @@
 //   between elements is acc[0, 0], whose chain depends on X row 0 and n2[0]
 //   alone, so every thread carries that scalar chain itself: no barrier and
 //   no other block's result per rep.  The TPU probe formed the whole tile
-//   every rep; so does this kernel: X and n2 are re-read from shared memory
-//   behind a compiler barrier each rep, so the 8-deep dots cannot be hoisted
-//   out of the loop.  A warp takes 32 columns (a lane each) and 8 rows.
+//   every rep (at Precision.HIGHEST, bf16 passes on its MXU); so does this
+//   kernel, on the tensor cores: X is split once, at load, into tf32 halves
+//   (hi = rna(x), lo = rna(x - hi)), and every rep re-reads them from shared
+//   memory behind a compiler barrier and runs XX^T = lo.lo + lo.hi + hi.lo +
+//   hi.hi as four mma.sync m16n8k8 passes (K = 8 is one k-step).  Without
+//   lo.lo (G_PASSES = 3), whose products are all positive on the diagonal,
+//   d2 = 2 n2_i - 2 g_ii sits up to 9.4e-6 off float64 there at B = 1024
+//   (tests/test_torch_probes_k8.py's model of this rounding), at the edge
+//   of the 1e-5 budget; with it, under 6e-6, at the cost PERF.md gives.  The
+//   exp is one ex2.approx on an argument prescaled by log2(e) (folded into
+//   n2 at load and into the -2 factor), clamped at 0, and acc * 0 + is one
+//   FMA: four float32 operations and one special-function op an element.
+//   The SFUs (16 results a clock an SM) bound the work; on the card the
+//   sub-partitions' issue does, the mmas adding to the exps rather than
+//   hiding behind them (a wgmma m64n16k8 form was serialized by ptxas,
+//   C7514, and ran slower).  A warp owns 16 x 16 elements (8 a lane); at
+//   B = 512 the 256 blocks of 4 warps put two warps on each SM
+//   sub-partition, whose in-order issue then always has one warp ready:
+//   with 16 elements a lane and one warp a sub-partition the tensor cores'
+//   and the SFU's latencies stalled the warp and a rep took several times as
+//   long.  The acc[0, 0] chain costs one exp in 9.  The rep loop is
+//   software-pipelined: rep it reads rep it + 1's operands, forms rep it +
+//   2's dots, steps the chain for rep it + 2 and runs its own exps, so no
+//   wait falls inside a rep; a plain loop (read, passes, exps in each rep)
+//   took 1.56 times as long (probes/vpu_turns.py).
 // matvec_kernel (kern_matvec :57-65): v <- (A^T v) / (1 + |(A^T v)_0|), A
 //   (B, B) f32, REPS times: a serial chain in which each rep needs the whole
 //   previous vector.  One launch of ONE thread-block cluster of CS blocks
@@ -35,15 +57,24 @@
 //   the product (B W FMAs from shared memory, B / lanes dependent on a lane),
 //   one round of CS remote stores and one cluster barrier.
 // store_kernel (kern_store_dma :68-87): n times, stage bf16(A + 1e-9 it) and
-//   write it to big[it mod 64], big (64, B, B) bf16; o (B, B) = n.  A block
-//   owns a band of ST_ROWS rows (A's band in registers) and a double buffer
-//   of it in shared memory.  `bulk`: threads write the stage, fence the
-//   async proxy, and one thread copies it out with cp.async.bulk (the TMA's
-//   1-D form), waiting (wait_group.read 1) until the copy that read a slot
-//   two iterations ago has read it before the slot is written again.
-//   `direct`: the threads store the bf16 values straight to big.  Bound by
-//   device memory for the bytes that must land (big and o once, A once); the
-//   n * B * B * 2 bytes written are what a run moves.
+//   write it to big[it mod 64], big (64, B, B) bf16; o (B, B) = n.  Every
+//   iteration writes its whole tile.  The tile is cut into 8 KiB chunks, and
+//   a warp owns one chunk (A's 4096 floats in its registers) for the
+//   iterations of one residue class mod `classes` (probes/vpu.py's
+//   store_plan: at B = 512, 64 chunks x 8 classes, 128 blocks of 4 warps);
+//   classes divides 64, so each slot's chunk has one writer, which writes it
+//   in order of it.  `bulk`: a warp stages its chunk in a ring of 4 stages
+//   of its own, fences the async proxy, and its lane 0 copies the 8 KiB out
+//   with cp.async.bulk (the TMA's 1-D form), waiting (wait_group.read 3)
+//   only until the copy that read a stage 4 copies ago has read it; warps
+//   meet only at __syncwarp, never at a block barrier, and each has up to 4
+//   copies in flight.  Before a copy lane 0 also waits until its copies 8
+//   back have landed (wait_group 7): a slot's earlier copy lies at least 8
+//   back, so a slot's copies land in order.  `direct`: the lanes store the
+//   bf16 values straight to big, 16 bytes a lane.  The table's bound counts
+//   the bytes that must land (big and o once, A once); the n * B * B * 2
+//   bytes written pass through L2, which absorbs part of them (big is 32
+//   MiB at B = 512), and lie outside that bound.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,54 +97,180 @@ __global__ void exp_kernel(const float* __restrict__ a, float* __restrict__ out,
 }
 
 constexpr int GD = 8;              // the Gram tile's input width (X is (B, 8))
-constexpr int G_ROWS = 8;          // rows of a warp (a lane takes one column)
-constexpr int G_WARPS = 8;         // warps of a block: 64 rows x 32 columns
+constexpr int G_B = 32;            // a block's rows and columns: 2 x 2 warps of 16 x 16
+constexpr int G_PASSES = 4;        // the last G_PASSES of lo.lo, lo.hi, hi.lo, hi.hi
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float dot8(const float4* xi, const float4* xj) {
-  const float4 a0 = xi[0], a1 = xi[1], b0 = xj[0], b1 = xj[1];
-  float g = a0.x * b0.x;
-  g = fmaf(a0.y, b0.y, g);
-  g = fmaf(a0.z, b0.z, g);
-  g = fmaf(a0.w, b0.w, g);
-  g = fmaf(a1.x, b1.x, g);
-  g = fmaf(a1.y, b1.y, g);
-  g = fmaf(a1.z, b1.z, g);
-  return fmaf(a1.w, b1.w, g);
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// One element's step: exp(-max(n2_i + n2_j - 2 g + 1e-9 c, 0)), after acc * 0.
-__device__ __forceinline__ float gram_step(float acc, float n2i, float n2j, float g, float c) {
-  const float d2 = fmaxf(n2i + n2j - 2.0f * g + c * 1e-9f, 0.0f);
-  return acc * 0.0f + expf(-d2);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(32 * G_WARPS) gram_kernel(const float* __restrict__ X,
-                                                            const float* __restrict__ n2,
-                                                            float* __restrict__ out, int B,
-                                                            int reps) {
-  extern __shared__ __align__(16) float gsm[];
-  float4* Xs = reinterpret_cast<float4*>(gsm);   // (B, 8) as (B, 2) float4
-  float* n2s = gsm + B * GD;
-  for (int e = threadIdx.x; e < B * GD; e += blockDim.x) gsm[e] = X[e];
-  for (int e = threadIdx.x; e < B; e += blockDim.x) n2s[e] = n2[e];
-  __syncthreads();
-  const int j = blockIdx.x * 32 + threadIdx.x % 32;
-  const int i0 = blockIdx.y * (G_ROWS * G_WARPS) + (threadIdx.x / 32) * G_ROWS;
-  float acc[G_ROWS];
+// d += a b over k = 8: a the 16 x 8 row fragment, b the 8 x 8 column
+// fragment, tf32 in, float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint2 a01, uint2 a23, uint2 b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a01.x), "r"(a01.y), "r"(a23.x), "r"(a23.y), "r"(b.x), "r"(b.y));
+}
+
+// An element's step with the exp prescaled to base 2: arg = 2 L g - (L n2_i
+// + L 1e-9 c) - L n2_j = -L d2, clamped at 0 (d2 >= 0), then acc * 0 + 2^arg.
+__device__ __forceinline__ float gram_step(float acc, float g, float s) {
+  return fmaf(acc, 0.0f, ex2(fminf(fmaf(g, 2.0f * LOG2E, -s), 0.0f)));
+}
+
+// What a warp reads from shared memory for one rep.  A warp owns 16 x 16
+// elements, two mma tiles of 16 x 8 side by side (8 elements a lane).  Xs
+// holds row r's k = t and t + 4 split as (hi, hi', lo, lo') at r * 4 + t,
+// so a lane's part of a fragment is one 16-byte load.
+struct GramOps {
+  uint4 ra[2], cb[2];   // the fragments of rows r0 + g, r0 + 8 + g and columns c0 (+ 8) + g
+  float n2r[2];         // L n2 of the lane's rows
+  float2 n2c[2];        // L n2 of the lane's columns
+  float4 xa, xb;        // X row 0
+  float n20;            // L n2[0]
+};
+
+__device__ __forceinline__ void gram_load(GramOps& o, const uint4* Xs, const float* n2s,
+                                          const float* x0, int r0, int c0, int g, int t) {
+  asm volatile("" ::: "memory");   // X and n2 are read anew: the dots run every rep
 #pragma unroll
-  for (int r = 0; r < G_ROWS; ++r) acc[r] = 0.0f;
-  float c = 0.0f;   // acc[0, 0], the chain every element reads
-  for (int it = 0; it < reps; ++it) {
-    asm volatile("" ::: "memory");   // X and n2 are read anew: the dots run every rep
-    const float n2j = n2s[j];
-    const float c_next = gram_step(c, n2s[0], n2s[0], dot8(Xs, Xs), c);
-#pragma unroll
-    for (int r = 0; r < G_ROWS; ++r)
-      acc[r] = gram_step(acc[r], n2s[i0 + r], n2j, dot8(Xs + 2 * (i0 + r), Xs + 2 * j), c);
-    c = c_next;
+  for (int h = 0; h < 2; ++h) {
+    o.ra[h] = Xs[(r0 + 8 * h + g) * 4 + t];
+    o.cb[h] = Xs[(c0 + 8 * h + g) * 4 + t];
+    o.n2r[h] = n2s[r0 + 8 * h + g];
+    o.n2c[h] = reinterpret_cast<const float2*>(n2s + c0 + 8 * h)[t];
   }
+  o.xa = reinterpret_cast<const float4*>(x0)[0];
+  o.xb = reinterpret_cast<const float4*>(x0)[1];
+  o.n20 = n2s[0];
+}
+
+// Pass p (0 lo.lo, 1 lo.hi, 2 hi.lo, 3 hi.hi) of both tiles into dn.
+__device__ __forceinline__ void gram_pass(const GramOps& o, int p, float (&dn)[2][4]) {
+  const bool alo = p < 2, blo = p % 2 == 0;
+  const uint2 a01 = alo ? make_uint2(o.ra[0].z, o.ra[1].z) : make_uint2(o.ra[0].x, o.ra[1].x);
+  const uint2 a23 = alo ? make_uint2(o.ra[0].w, o.ra[1].w) : make_uint2(o.ra[0].y, o.ra[1].y);
 #pragma unroll
-  for (int r = 0; r < G_ROWS; ++r) out[(size_t)(i0 + r) * B + j] = acc[r];
+  for (int q = 0; q < 2; ++q)
+    mma_tf32(dn[q], a01, a23,
+             blo ? make_uint2(o.cb[q].z, o.cb[q].w) : make_uint2(o.cb[q].x, o.cb[q].y));
+}
+
+// The exps of tile q: acc <- acc * 0 + exp(-d2) on the dots d, c = acc[0, 0].
+__device__ __forceinline__ void gram_exps(const GramOps& o, float c, int q,
+                                          const float (&d)[2][4], float (&acc)[2][4]) {
+  const float cl = c * (1e-9f * LOG2E);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    acc[q][e] = gram_step(acc[q][e], d[q][e],
+                          (o.n2r[e / 2] + cl) + (e % 2 ? o.n2c[q].y : o.n2c[q].x));
+}
+
+// The acc[0, 0] chain's step: c after a rep that read c.
+__device__ __forceinline__ float gram_c(const GramOps& o, float c) {
+  float g00 = o.xa.x * o.xa.x;
+  g00 = fmaf(o.xa.y, o.xa.y, g00);
+  g00 = fmaf(o.xa.z, o.xa.z, g00);
+  g00 = fmaf(o.xa.w, o.xa.w, g00);
+  g00 = fmaf(o.xb.x, o.xb.x, g00);
+  g00 = fmaf(o.xb.y, o.xb.y, g00);
+  g00 = fmaf(o.xb.z, o.xb.z, g00);
+  g00 = fmaf(o.xb.w, o.xb.w, g00);
+  return gram_step(c, g00, (o.n20 + c * (1e-9f * LOG2E)) + o.n20);
+}
+
+// Rep it, d[K] its dots, ca and cb the c of reps it and it + 1: read rep
+// it + 1's operands, step the acc[0, 0] chain for rep it + 2, and run rep
+// it's exps between the four passes that form rep it + 2's dots into
+// d[(K + 2) % 3] from what was just read.  So every wait is a rep or two
+// long: the loads', the chain's (a dot, then an exp) and the dependent
+// passes' of a tile.
+template <int K>
+__device__ __forceinline__ void gram_rep(GramOps& cur, const uint4* Xs, const float* n2s,
+                                         const float* x0, int r0, int c0, int g, int t,
+                                         float (&acc)[2][4], float (&d)[3][2][4], float& ca,
+                                         float& cb) {
+  GramOps nx;
+  gram_load(nx, Xs, n2s, x0, r0, c0, g, t);
+  const float cc = gram_c(cur, cb);
+  float (&dn)[2][4] = d[(K + 2) % 3];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dn[q][e] = 0.0f;
+  gram_exps(cur, ca, 0, d[K], acc);
+#pragma unroll
+  for (int p = 4 - G_PASSES; p < 2; ++p) gram_pass(nx, p, dn);
+  gram_exps(cur, ca, 1, d[K], acc);
+#pragma unroll
+  for (int p = 2; p < 4; ++p) gram_pass(nx, p, dn);
+  cur = nx;
+  ca = cb;
+  cb = cc;
+}
+
+// A block: 2 x 2 warps, 32 x 32 elements.
+__global__ void __launch_bounds__(128) gram_kernel(const float* __restrict__ X,
+                                                   const float* __restrict__ n2,
+                                                   float* __restrict__ out, int B, int reps) {
+  extern __shared__ __align__(16) float gsm[];
+  uint4* Xs = reinterpret_cast<uint4*>(gsm);   // (B, 4) split pairs
+  float* n2s = gsm + 16 * B;                   // L n2
+  float* x0 = n2s + B;                         // X row 0, for the acc[0, 0] chain
+  for (int e = threadIdx.x; e < 4 * B; e += blockDim.x) {
+    const float a = X[(e / 4) * GD + e % 4], b = X[(e / 4) * GD + e % 4 + 4];
+    const unsigned ha = tf32_rna(a), hb = tf32_rna(b);
+    Xs[e] = make_uint4(ha, hb, tf32_rna(a - __uint_as_float(ha)),
+                       tf32_rna(b - __uint_as_float(hb)));
+  }
+  for (int e = threadIdx.x; e < B; e += blockDim.x) n2s[e] = n2[e] * LOG2E;
+  if (threadIdx.x < GD) x0[threadIdx.x] = X[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.y * G_B + (w / 2) * 16;
+  const int c0 = blockIdx.x * G_B + (w % 2) * 16;
+  float acc[2][4], d[3][2][4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = d[0][q][e] = d[1][q][e] = 0.0f;
+  // Reps 0 and 1's dots, each from a read of its own; then rep it forms rep
+  // it + 2's (the last two reps form two that no rep reads).  The ring d of
+  // three is indexed by constants: the loop is unrolled by 3.
+  GramOps cur;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    gram_load(cur, Xs, n2s, x0, r0, c0, g, t);
+#pragma unroll
+    for (int p = 4 - G_PASSES; p < 4; ++p) gram_pass(cur, p, d[k]);
+  }
+  float ca = 0.0f;                // acc[0, 0] before rep it: the c rep it reads
+  float cb = gram_c(cur, ca);     // and before rep it + 1
+  int it = 0;
+  for (; it + 3 <= reps; it += 3) {
+    gram_rep<0>(cur, Xs, n2s, x0, r0, c0, g, t, acc, d, ca, cb);
+    gram_rep<1>(cur, Xs, n2s, x0, r0, c0, g, t, acc, d, ca, cb);
+    gram_rep<2>(cur, Xs, n2s, x0, r0, c0, g, t, acc, d, ca, cb);
+  }
+  if (it < reps) gram_rep<0>(cur, Xs, n2s, x0, r0, c0, g, t, acc, d, ca, cb);
+  if (it + 1 < reps) gram_rep<1>(cur, Xs, n2s, x0, r0, c0, g, t, acc, d, ca, cb);
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      reinterpret_cast<float2*>(out + (size_t)(r0 + 8 * h + g) * B + c0 + 8 * q)[t] =
+          make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
 }
 
 constexpr int MV_THREADS = 512;
@@ -236,65 +393,87 @@ __global__ void __launch_bounds__(MV_THREADS, 1) matvec_kernel(const float* __re
   for (int e = t; e < sh.W; e += MV_THREADS) out[c0 + e] = last[c0 + e] * s;
 }
 
-constexpr int ST_ROWS = 4;        // rows of A a block owns
-constexpr int ST_THREADS = 256;
 constexpr int ST_SLOTS = 64;      // big's slots
-constexpr int ST_MAXQ = 8;        // pairs a thread holds: ST_ROWS * B / 2 / ST_THREADS, B <= 1024
+constexpr int ST_CHUNK = 4096;    // bf16 a warp owns and copies at once: 8 KiB
+constexpr int ST_STAGES = 4;      // a warp's ring of stages in shared memory
+constexpr int ST_WARPS = 4;       // warps of a block, each on its own
+constexpr int ST_Q = ST_CHUNK / (32 * 8);   // 16-byte pieces of a lane: 16
+constexpr int ST_MAX_CLASSES = 8; // so that a slot's copies lie >= 8 of a warp's copies apart
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(ST_THREADS) store_kernel(const float* __restrict__ A,
-                                                           bf16* __restrict__ big,
-                                                           float* __restrict__ o, int B, int n,
-                                                           int bulk) {
+__device__ __forceinline__ unsigned bf2(float a, float b, float s) {
+  const bf162 v = __floats2bfloat162_rn(__fadd_rn(a, s), __fadd_rn(b, s));
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Warp w = chunk + chunks * cls owns the 8 KiB chunk `chunk` of the
+// flattened (B, B) tile (A's 4096 floats in registers, 128 a lane) and the
+// iterations it = cls, cls + classes, ...; classes divides 64, so every
+// copy into a slot's chunk comes from that one warp, in order of it.  A
+// lane owns the 16-byte pieces q * 32 + lane.
+__global__ void __launch_bounds__(32 * ST_WARPS, 1) store_kernel(const float* __restrict__ A,
+                                                                 bf16* __restrict__ big,
+                                                                 float* __restrict__ o, int B,
+                                                                 int n, int classes, int bulk) {
   extern __shared__ __align__(128) unsigned char ssm[];
-  const int t = threadIdx.x;
-  const int npairs = ST_ROWS * B / 2;          // a band, in bf16 pairs
-  const int nq = npairs / ST_THREADS;
-  const size_t row0 = (size_t)blockIdx.x * ST_ROWS;
-  bf162* stage = reinterpret_cast<bf162*>(ssm);   // (2, npairs)
-  const float2* Ab = reinterpret_cast<const float2*>(A + row0 * B);
-  float2 a[ST_MAXQ];
+  const int lane = threadIdx.x % 32, wib = threadIdx.x / 32;
+  const int w = blockIdx.x * ST_WARPS + wib;
+  const int chunks = B * B / ST_CHUNK;
+  const int chunk = w % chunks, cls = w / chunks;
+  const size_t base = (size_t)chunk * ST_CHUNK;
+  const float4* A4 = reinterpret_cast<const float4*>(A + base);
+  float4 a[2 * ST_Q];
 #pragma unroll
-  for (int q = 0; q < ST_MAXQ; ++q)
-    if (q < nq) a[q] = Ab[t + q * ST_THREADS];
-  float acc = 0.0f;
-  for (int it = 0; it < n; ++it) {
-    const float s = __fmul_rn(acc, 1e-9f);   // unfused, as the reference rounds it
-    bf162* dst = reinterpret_cast<bf162*>(big + (size_t)(it % ST_SLOTS) * B * B + row0 * B);
+  for (int q = 0; q < ST_Q; ++q) {
+    a[2 * q] = A4[2 * (q * 32 + lane)];
+    a[2 * q + 1] = A4[2 * (q * 32 + lane) + 1];
+  }
+  uint4* ring = reinterpret_cast<uint4*>(ssm) + wib * ST_STAGES * (ST_CHUNK / 8);
+  int j = 0;   // the warp's copies so far
+  for (int it = cls; it < n; it += classes, ++j) {
+    const float s = __fmul_rn((float)it, 1e-9f);   // unfused, as the reference rounds it
+    uint4* dst = reinterpret_cast<uint4*>(big + (size_t)(it % ST_SLOTS) * B * B + base);
     if (bulk) {
-      const int slot = it & 1;
-      if (it >= 2) {   // the copy started two iterations ago has read this slot
-        if (t == 0) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-        __syncthreads();
-      }
-      bf162* st = stage + slot * npairs;
+      uint4* st = ring + (j % ST_STAGES) * (ST_CHUNK / 8);
+      // The copy that last read this stage, ST_STAGES copies ago, has read it.
+      if (lane == 0 && j >= ST_STAGES)
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(ST_STAGES - 1) : "memory");
+      __syncwarp();
 #pragma unroll
-      for (int q = 0; q < ST_MAXQ; ++q)
-        if (q < nq)
-          st[t + q * ST_THREADS] = __floats2bfloat162_rn(__fadd_rn(a[q].x, s),
-                                                         __fadd_rn(a[q].y, s));
+      for (int q = 0; q < ST_Q; ++q) {
+        const float4 u = a[2 * q], v = a[2 * q + 1];
+        st[q * 32 + lane] = make_uint4(bf2(u.x, u.y, s), bf2(u.z, u.w, s), bf2(v.x, v.y, s),
+                                       bf2(v.z, v.w, s));
+      }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-      if (t == 0) {
+      __syncwarp();
+      if (lane == 0) {
+        // This slot's previous copy (64 / classes >= 8 copies ago) has landed,
+        // so the copies of one slot land in order of it.
+        asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(64 / ST_MAX_CLASSES - 1) : "memory");
         asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-                     "r"(smem_addr(st)), "r"(npairs * 4)
+                     "r"(smem_addr(st)), "r"(ST_CHUNK * 2)
                      : "memory");
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
     } else {
 #pragma unroll
-      for (int q = 0; q < ST_MAXQ; ++q)
-        if (q < nq)
-          dst[t + q * ST_THREADS] = __floats2bfloat162_rn(__fadd_rn(a[q].x, s),
-                                                          __fadd_rn(a[q].y, s));
+      for (int q = 0; q < ST_Q; ++q) {
+        const float4 u = a[2 * q], v = a[2 * q + 1];
+        dst[q * 32 + lane] = make_uint4(bf2(u.x, u.y, s), bf2(u.z, u.w, s), bf2(v.x, v.y, s),
+                                        bf2(v.z, v.w, s));
+      }
     }
-    acc += 1.0f;
   }
-  if (bulk && t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  for (int e = t; e < ST_ROWS * B; e += ST_THREADS) o[row0 * B + e] = acc;
+  if (bulk && lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (cls == 0) {
+    const float4 nf = make_float4((float)n, (float)n, (float)n, (float)n);
+    float4* o4 = reinterpret_cast<float4*>(o + base);
+    for (int e = lane; e < ST_CHUNK / 4; e += 32) o4[e] = nf;
+  }
 }
 
 }  // namespace
@@ -304,13 +483,13 @@ extern "C" int gpc_vpu_exp(const float* a, float* out, int n, int reps, void* st
   return (int)cudaGetLastError();
 }
 
-// X (B, 8), n2 (B) = row sums of X * X, out (B, B); B a multiple of 64.
+// X (B, 8), n2 (B) = row sums of X * X, out (B, B); B a multiple of 32.
 extern "C" int gpc_vpu_gram(const float* X, const float* n2, float* out, int B, int reps,
                             void* stream) {
-  const int smem = B * (GD + 1) * (int)sizeof(float);
+  if (B <= 0 || B % G_B) return (int)cudaErrorInvalidValue;
+  const int smem = (B * (4 * 4 + 1) + GD) * (int)sizeof(float);
   cudaFuncSetAttribute(gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  gram_kernel<<<dim3(B / 32, B / (G_ROWS * G_WARPS)), 32 * G_WARPS, smem,
-                (cudaStream_t)stream>>>(X, n2, out, B, reps);
+  gram_kernel<<<dim3(B / G_B, B / G_B), 128, smem, (cudaStream_t)stream>>>(X, n2, out, B, reps);
   return (int)cudaGetLastError();
 }
 
@@ -387,11 +566,26 @@ extern "C" int gpc_vpu_matvec(const float* A, const float* v, float* out, int B,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// A (B, B) f32, big (64, B, B) bf16, o (B, B) f32; B a multiple of 128, <= 1024.
-extern "C" int gpc_vpu_store(const float* A, void* big, float* o, int B, int n, int bulk,
-                             void* stream) {
-  const int smem = 2 * ST_ROWS * B * (int)sizeof(bf16);
-  store_kernel<<<B / ST_ROWS, ST_THREADS, smem, (cudaStream_t)stream>>>(
-      A, static_cast<bf16*>(big), o, B, n, bulk);
+// The store's layout as probes/vpu.py's store_plan must read it: the chunk
+// (bf16 values), the warps of a block and the most iteration classes.
+extern "C" int gpc_vpu_store_layout(int* out) {
+  out[0] = ST_CHUNK;
+  out[1] = ST_WARPS;
+  out[2] = ST_MAX_CLASSES;
+  return 0;
+}
+
+// A (B, B) f32, big (64, B, B) bf16, o (B, B) f32; B a multiple of 128, <= 1024;
+// classes (probes/vpu.py's store_plan) 1, 2, 4 or 8.
+extern "C" int gpc_vpu_store(const float* A, void* big, float* o, int B, int n, int classes,
+                             int bulk, void* stream) {
+  if (B <= 0 || B % 128 || B > 1024 || classes < 1 || classes > ST_MAX_CLASSES ||
+      (classes & (classes - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int warps = B * B / ST_CHUNK * classes;
+  const int smem = bulk ? ST_WARPS * ST_STAGES * ST_CHUNK * (int)sizeof(bf16) : 0;
+  cudaFuncSetAttribute(store_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  store_kernel<<<warps / ST_WARPS, 32 * ST_WARPS, smem, (cudaStream_t)stream>>>(
+      A, static_cast<bf16*>(big), o, B, n, classes, bulk);
   return (int)cudaGetLastError();
 }

@@ -63,7 +63,8 @@ _SIGNATURES = {
     "gpc_vpu_matvec_cluster": [_I],
     "gpc_vpu_matvec_home": [_I, _I],
     "gpc_vpu_matvec": [_P, _P, _P, _I, _I, _I, _P],
-    "gpc_vpu_store": [_P, _P, _P, _I, _I, _I, _P],
+    "gpc_vpu_store_layout": [_P],
+    "gpc_vpu_store": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

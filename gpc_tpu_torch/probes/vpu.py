@@ -8,30 +8,37 @@ bounds in csrc/probes_vpu.cu):
                    exp(−(A + 1e-9 acc)), `reps` times, A (B, B) f32
   vpu_gram_tile    kern_gramtile (:45-54, call :121): acc ← exp(−max(n2 +
                    n2ᵀ − 2 XXᵀ + 1e-9 acc[0, 0], 0)), X (B, 8) f32, XXᵀ
-                   formed every rep
+                   formed every rep (on the tensor cores, X split into
+                   two tf32 halves)
   vpu_matvec       kern_matvec (:57-65, call :128): v ← (Aᵀv) / (1 +
                    |(Aᵀv)₀|), `reps` times, v (B, 1); one thread-block
                    cluster, A on chip
   vpu_stage_store  kern_store_dma (:68-87, call :134): n times, stage
                    bf16(A + 1e-9 it) and copy it to big[it mod 64]; returns
                    big (64, B, B) bf16 and o (B, B) = n.  mode "bulk" copies
-                   by cp.async.bulk from a double buffer in shared memory,
-                   "direct" stores straight from the threads.  Slots that no
-                   iteration reaches (n < 64) are left unwritten.
+                   8 KiB at a time by cp.async.bulk from each warp's ring
+                   of stages in shared memory, "direct" stores 16 bytes a
+                   thread; store_plan splits the work among warps.  Slots
+                   that no iteration reaches (n < 64) are left unwritten.
 
 Each has a plain PyTorch version that computes the same values; a CPU
 tensor takes it.
 
-    python -m gpc_tpu_torch.probes.vpu [--reps 3]
+    python -m gpc_tpu_torch.probes.vpu
 
 times them on the card at the TPU probe's shapes (B = 512, REPS = 2048;
-1024 iterations for the matvec and the store) and prints µs per iteration
-by differential pairs.  Needs CUDA.
+1024 iterations for the matvec and the store), 10 calls captured in a CUDA
+graph, and prints µs per iteration by differential pairs; probes/vpu_turns.py
+times the kernels of several checkouts (a parent, a variant) in turns by one
+method.  Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -168,6 +175,58 @@ def vpu_matvec(A, v, reps: int, *, _cluster: int | None = None):
 # the staged bf16 store
 # ---------------------------------------------------------------------------
 
+STORE_CHUNK = 4096      # bf16 values a warp owns and copies at once (8 KiB)
+STORE_WARPS = 4         # warps of a block
+STORE_MAX_CLASSES = 8   # a slot's copies lie 64 / classes >= 8 of a warp's copies apart
+
+
+class StorePlan(NamedTuple):
+    """The staged store's split of one call: the flattened (B, B) tile in
+    `chunks` pieces of STORE_CHUNK values, the iterations in `classes`
+    residue classes mod `classes` (a divisor of 64).  Warp chunk + chunks ·
+    cls copies its chunk for iterations cls, cls + classes, ... in that
+    order; blocks of STORE_WARPS warps."""
+    chunks: int
+    classes: int
+
+    @property
+    def warps(self) -> int:
+        return self.chunks * self.classes
+
+    @property
+    def blocks(self) -> int:
+        return self.warps // STORE_WARPS
+
+
+def store_plan(b: int, sms: int) -> StorePlan:
+    """The split at width b (a multiple of 128 up to 1024) on a card of
+    `sms` SMs: the most iteration classes (up to STORE_MAX_CLASSES) whose
+    blocks, one an SM, still fit in one wave."""
+    if b <= 0 or b % 128 or b > 1024 or sms <= 0:
+        raise ValueError(f"store_plan: want B a multiple of 128 up to 1024 and sms > 0; "
+                         f"got B = {b}, sms = {sms}")
+    chunks = b * b // STORE_CHUNK
+    classes = 1
+    while classes < STORE_MAX_CLASSES and chunks * classes * 2 // STORE_WARPS <= sms:
+        classes *= 2
+    return StorePlan(chunks, classes)
+
+
+@functools.lru_cache(maxsize=None)
+def _store_classes(b: int, device_index: int) -> int:
+    """store_plan's classes at width b on card `device_index`, once per
+    pair; the first call also holds STORE_CHUNK, STORE_WARPS and
+    STORE_MAX_CLASSES against the kernel's own (gpc_vpu_store_layout)."""
+    layout = (ctypes.c_int * 3)()
+    cuda_lib.library().gpc_vpu_store_layout(layout)
+    if tuple(layout) != (STORE_CHUNK, STORE_WARPS, STORE_MAX_CLASSES):
+        raise RuntimeError(f"vpu_stage_store: the kernel's (chunk, warps, max classes) "
+                           f"{tuple(layout)} differ from store_plan's "
+                           f"{(STORE_CHUNK, STORE_WARPS, STORE_MAX_CLASSES)}")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return store_plan(b, sms).classes
+
+
 def written_slots(n_iters: int) -> int:
     """Slots of big that n iterations write: 0 .. min(n, 64) − 1."""
     return min(n_iters, SLOTS)
@@ -197,10 +256,12 @@ def vpu_stage_store(A, n_iters: int, mode: str = "bulk"):
     _check("vpu_stage_store", _square(A, lambda n: n % 128 == 0 and n <= 1024),
            "A (B, B), B a multiple of 128 up to 1024", A)
     b = A.shape[0]
+    classes = _store_classes(b, A.device.index)
     big = torch.empty((SLOTS, b, b), dtype=torch.bfloat16, device=A.device)
     o = torch.empty((b, b), dtype=torch.float32, device=A.device)
     cuda_lib.launch("vpu_stage_store", "gpc_vpu_store", A.data_ptr(), big.data_ptr(),
-                    o.data_ptr(), b, n_iters, int(mode == "bulk"), cuda_lib.stream_of(A))
+                    o.data_ptr(), b, n_iters, classes, int(mode == "bulk"),
+                    cuda_lib.stream_of(A))
     return big, o
 
 
@@ -231,17 +292,18 @@ def runs(inp):
 
 
 def main(argv=None):
-    from gpc_tpu_torch.probes import cuda_ms, require_card
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=3)
-    a = ap.parse_args(argv)
+    from gpc_tpu_torch.probes import graph_ms, require_card
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     print(require_card(), flush=True)
+    dev = torch.device("cuda")
     cs = matvec_cluster(B)
-    print(f"matvec: one cluster of {cs} blocks, A in {matvec_home(B, cs)}", flush=True)
-    for name, (fn, n) in runs(probe_inputs(torch.device("cuda"))).items():
-        t_lo, t_hi = (cuda_ms(lambda: fn(m), a.reps) for m in (n // 8, n))
+    plan = store_plan(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"matvec: one cluster of {cs} blocks, A in {matvec_home(B, cs)}; store: "
+          f"{plan.chunks} chunks x {plan.classes} classes, {plan.blocks} blocks", flush=True)
+    for name, (fn, n) in runs(probe_inputs(dev)).items():
+        t_lo, t_hi = (graph_ms(lambda m=m: fn(m), calls=10) for m in (n // 8, n))
         per = (t_hi - t_lo) / (n - n // 8) * 1e3
-        extra = (f", {B * B * 2 / per / 1e3} GB/s written" if name.startswith("store") else "")
+        extra = (f", {B * B * 2 / per / 1e6} TB/s written" if name.startswith("store") else "")
         print(f"{name:13s} {per} us/iter (differential), {t_hi} ms at {n}{extra}", flush=True)
 
 

@@ -32,8 +32,10 @@ held to 5e-5 of their largest entries, RC = 128 at one dot and none, KC =
 and the leaf parts on Gram blocks); K8b's and
 K8c's sums of bf16 products within 1e-4 of the largest entry (the three
 forms on the same data within 1e-4 of c0's largest entry), K8d's exp and
-Gram tiles within 1e-5, its matvec chain within 1e-4, and its staged store
-bit for bit.  The IVM: K1/K4 at the selection column (m = 1) within rtol
+Gram tiles within 1e-5 (the Gram tile also at B = 64 and 1024 and at one
+rep), its matvec chain within 1e-4, and its staged store bit for bit (also
+below and across its ring of 4 stages and its 64 slots, n = 1, 3, 65, at
+B = 512 and 1024).  The IVM: K1/K4 at the selection column (m = 1) within rtol
 1e-5; a selection pass (N = 1024, d = 128) makes no host sync; the pass
 replayed from its CUDA graph equals the eager pass bit for bit; the card's
 float32 pass replayed through the CPU float64 step within
@@ -924,6 +926,52 @@ def test_vpu_stage_store_kernel_matches_plain(dev, mode, b, n):
     big_p, o_p = TVPU.vpu_stage_store_plain(A, n)
     w = TVPU.written_slots(n)
     assert torch.equal(big[:w], big_p[:w]) and torch.equal(o, o_p)
+
+
+@pytest.mark.parametrize("b,reps", [(64, 1), (64, 2048), (1024, 1), (1024, 64)])
+def test_vpu_gram_tile_edges_match_plain(dev, b, reps):
+    """K8d's Gram tile on the tensor cores at the narrowest width (one block
+    row), the widest card test (B = 1024) and one rep (no acc[0, 0] chain
+    before it): within 1e-5 of the plain tile's largest entry, one launch."""
+    from gpc_tpu_torch.probes import vpu as TVPU
+    inp = TVPU.probe_inputs(dev, b=b, seed=16)
+    before = LAUNCHES["vpu_gram_tile"]
+    got = TVPU.vpu_gram_tile(inp["X"], inp["n2"], reps)
+    assert LAUNCHES["vpu_gram_tile"] == before + 1
+    _rel_close(got, TVPU.vpu_gram_tile_plain(inp["X"], inp["n2"], reps), 1e-5)
+
+
+@pytest.mark.parametrize("b", [512, 1024])
+@pytest.mark.parametrize("n", [1, 3, 65])
+@pytest.mark.parametrize("mode", ["bulk", "direct"])
+def test_vpu_stage_store_ring_edges_match_plain(dev, mode, n, b):
+    """K8d's staged store below the ring's 4 stages (n = 1, 3), at a count
+    no multiple of them that wraps the 64 slots (n = 65: slot 0 is written
+    twice, last by it = 64), at B = 512 and 1024 (8 and 2 iteration
+    classes): the written slots and o equal the plain version's bit for bit,
+    one launch."""
+    from gpc_tpu_torch.probes import vpu as TVPU
+    A = TVPU.probe_inputs(dev, b=b, seed=17)["A"] * 1e-6   # small, so 1e-9 it shows
+    before = LAUNCHES["vpu_stage_store"]
+    big, o = TVPU.vpu_stage_store(A, n, mode)
+    assert LAUNCHES["vpu_stage_store"] == before + 1
+    big_p, o_p = TVPU.vpu_stage_store_plain(A, n)
+    w = TVPU.written_slots(n)
+    assert torch.equal(big[:w], big_p[:w]) and torch.equal(o, o_p)
+    if n == 65:
+        assert not torch.equal(big_p[0], big_p[1])   # slot 0 holds it = 64, not it = 0
+
+
+def test_vpu_store_plan_reads_the_kernels_layout(dev):
+    """store_plan's chunk, warps a block and most iteration classes are the
+    kernel's own (gpc_vpu_store_layout), which the wrapper checks once."""
+    import ctypes
+
+    from gpc_tpu_torch.ops import cuda_lib
+    from gpc_tpu_torch.probes import vpu as TVPU
+    layout = (ctypes.c_int * 3)()
+    assert cuda_lib.library().gpc_vpu_store_layout(layout) == 0
+    assert tuple(layout) == (TVPU.STORE_CHUNK, TVPU.STORE_WARPS, TVPU.STORE_MAX_CLASSES)
 
 
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(dev):
