@@ -16,6 +16,13 @@ GPC_TPU_FAST_JITCHOL=1 (`FAST_JITCHOL`, read once at import, off by
 default) is gpc_tpu's fast path: a fixed base jitter 1e-6·mean|diag| and
 one factorization through ops/chol_blocked (`cholesky` in `jitchol`, the
 fused `evidence_fused` in `evidence_terms`), never the discovery loop.
+
+Spans (utils/profiling): `gpc.linalg.chol` around the factor,
+`gpc.linalg.chol_bwd` around its backward, `gpc.linalg.jitter` around the
+discovery loop; each blocking read of the device (the factor's `info`, the
+finiteness tests, the loop's trace and `info`s) is a `gpc.host_read` span,
+counted under `host_read.chol_info`, `host_read.jitchol_finite`,
+`host_read.chol_bwd_finite` and `host_read.jitter`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import os
 import torch
 
 from gpc_tpu_torch.ops.chol_blocked import cholesky, evidence_fused
+from gpc_tpu_torch.utils.profiling import host_read, span
 
 FAST_JITCHOL = os.environ.get("GPC_TPU_FAST_JITCHOL", "0") == "1"
 
@@ -47,21 +55,27 @@ class _CholNanSafe(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A):
-        L, info = torch.linalg.cholesky_ex(A)
-        if int(info) != 0:
-            L = torch.full_like(A, float("nan"))
+        with span("gpc.linalg.chol"):
+            L, info = torch.linalg.cholesky_ex(A)
+            with host_read("chol_info"):
+                failed = int(info) != 0
+            if failed:
+                L = torch.full_like(A, float("nan"))
         ctx.save_for_backward(L)
         return L
 
     @staticmethod
     def backward(ctx, Lbar):
-        (L,) = ctx.saved_tensors
-        if not bool(torch.isfinite(L).all()):
-            return torch.zeros_like(Lbar)
-        P = _phi_(L.T @ Lbar)
-        D = torch.linalg.solve_triangular(L.T, P, upper=True)          # L⁻ᵀP
-        C = torch.linalg.solve_triangular(L.T, D.T, upper=True).T      # L⁻ᵀPL⁻¹
-        return 0.5 * (C + C.T)
+        with span("gpc.linalg.chol_bwd"):
+            (L,) = ctx.saved_tensors
+            with host_read("chol_bwd_finite"):
+                finite = bool(torch.isfinite(L).all())
+            if not finite:
+                return torch.zeros_like(Lbar)
+            P = _phi_(L.T @ Lbar)
+            D = torch.linalg.solve_triangular(L.T, P, upper=True)          # L⁻ᵀP
+            C = torch.linalg.solve_triangular(L.T, D.T, upper=True).T      # L⁻ᵀPL⁻¹
+            return 0.5 * (C + C.T)
 
 
 def chol_nansafe(A: torch.Tensor) -> torch.Tensor:
@@ -80,16 +94,21 @@ def jitchol(A: torch.Tensor, max_tries: int = 10):
         jitter = _base_jitter(A)
         return cholesky(A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)), jitter
     L = chol_nansafe(A)
-    if bool(torch.isfinite(L[-1, -1])):       # a failed factor is NaN throughout
+    with host_read("jitchol_finite"):
+        finite = bool(torch.isfinite(L[-1, -1]))    # a failed factor is NaN throughout
+    if finite:
         return L, 0.0
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    with torch.no_grad():
+    with span("gpc.linalg.jitter"), torch.no_grad():
         Asg = A.detach()
-        jitter = 1e-6 * float(torch.abs(torch.trace(Asg))) / n
+        with host_read("jitter"):
+            jitter = 1e-6 * float(torch.abs(torch.trace(Asg))) / n
         for _ in range(max_tries):
             _, info = torch.linalg.cholesky_ex(Asg + jitter * eye)
-            if int(info) == 0:
+            with host_read("jitter"):
+                found = int(info) == 0
+            if found:
                 break
             jitter *= 10.0
         else:

@@ -22,20 +22,32 @@ OPTIMISERS = ("scg", "conjgrad", "graddesc", "quasinew")
 def numpy_value_and_grad(nlml, device):
     """The optimisers' interface to a model's objective: w (float64 numpy)
     → (nlml(w), ∇nlml(w)) as float64, evaluated on `device` in its working
-    dtype under autograd; a gradient the objective does not reach is zero."""
+    dtype under autograd; a gradient the objective does not reach is zero.
+    Spans `gpc.eval.forward` (θ onto the device and the objective),
+    `gpc.eval.backward` and `gpc.eval.fetch` (the two reads of the value
+    and the gradient, each a `gpc.host_read` counted under
+    `host_read.fetch`)."""
     import numpy as np
     import torch
 
     from gpc_tpu_torch import as_tensor
+    from gpc_tpu_torch.utils.profiling import host_read, span
 
     def vag(w):
-        theta = as_tensor(np.array(w, dtype=np.float64), device).requires_grad_(True)
-        f = nlml(theta)
-        g = None
-        if f.requires_grad:
-            (g,) = torch.autograd.grad(f, theta, allow_unused=True)
-        g = torch.zeros_like(theta) if g is None else g
-        return float(f.detach()), g.detach().cpu().numpy().astype(np.float64)
+        with span("gpc.eval.forward"):
+            theta = as_tensor(np.array(w, dtype=np.float64), device).requires_grad_(True)
+            f = nlml(theta)
+        with span("gpc.eval.backward"):
+            g = None
+            if f.requires_grad:
+                (g,) = torch.autograd.grad(f, theta, allow_unused=True)
+            g = torch.zeros_like(theta) if g is None else g
+        with span("gpc.eval.fetch"):
+            with host_read("fetch"):
+                value = float(f.detach())
+            with host_read("fetch"):
+                grad = g.detach().cpu().numpy()
+        return value, grad.astype(np.float64)
     return vag
 
 

@@ -17,6 +17,9 @@ gpc_tpu, for learned-hyperparameter parity:
                                                   (COptimisable.cpp:385-393)
   * a NaN/Inf objective maps Δ to −∞, so the step is rejected and λ grows.
 
+Spans (utils/profiling): `gpc.scg.iter` around each iteration,
+`gpc.scg.probe` and `gpc.scg.trial` around its two evaluations.
+
 Precision: SCG's own vectors (w, r, p, s) and scalars stay float64 numpy on
 the host.  `value_and_grad_fn(w)` takes the float64 vector and returns the
 objective and gradient from the device in its working dtype (float32 on the
@@ -34,6 +37,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import numpy as np
+
+from gpc_tpu_torch.utils.profiling import span
 
 # the state fields, with gpc_tpu's names (its checkpoint files use them)
 STATE_KEYS = ("w", "r", "p", "s", "delta", "old_obj", "lam", "lam_bar",
@@ -113,7 +118,8 @@ def _step(fn, st: dict, n_params: int, param_tol: float) -> dict:
 
     if st["success"]:                      # curvature probe
         sigma = 1e-4 / normp
-        _, g_plus = _value_and_grad(fn, _fma(sigma, p, w))
+        with span("gpc.scg.probe"):
+            _, g_plus = _value_and_grad(fn, _fma(sigma, p, w))
         s = (g_plus + r) / sigma           # (∇f(w+σp) − ∇f(w))/σ, r = −∇f(w)
         delta = np.dot(s, p)
     else:
@@ -134,7 +140,8 @@ def _step(fn, st: dict, n_params: int, param_tol: float) -> dict:
     mu = np.dot(p, r)
     alpha = mu / delta
     w_try = _fma(alpha, p, w)
-    new_obj, g_try = _value_and_grad(fn, w_try)
+    with span("gpc.scg.trial"):
+        new_obj, g_try = _value_and_grad(fn, w_try)
     Delta = 2.0 * delta * (st["old_obj"] - new_obj) / (mu * mu)
     if not np.isfinite(Delta):
         Delta = -np.inf
@@ -162,7 +169,8 @@ def _step(fn, st: dict, n_params: int, param_tol: float) -> dict:
 def _run(fn, st, iter_end, n_params, param_tol):
     with np.errstate(all="ignore"):        # non-finite values are handled above
         while st["iter"] < iter_end and not st["converged"]:
-            st = _step(fn, st, n_params, param_tol)
+            with span("gpc.scg.iter"):
+                st = _step(fn, st, n_params, param_tol)
     return st
 
 

@@ -29,10 +29,13 @@ one call of each of `bench_candidates()` (gpc_tpu's candidate list,
 bench.py:120-131, and the port's additions; chip_smoke.py phase 24 checks
 and times the same list).
 Prints per stage the wall time (host clock around work that ends in a
-synchronize), the device time of the kernels in that window (from the
-profiler's trace; their sum above the wall is overlap between streams) and
-the kernels that take the most; writes the full tables to --out.  Needs CUDA:
-it exits non-zero without a card.
+synchronize), the time in which the card runs at least one kernel in that
+window (the union of the kernels' intervals over all streams, from the
+profiler's trace), the blocking host reads by site (utils/profiling's
+`host_read.<site>` counters) and the kernels that take the most, each with
+its device time summed (over several streams such sums may pass the wall:
+the streams overlap); writes the full tables to --out.  The port's `gpc.*`
+spans are in the trace.  Needs CUDA: it exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from gpc_tpu_torch import linalg
 from gpc_tpu_torch.models.gp import GP, make_objective, posterior_apply
 from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
 from gpc_tpu_torch.serving import GPServer
+from gpc_tpu_torch.utils.profiling import counts
 
 M_SPARSE = 1024     # inducing inputs: gpc_tpu's sparse record (bench.py:279)
 BENCH_HYP = (1.0, 1.0, 0.1)   # inverse width, variance, noise: SNR 10 (bench.py:92-94)
@@ -119,48 +123,69 @@ def bench_candidates(hyp=BENCH_HYP):
 
 
 def trace_kernels(prof):
-    """{(kernel name, stream): [device µs of each launch]} from the
-    profiler's trace: every kernel the card ran in the window.
-    key_averages() drops some kernels that the C library launches on its
-    own streams (K3's); the trace keeps them.  A kernel launched early by
-    programmatic dependent launch (K3's) starts while the one before it on
-    its stream runs and waits for it, so each launch's time here starts
-    where the one before it on its stream ended: the kernels of one stream
-    never overlap, and their sum over several streams may exceed the wall by
-    the overlap between streams."""
+    """[(kernel name, stream, start µs, end µs)] of every kernel the card
+    ran in the profiler's window, from its trace.  key_averages() drops
+    some kernels that the C library launches on its own streams (K3's);
+    the trace keeps them.  A kernel launched early by programmatic
+    dependent launch (K3's) starts while the one before it on its stream
+    runs and waits for it, so each launch's time here starts where the one
+    before it on its stream ended: the kernels of one stream never
+    overlap, and their sum over several streams may exceed the wall by the
+    overlap between streams."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
-    out, stream_end = {}, {}
+    out, stream_end = [], {}
     for e in kernels:
         stream = e.get("args", {}).get("stream")
         end = e["ts"] + e["dur"]
         start = max(e["ts"], stream_end.get(stream, e["ts"]))
         stream_end[stream] = max(end, stream_end.get(stream, end))
-        out.setdefault((e["name"], stream), []).append(max(end - start, 0.0))
+        out.append((e["name"], stream, start, max(start, end)))
     return out
+
+
+def busy_us(clipped) -> float:
+    """µs in which at least one kernel runs: the measure of the union of
+    the kernels' intervals over all streams, never their sum."""
+    busy, end = 0.0, None
+    for a, b in sorted((a, b) for _, _, a, b in clipped):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return busy
 
 
 def stage(name, fn, report):
     fn()
     torch.cuda.synchronize()
+    before = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(trace_kernels(prof).items(), key=lambda kv: sum(kv[1]), reverse=True)
-    busy_ms = sum(sum(us) for _, us in rows) / 1e3
-    print(f"{name}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f} % of the wall)")
+    reads = {k[len("host_read."):]: v - before.get(k, 0) for k, v in counts().items()
+             if k.startswith("host_read.") and v > before.get(k, 0)}
+    kernels = trace_kernels(prof)
+    by_kernel = {}
+    for key, stream, a, b in kernels:
+        by_kernel.setdefault((key, stream), []).append(b - a)
+    rows = sorted(by_kernel.items(), key=lambda kv: sum(kv[1]), reverse=True)
+    busy_ms = busy_us(kernels) / 1e3
+    head = (f"{name}: wall {wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f} % of the wall), host reads "
+            f"{sum(reads.values())} {reads}")
+    print(head)
     lines = [f"{sum(us) / 1e3:10.3f} ms  x{len(us):<5d} median {np.median(us):9.2f} us  "
              f"stream {stream}  {key}" for (key, stream), us in rows]
     for line in lines[:6]:
         print("    " + line[:150])
-    report.append(f"== {name}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms\n" + "\n".join(lines))
+    report.append(f"== {head}\n" + "\n".join(lines))
 
 
 def main(argv=None):

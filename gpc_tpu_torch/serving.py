@@ -11,6 +11,12 @@ family) or K4 (lin, poly, mlp).  IvmServer holds an IVM's d × d factor of
 K + B⁻¹ per covariance structure and α = (K + B⁻¹)⁻¹m̃; a batch is its
 d × T cross-Gram (K1/K4) and triangular solves.
 
+`predict` counts the rows asked for and the rows its buckets add
+(`serve.rows`, `serve.pad_rows` in utils/profiling.COUNTS) and, while a
+profiler records, spans each chunk's staging onto the device
+(`gpc.serve.stage`), its posterior (`gpc.serve.apply`) and the copies back,
+the last chunk's with the answer's assembly (`gpc.serve.fetch`).
+
 `GPServer(model, mesh=...)` serves across the ranks of a data mesh
 (parallel/mesh.py): every rank holds the replicated state, computes its
 row block of each bucket-padded chunk, and an all-gather gives every rank
@@ -27,6 +33,7 @@ import torch
 
 from gpc_tpu_torch import as_tensor, linalg
 from gpc_tpu_torch.models.gp import GP, posterior_apply, posterior_state
+from gpc_tpu_torch.utils.profiling import COUNTS, span
 
 
 class GPServer:
@@ -94,16 +101,22 @@ class GPServer:
             return np.zeros((0, D)), np.zeros((0, D))
         mus, vars_ = [], []
         for c0 in range(0, T, self.chunk):
-            Xb = Xtest[c0:c0 + self.chunk]
-            rows = Xb.shape[0]
-            pad = self._bucket(rows) - rows
-            Xt = as_tensor(Xb, self.device)
-            if pad:
-                Xt = torch.nn.functional.pad(Xt, (0, 0, 0, pad))
-            mu, var = self._apply(Xt)
-            mus.append(mu[:rows].cpu().numpy())
-            vars_.append(var[:rows].cpu().numpy())
-        return np.concatenate(mus, axis=0), np.concatenate(vars_, axis=0)
+            with span("gpc.serve.stage"):
+                Xb = Xtest[c0:c0 + self.chunk]
+                rows = Xb.shape[0]
+                pad = self._bucket(rows) - rows
+                COUNTS["serve.rows"] += rows
+                COUNTS["serve.pad_rows"] += pad
+                Xt = as_tensor(Xb, self.device)
+                if pad:
+                    Xt = torch.nn.functional.pad(Xt, (0, 0, 0, pad))
+            with span("gpc.serve.apply"):
+                mu, var = self._apply(Xt)
+            with span("gpc.serve.fetch"):
+                mus.append(mu[:rows].cpu().numpy())
+                vars_.append(var[:rows].cpu().numpy())
+                if c0 + self.chunk >= T:        # the last chunk joins the answer
+                    return np.concatenate(mus, axis=0), np.concatenate(vars_, axis=0)
 
 
 class IvmServer(GPServer):

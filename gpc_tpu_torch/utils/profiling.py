@@ -11,15 +11,67 @@ FLOP count of the FTC evidence, and so does the port:
     around the calls and one fetch of the first output, less that fetch's
     own cost (`measure_rtt`).  gpc_tpu subtracts the round trip to a remote
     TPU; here the fetch is local and the correction small.
+
+The port adds spans and counters at its layer boundaries:
+
+  * `span(name)`: a `torch.profiler.record_function` range while a torch
+    profiler records (`trace`, or any other `torch.profiler.profile`), so
+    it lands in the trace on the clock of the device's operations; with no
+    profiler recording, one shared no-op context that never calls into the
+    profiler.  Every span of the program is named `gpc.<layer>.<step>`:
+
+      gpc.scg.iter, gpc.scg.probe, gpc.scg.trial     optim/scg.py
+      gpc.eval.forward, gpc.eval.backward,
+      gpc.eval.fetch                                 optim.numpy_value_and_grad
+      gpc.linalg.chol, gpc.linalg.chol_bwd (on
+      autograd's device thread on the card),
+      gpc.linalg.jitter                              linalg.py
+      gpc.host_read                                  each blocking device-to-host read
+      gpc.serve.stage, gpc.serve.apply,
+      gpc.serve.fetch                                serving.GPServer.predict
+
+  * `COUNTS`: counters, always on, and `counts()`, a snapshot of them:
+    `host_read.<site>` (one a read, beside its `gpc.host_read` span; each
+    stage of profile_slice prints them by site), `serve.rows` (rows asked
+    for) and `serve.pad_rows` (rows the power-of-two buckets add; the
+    benchmark's `serve.pad_share.serve` reads the two).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# the program's counters (module docstring); `counts()` reads them
+COUNTS: collections.Counter = collections.Counter()
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function` range named `name` while a torch profiler
+    records, else one shared no-op context: off, a span costs one flag
+    read (a `record_function` with no profiler costs microseconds)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def host_read(site: str):
+    """Count one blocking device-to-host read at `site` under
+    `host_read.<site>` and return the `gpc.host_read` span to hold it."""
+    COUNTS["host_read." + site] += 1
+    return span("gpc.host_read")
+
+
+def counts() -> dict:
+    """A snapshot of `COUNTS`."""
+    return dict(COUNTS)
 
 
 def _first_tensor(x):
@@ -46,7 +98,7 @@ def sync(x):
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler trace of the block, written to log_dir when it ends;
-    yields the profiler."""
+    yields the profiler.  The program's `gpc.*` spans are in it."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
