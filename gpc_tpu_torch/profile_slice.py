@@ -6,8 +6,8 @@
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
 factor (explicit inverse), one served batch of 8192 rows, one
-value_and_grad of the training objective per engine (dense: K1 + jitchol
-and their backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
+value_and_grad of the training objective per engine (dense: K1 + jitchol,
+the K1 VJP and the evidence's K⁻¹ backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
 and one value_and_grad with cmpnd(mlp, bias, white) under dense (K4 +
 jitchol) and under lazy (the left-looking sweep with K4 blocks); then the
 sparse slice at M = 1024 inducing inputs (gpc_tpu's bench.py:279),
@@ -32,7 +32,9 @@ Prints per stage the wall time (host clock around work that ends in a
 synchronize), the time in which the card runs at least one kernel in that
 window (the union of the kernels' intervals over all streams, from the
 profiler's trace), the blocking host reads by site (utils/profiling's
-`host_read.<site>` counters) and the kernels that take the most, each with
+`host_read.<site>` counters), the program's other counters that moved
+(`evidence.inverse_vjp`: dense evidence backwards that formed K⁻¹) and
+the kernels that take the most, each with
 its device time summed (over several streams such sums may pass the wall:
 the streams overlap); writes the full tables to --out.  The port's `gpc.*`
 spans are in the trace.  Needs CUDA: it exits non-zero without a card.
@@ -169,8 +171,9 @@ def stage(name, fn, report):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    reads = {k[len("host_read."):]: v - before.get(k, 0) for k, v in counts().items()
-             if k.startswith("host_read.") and v > before.get(k, 0)}
+    changed = {k: v - before.get(k, 0) for k, v in counts().items() if v != before.get(k, 0)}
+    reads = {k[len("host_read."):]: d for k, d in changed.items() if k.startswith("host_read.")}
+    others = {k: d for k, d in changed.items() if not k.startswith("host_read.")}
     kernels = trace_kernels(prof)
     by_kernel = {}
     for key, stream, a, b in kernels:
@@ -179,7 +182,7 @@ def stage(name, fn, report):
     busy_ms = busy_us(kernels) / 1e3
     head = (f"{name}: wall {wall_ms:.3f} ms, kernels busy {busy_ms:.3f} ms "
             f"({100 * busy_ms / wall_ms:.1f} % of the wall), host reads "
-            f"{sum(reads.values())} {reads}")
+            f"{sum(reads.values())} {reads}, counters {others}")
     print(head)
     lines = [f"{sum(us) / 1e3:10.3f} ms  x{len(us):<5d} median {np.median(us):9.2f} us  "
              f"stream {stream}  {key}" for (key, stream), us in rows]

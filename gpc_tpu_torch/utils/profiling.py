@@ -23,18 +23,20 @@ The port adds spans and counters at its layer boundaries:
       gpc.scg.iter, gpc.scg.probe, gpc.scg.trial     optim/scg.py
       gpc.eval.forward, gpc.eval.backward,
       gpc.eval.fetch                                 optim.numpy_value_and_grad
-      gpc.linalg.chol, gpc.linalg.chol_bwd (on
-      autograd's device thread on the card),
-      gpc.linalg.jitter                              linalg.py
+      gpc.linalg.chol, gpc.linalg.chol_bwd and
+      gpc.linalg.evidence_bwd (on autograd's device
+      thread on the card), gpc.linalg.jitter         linalg.py
       gpc.host_read                                  each blocking device-to-host read
       gpc.serve.stage, gpc.serve.apply,
       gpc.serve.fetch                                serving.GPServer.predict
 
   * `COUNTS`: counters, always on, and `counts()`, a snapshot of them:
     `host_read.<site>` (one a read, beside its `gpc.host_read` span; each
-    stage of profile_slice prints them by site), `serve.rows` (rows asked
-    for) and `serve.pad_rows` (rows the power-of-two buckets add; the
-    benchmark's `serve.pad_share.serve` reads the two).
+    stage of profile_slice prints them by site), `evidence.inverse_vjp`
+    (dense evidence backwards that formed K⁻¹; profile_slice prints it a
+    stage), `serve.rows` (rows asked for) and `serve.pad_rows` (rows the
+    power-of-two buckets add; the benchmark's `serve.pad_share.serve`
+    reads the two).
 """
 
 from __future__ import annotations

@@ -65,7 +65,9 @@ leaves (2e-4), evidence_panel_rbf against panel_state_rbf (equal),
 rbf_block_fn's K1 blocks against the plain Gram (K1's rtol 1e-5), the flat
 schedule's gradient on the card against dense autograd (1e-3 relative L2),
 and chol_blocked's K5 leaf-inverse recursion (one K5 call a leaf, within
-1e-3 of max|L| and 1e-4 on the evidence of the plain recursion).
+1e-3 of max|L| and 1e-4 on the evidence of the plain recursion).  The dense
+evidence's closed-form backward (explicit float32 A⁻¹) against its float64
+form on the card, within 1e-3 (κ(A) < 1e3, so κ·2⁻²⁴ ≈ 5e-5).
 """
 
 import numpy as np
@@ -1681,6 +1683,37 @@ def test_pallas_base_recursion_launches_k5(dev, monkeypatch):
     assert LAUNCHES["chol_inv_block"] == before + 8
     assert abs(float(ld) - float(ld0)) <= 1e-4 * abs(float(ld0))
     assert abs(float(quad) - float(q0)) <= 1e-4 * abs(float(q0))
+
+
+def test_dense_evidence_backward_on_card(dev):
+    """evidence_terms' closed-form backward on the card, N = 4096, float32,
+    an rbf + 0.1·I Gram (κ ≈ 8e2, asserted below 1e3): Ā and m̄ of
+    3·logdet + 0.5·quad against the float64 closed form 3·A⁻¹ − 0.5·ααᵀ,
+    α = A⁻¹m, on the card, within 1e-3 in relative L2 and of the largest
+    entry — a float32 factor and explicit inverse err by about κ·2⁻²⁴ ≈ 5e-5
+    relative, while a lost term or block errs by order 1; Ā exactly
+    symmetric; one `evidence.inverse_vjp`."""
+    from gpc_tpu_torch import linalg as TLA
+    from gpc_tpu_torch.utils import profiling
+    n = 4096
+    X, m = _bench_rbf(dev, n=n)
+    A = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)(0, 0, n, n)
+    A64, m64 = A.double(), m.double()
+    ev = torch.linalg.eigvalsh(A64)
+    assert float(ev[-1] / ev[0]) < 1e3
+    Ainv = torch.cholesky_inverse(torch.linalg.cholesky(A64))
+    alpha = Ainv @ m64
+    want = (3.0 * Ainv - 0.5 * alpha @ alpha.T, alpha)
+    At, mt = A.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    before = profiling.counts().get("evidence.inverse_vjp", 0)
+    ld, quad, _ = TLA.evidence_terms(At, mt)
+    got = torch.autograd.grad(3.0 * ld + 0.5 * quad, (At, mt))
+    assert profiling.counts()["evidence.inverse_vjp"] == before + 1
+    assert torch.equal(got[0], got[0].T)
+    for g, w in zip(got, want):
+        err = g.double() - w
+        assert float(torch.linalg.norm(err)) <= 1e-3 * float(torch.linalg.norm(w))
+        assert float(err.abs().max()) <= 1e-3 * float(w.abs().max())
 
 
 def test_fast_jitchol_on_card(dev, monkeypatch):

@@ -1,7 +1,8 @@
 """The port's spans and counters (gpc_tpu_torch/utils/profiling.py) on the
 CPU: off without a profiler, named and nested as the layers call each other
 under one, a `gpc.host_read` span for every counted host read, GPServer's
-padding counted by hand, and no program span named as a benchmark span."""
+padding counted by hand, the dense evidence's own backward counted, and no
+program span named as a benchmark span."""
 
 import collections
 import json
@@ -138,6 +139,40 @@ def test_every_counted_host_read_is_one_host_read_span(case, tmp_path):
         assert len(loop) == 1
         assert sum(_inside(s, loop[0]) for s in spans if s[0] == "gpc.host_read") == \
             delta["host_read.jitter"]
+
+
+@pytest.mark.parametrize("approx", ["ftc", "dtc"])
+def test_the_dense_evidence_backward_forms_one_inverse_and_no_cholesky_vjp(approx, tmp_path):
+    """An FTC value_and_grad under `dense` runs one `gpc.linalg.evidence_bwd`
+    (inside `gpc.eval.backward`, with the one finiteness read) in place of
+    `gpc.linalg.chol_bwd`, and counts one `evidence.inverse_vjp`; DTC's
+    factors keep the Cholesky VJP and leave the counter alone."""
+    gp = _ftc() if approx == "ftc" else _dtc()
+    vag = gp.value_and_grad_fn()
+    _, spans, delta = _spans(lambda: vag(gp.theta), tmp_path)
+    count = collections.Counter(n for n, _, _ in spans)
+    if approx == "dtc":
+        assert "evidence.inverse_vjp" not in delta and count["gpc.linalg.evidence_bwd"] == 0
+        assert count["gpc.linalg.chol_bwd"] == 2
+        return
+    assert delta["evidence.inverse_vjp"] == 1 and delta["host_read.chol_bwd_finite"] == 1
+    assert count["gpc.linalg.evidence_bwd"] == 1 and count["gpc.linalg.chol_bwd"] == 0
+    (bwd,) = (s for s in spans if s[0] == "gpc.linalg.evidence_bwd")
+    assert _parent(spans, bwd) == "gpc.eval.backward"
+
+
+def test_profile_slice_prints_the_inverse_count_beside_the_host_reads(monkeypatch, capsys):
+    from gpc_tpu_torch import profile_slice
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    gp = _ftc()
+    vag = gp.value_and_grad_fn()
+    report = []
+    profile_slice.stage("value_and_grad dense", lambda: vag(gp.theta), report)
+    head = capsys.readouterr().out.splitlines()[0]
+    reads, counters = head.split("host reads ")[1].split(", counters ")
+    assert "'chol_bwd_finite': 1" in reads and counters == "{'evidence.inverse_vjp': 1}"
+    assert report[0].startswith("== " + head)
 
 
 def test_a_served_batch_spans_its_staging_posterior_and_copies(tmp_path):

@@ -32,6 +32,7 @@ from gpc_tpu_torch.interop.from_jax import from_jax, kern_from_desc
 from gpc_tpu_torch.io import model_io as TIO
 from gpc_tpu_torch.models.gp import GP as TGP
 from gpc_tpu_torch.ops import panel_engine as TPE
+from gpc_tpu_torch.utils import profiling as TPROF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -106,6 +107,78 @@ def test_jitchol_gradient_matches_jax(case):
     assert (jitter > 0) == (case == "jitter")
     np.testing.assert_allclose(float(v_t.detach()), float(v_j), rtol=1e-12)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-8, atol=1e-10)
+
+
+def _evidence_input(case):
+    """A for evidence_terms' ten tries: PD, PD only with jitter, or a
+    zero-diagonal indefinite matrix whose negative eigenvalues (≈ −15) lie
+    beyond the largest jitter, 1e9·1e-6·mean|diag| = 1e-3."""
+    if case != "fails":
+        return _jitchol_input(case)[0]
+    W = np.random.default_rng(5).standard_normal((30, 30))
+    W = W + W.T
+    return W - np.diag(np.diag(W)) + 1e-6 * np.eye(30)
+
+
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("case", ["pd", "jitter", "fails"])
+def test_evidence_terms_gradient_matches_generic_path_and_jax(case, D):
+    """evidence_terms' closed-form backward (one explicit A⁻¹) against the
+    generic chain — jitchol, chol_logdet and quad_form through
+    _CholNanSafe's VJP — and jax.grad of gpc_tpu's evidence_terms, on
+    3·logdet + 0.5·quad; a factor that fails every try gives a NaN value,
+    an exactly zero Ā and a NaN m̄, as the generic chain does."""
+    A = _evidence_input(case)
+    m = np.random.default_rng(6).standard_normal((30, D))
+
+    def f_jax(A, m):
+        ld, quad, _ = JL.evidence_terms(A, m)
+        return 3.0 * ld + 0.5 * quad
+
+    v_j, (gA_j, gm_j) = jax.value_and_grad(f_jax, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(m))
+
+    def port(terms):
+        At, mt = torch.tensor(A, requires_grad=True), torch.tensor(m, requires_grad=True)
+        ld, quad = terms(At, mt)
+        f = 3.0 * ld + 0.5 * quad
+        return (float(f.detach()), *torch.autograd.grad(f, (At, mt)))
+
+    def generic(At, mt):
+        L, _ = TL.jitchol(At)
+        return TL.chol_logdet(L), TL.quad_form(L, mt)
+
+    before = TPROF.counts().get("evidence.inverse_vjp", 0)
+    v_t, gA_t, gm_t = port(lambda At, mt: TL.evidence_terms(At, mt)[:2])
+    formed = TPROF.counts().get("evidence.inverse_vjp", 0) - before
+    v_g, gA_g, gm_g = port(generic)
+    assert formed == (case != "fails")
+    assert torch.equal(gA_t, gA_t.T)
+    if case == "fails":
+        assert np.isnan(v_t) and np.isnan(v_g) and np.isnan(float(v_j))
+        assert torch.equal(gA_t, torch.zeros_like(gA_t)) and torch.equal(gA_g, gA_t)
+        np.testing.assert_array_equal(np.asarray(gA_j), 0.0)
+        assert torch.isnan(gm_t).all() and torch.isnan(gm_g).all()
+        return
+    for got, want in ((v_t, v_g), (v_t, float(v_j))):
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+    # the routes round differently; at jitter 5e-3 (κ ≈ 1e4) Ā reaches 6e5,
+    # so the floor is relative to its largest entry
+    for want_A, want_m in ((gA_g.numpy(), gm_g.numpy()), (np.asarray(gA_j), np.asarray(gm_j))):
+        np.testing.assert_allclose(gA_t.numpy(), want_A, rtol=1e-8,
+                                   atol=1e-10 * np.abs(want_A).max())
+        np.testing.assert_allclose(gm_t.numpy(), want_m, rtol=1e-8,
+                                   atol=1e-10 * np.abs(want_m).max())
+
+
+@pytest.mark.parametrize("n, block", [(1, 4), (16, 16), (37, 8), (50, 16), (64, 16)])
+def test_tri_gram_lower_matches_the_dense_product(n, block):
+    """tri_gram_lower(T) = TᵀT for lower-triangular T, one block row at a
+    time — whole, ragged (37 = 4·8 + 5, 50 = 3·16 + 2) and single blocks —
+    exactly symmetric, float64 to rounding."""
+    T = torch.tril(torch.tensor(np.random.default_rng(n).standard_normal((n, n))))
+    G = TL.tri_gram_lower(T, block=block)
+    np.testing.assert_allclose(G.numpy(), (T.T @ T).numpy(), rtol=1e-12, atol=1e-12)
+    assert torch.equal(G, G.T)
 
 
 @pytest.fixture(scope="module")
