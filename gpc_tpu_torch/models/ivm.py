@@ -13,6 +13,12 @@ over the same buffers:
                     ς ← ς − s²·ν;  μ ← μ + g·s           (CIvm.cpp:302-365)
     refresh ν/g for all N points                          (CIvm.cpp:490-494)
 
+The picked point's own variance takes the equal form ς/(1 + ς·β̃) in place
+of ς − s²·ν (β̃ its site precision before any clamp; s = ς there): in
+float32 the subtraction cancels to σ²'s size at the CLI's default Gaussian
+σ² of 1e-6 and leaves active points with ς + σ² < 0, where the Gaussian
+noise model's log likelihood is NaN.
+
 The step is a function of device tensors only: the picked index and the
 step counter k stay on the device (`index_select`, `index_copy_`,
 `index_add`), the random pick's rank among the inactive points is a device
@@ -29,6 +35,13 @@ Hyperparameters train on the ACTIVE-SET marginal likelihood
 L = −½Σⱼ[logdet(K+B⁻¹) + mᵀ(K+B⁻¹)⁻¹m] + priors (CIvm.cpp:521-540), by
 autograd and SCG (float64 on the host), alternating with noise-parameter
 rounds (CIvm::optimise, CIvm.cpp:685-736).
+
+Spans and counters (utils/profiling): `gpc.ivm.select` around each
+selection pass, closed by the pass's one blocking read of its order
+(`host_read("ivm_order")`), so the pass's device work lies inside it;
+`gpc.ivm.kern_round` and `gpc.ivm.noise_round` around each SCG round, whose
+evaluations open the `gpc.eval.*` spans of optim.numpy_value_and_grad;
+`ivm.steps` counts the selection steps, d a pass, on the host.
 """
 
 from __future__ import annotations
@@ -47,8 +60,9 @@ from gpc_tpu_torch import transforms as tr
 from gpc_tpu_torch.kernels import Kern
 from gpc_tpu_torch.noise import Noise
 from gpc_tpu_torch.ops import cuda_lib
-from gpc_tpu_torch.optim import check_gradients, scg
+from gpc_tpu_torch.optim import check_gradients, numpy_value_and_grad, scg
 from gpc_tpu_torch.utils import checkpoint as ckpt_mod
+from gpc_tpu_torch.utils.profiling import COUNTS, host_read, span
 from gpc_tpu_torch.utils.refrng import RefRng
 
 ENTROPY, RENTROPY, RANDOM = "entropy", "rentropy", "random"
@@ -135,9 +149,10 @@ def add_point(spec: IvmSpec, c: dict, index: torch.Tensor):
     mu, vs, nu, g = c["mu"], c["vs"], c["nu"], c["g"]
     rows = [t.index_select(0, index) for t in (mu, vs, y, nu, g)]
     m_i, beta_i = noise.update_sites(np_, *rows)
+    beta_own = beta_i               # before the clamp: the point's own ς takes it
     if not noise.log_concave:
         beta_i = torch.where(beta_i < 0, 1e-6, beta_i)
-    nu_i, g_i = rows[3], rows[4]
+    vs_i, nu_i, g_i = rows[1], rows[3], rows[4]
 
     k_col = spec.kern.compute(c["kp"], X, X.index_select(0, index))[:, 0]
     k_col = k_col.index_add(0, index, c["white"])
@@ -152,6 +167,7 @@ def add_point(spec: IvmSpec, c: dict, index: torch.Tensor):
     s_out = s.index_select(0, cmap).T                           # (N, D)
     nu_out = nu_i[0].index_select(0, cmap)                      # (D,)
     vs.sub_((s_out ** 2) * nu_out[None, :])
+    vs.index_copy_(0, index, vs_i / (1.0 + vs_i * beta_own.index_select(1, cmap)))
     mu.add_(g_i * s_out)
 
     c["mask"].index_fill_(0, index, True)
@@ -396,26 +412,39 @@ class IVM:
         self.yd = as_tensor(y, self.device)
         self.state: Optional[IvmState] = None
         self._selector: Optional[Selector] = None
+        self._order = None      # (state, its order on the host), see active_order
 
     def _t(self, a):
         return as_tensor(np.asarray(a, dtype=np.float64), self.device)
 
     def init_and_select(self) -> IvmState:
         """A selection pass, drawing exactly the uniforms the reference
-        consumes: d for random, one (step 0) for rentropy, none for entropy."""
+        consumes: d for random, one (step 0) for rentropy, none for entropy.
+        Span `gpc.ivm.select`, closed by the pass's read of its order."""
         d = self.spec.num_active
-        rv = np.zeros(d)
-        if self.spec.selection == RANDOM:
-            rv[:] = [self.ref_rng.rand() for _ in range(d)]
-        elif self.spec.selection == RENTROPY:
-            rv[0] = self.ref_rng.rand()
-        if self._selector is None:
-            self._selector = Selector(self.spec, self.Xd, self.yd)
-        self.state = self._selector.run(self.kern_params, self.noise_params, rv)
+        with span("gpc.ivm.select"):
+            rv = np.zeros(d)
+            if self.spec.selection == RANDOM:
+                rv[:] = [self.ref_rng.rand() for _ in range(d)]
+            elif self.spec.selection == RENTROPY:
+                rv[0] = self.ref_rng.rand()
+            if self._selector is None:
+                self._selector = Selector(self.spec, self.Xd, self.yd)
+            self.state = self._selector.run(self.kern_params, self.noise_params, rv)
+            COUNTS["ivm.steps"] += d
+            with host_read("ivm_order"):
+                self._order = (self.state, self.state.active_idx.cpu().numpy())
         return self.state
 
+    def active_order(self) -> np.ndarray:
+        """The active set's data indices on the host: the read that closed
+        the pass, or one read of a state set otherwise (a model file's)."""
+        if self._order is None or self._order[0] is not self.state:
+            self._order = (self.state, self.state.active_idx.cpu().numpy())
+        return self._order[1]
+
     def active_X(self) -> np.ndarray:
-        return self.X[self.state.active_idx.cpu().numpy()]
+        return self.X[self.active_order()]
 
     def log_likelihood(self) -> float:
         st = self.state
@@ -423,27 +452,17 @@ class IVM:
                                            self._t(self.active_X()), st.m_site,
                                            st.beta_site))
 
-    def _value_and_grad(self, objective):
-        """w (float64 numpy) → (objective, gradient) as float64."""
-        def vag(w):
-            a = self._t(np.array(w, dtype=np.float64)).requires_grad_(True)
-            f = objective(a)
-            (g,) = torch.autograd.grad(f, a, allow_unused=True)
-            g = torch.zeros_like(a) if g is None else g
-            return float(f.detach()), g.detach().cpu().numpy().astype(np.float64)
-        return vag
-
     def _kern_vag(self, Xa, m_site, beta_site):
         """−active_log_likelihood over the unconstrained kernel parameters."""
         codes = self.spec.kern.transform_codes()
-        return self._value_and_grad(lambda a: -active_log_likelihood(
-            self.spec, tr.apply_atox(codes, a), Xa, m_site, beta_site))
+        return numpy_value_and_grad(lambda a: -active_log_likelihood(
+            self.spec, tr.apply_atox(codes, a), Xa, m_site, beta_site), self.device)
 
     def _noise_vag(self, mu, varsigma):
         """−noise.log_likelihood over the unconstrained noise parameters."""
         ncodes = self.spec.noise.transform_codes()
-        return self._value_and_grad(lambda a: -self.spec.noise.log_likelihood(
-            tr.apply_atox(ncodes, a), mu, varsigma, self.yd))
+        return numpy_value_and_grad(lambda a: -self.spec.noise.log_likelihood(
+            tr.apply_atox(ncodes, a), mu, varsigma, self.yd), self.device)
 
     def optimise(self, ext_iters: int = 15, kern_iters: int = 100,
                  noise_iters: int = 100, verbose: int = 0,
@@ -453,7 +472,9 @@ class IVM:
         gradient check runs before each kernel round.  ckpt_path writes a
         checkpoint at each phase boundary (kernel θ, noise θ, the MT19937
         state, the phase) in gpc_tpu's keys; resume=True replays the
-        remaining trajectory from it."""
+        remaining trajectory from it.  Returns the rounds it ran, in order,
+        as (kind, ScgResult), kind "kern" or "noise"; each round is a span
+        `gpc.ivm.kern_round` or `gpc.ivm.noise_round`."""
         codes = self.spec.kern.transform_codes()
         ncodes = self.spec.noise.transform_codes()
         start_phase = 0
@@ -479,26 +500,32 @@ class IVM:
         def to_a(cds, x):
             return tr.apply_xtoa(cds, torch.as_tensor(x)).numpy()
 
+        rounds = []
         phase = 0
         for _ in range(max(ext_iters, 0)):
             if phase >= start_phase and kern_iters > 0:
                 st = self.init_and_select()
-                vag = self._kern_vag(self._t(self.active_X()), st.m_site,
-                                               st.beta_site)
-                a0 = to_a(codes, self.kern_params)
-                if verbose > 2 and a0.size < 40:
-                    check_gradients(vag, a0)
-                self.kern_params = to_x(codes, scg(vag, a0, max_iters=kern_iters).x)
+                with span("gpc.ivm.kern_round"):
+                    vag = self._kern_vag(self._t(self.active_X()), st.m_site, st.beta_site)
+                    a0 = to_a(codes, self.kern_params)
+                    if verbose > 2 and a0.size < 40:
+                        check_gradients(vag, a0)
+                    res = scg(vag, a0, max_iters=kern_iters)
+                self.kern_params = to_x(codes, res.x)
+                rounds.append(("kern", res))
                 save(phase + 1)
             phase += 1
             if phase >= start_phase and noise_iters > 0:
                 st = self.init_and_select()
-                vag = self._noise_vag(st.mu, st.varsigma)
-                res = scg(vag, to_a(ncodes, self.noise_params), max_iters=noise_iters)
+                with span("gpc.ivm.noise_round"):
+                    vag = self._noise_vag(st.mu, st.varsigma)
+                    res = scg(vag, to_a(ncodes, self.noise_params), max_iters=noise_iters)
                 self.noise_params = to_x(ncodes, res.x)
+                rounds.append(("noise", res))
                 save(phase + 1)
             phase += 1
         self.init_and_select()
+        return rounds
 
     def predict(self, Xtest):
         """(mu, varsigma) as numpy arrays, each (T, D)."""

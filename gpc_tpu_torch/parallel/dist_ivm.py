@@ -16,7 +16,8 @@ Every O(N) quantity (the X / y rows, the ADF moments μ, ς, ν, g, the
      column (gpc_tpu's seven owner-masked psums, packed);
   4. the site update, the kernel column of this rank's rows (a K1/K4
      launch), the rank-1 updates of M, ς, μ and the refresh of ν, g, all
-     local, in the single-process order (models/ivm.add_point).
+     local, in the single-process order (models/ivm.add_point), the
+     picked row's own ς in add_point's form ς/(1 + ς·β̃).
 
 The scores are models/ivm.entropy_scores', so the order can equal the
 single-process order bit for bit.  The step runs eagerly: the collectives
@@ -95,6 +96,7 @@ def make_select_points_dist(spec: IvmSpec, mesh: Mesh):
 
             m_i, beta_i = noise.update_sites(np_, mu_i[None], vs_i[None], y_i[None],
                                              nu_i[None], g_i[None])
+            beta_own = beta_i
             if not noise.log_concave:
                 beta_i = torch.where(beta_i < 0, 1e-6, beta_i)
             mine = own & (torch.arange(B, device=dev) == li)
@@ -105,6 +107,8 @@ def make_select_points_dist(spec: IvmSpec, mesh: Mesh):
             M[:, k, :] = s * sqrt_nu[:, None]
             s_out = s.index_select(0, cmap).T
             vs = vs - (s_out ** 2) * nu_i.index_select(0, cmap)[None, :]
+            own_vs = vs_i / (1.0 + vs_i * beta_own[0].index_select(0, cmap))
+            vs = torch.where(mine[:, None], own_vs[None, :], vs)
             mu = mu + g_i[None, :] * s_out
             mask = mask | mine
             idx[k] = index[0]

@@ -29,6 +29,8 @@ The port adds spans and counters at its layer boundaries:
       gpc.host_read                                  each blocking device-to-host read
       gpc.serve.stage, gpc.serve.apply,
       gpc.serve.fetch                                serving.GPServer.predict
+      gpc.ivm.select, gpc.ivm.kern_round,
+      gpc.ivm.noise_round                            models/ivm.py (IVM)
 
   * `COUNTS`: counters, always on, and `counts()`, a snapshot of them:
     `host_read.<site>` (one a read, beside its `gpc.host_read` span; each
@@ -36,7 +38,8 @@ The port adds spans and counters at its layer boundaries:
     (dense evidence backwards that formed K⁻¹; profile_slice prints it a
     stage), `serve.rows` (rows asked for) and `serve.pad_rows` (rows the
     power-of-two buckets add; the benchmark's `serve.pad_share.serve`
-    reads the two).
+    reads the two) and `ivm.steps` (IVM selection steps, d a pass; the
+    benchmark's `ivm.kernels_per_step.ivm` reads it).
 """
 
 from __future__ import annotations

@@ -246,3 +246,54 @@ def test_profile_slice_counts_overlapping_streams_once():
         ("chain", 1, 0, 60), ("below", 2, 10, 70), ("early", 1, 60, 80), ("copy", 1, 90, 95)]
     assert sum(b - a for _, _, a, b in clipped) == 145       # the streams' sum passes the 95 µs
     assert profile_slice.busy_us(clipped) == 85              # [0, 80) and [90, 95)
+
+
+def _ivm(d=6):
+    from gpc_tpu_torch.models.ivm import IVM
+    from gpc_tpu_torch.noise import GaussianNoise
+
+    X, y = _data(n=40)
+    return IVM(_kern(), GaussianNoise(output_dim=1), X, y, num_active=d, device="cpu")
+
+
+def test_ivm_passes_and_rounds_open_their_spans_and_count_their_steps(tmp_path):
+    model = _ivm()
+    rounds, spans, delta = _spans(lambda: model.optimise(ext_iters=2, kern_iters=2,
+                                                         noise_iters=1), tmp_path)
+    assert [kind for kind, _ in rounds] == ["kern", "noise", "kern", "noise"]
+    assert all(res.iters >= 1 for _, res in rounds)
+    count = collections.Counter(n for n, _, _ in spans)
+    passes = [s for s in spans if s[0] == "gpc.ivm.select"]
+    # 2 external iterations: a pass before each of the 4 rounds and a last one
+    assert len(passes) == 5 and delta["ivm.steps"] == 5 * 6
+    assert delta["host_read.ivm_order"] == 5
+    for p in passes:
+        assert _parent(spans, p) is None
+        # the pass's one span inside it is the read of its order
+        assert [s[0] for s in spans if s is not p and _inside(s, p)] == ["gpc.host_read"]
+    rounds_ = [s for s in spans if s[0] in ("gpc.ivm.kern_round", "gpc.ivm.noise_round")]
+    assert count["gpc.ivm.kern_round"] == count["gpc.ivm.noise_round"] == 2
+    assert all(_parent(spans, r) is None for r in rounds_)
+    # the rounds' evaluations go through optim.numpy_value_and_grad
+    evals = [s for s in spans if s[0] == "gpc.eval.forward"]
+    assert evals and all(any(_inside(e, r) for r in rounds_) for e in evals)
+    assert delta["host_read.fetch"] == 2 * len(evals)
+
+
+def test_the_ivm_reads_each_pass_order_once():
+    model = _ivm()
+    before = profiling.counts()
+    st = model.init_and_select()
+    np.testing.assert_array_equal(model.active_X(), model.X[st.active_idx.numpy()])
+    after = profiling.counts()
+    assert {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)} == \
+        {"ivm.steps": 6, "host_read.ivm_order": 1}
+
+
+def test_without_a_profiler_the_ivm_spans_are_the_shared_no_op(monkeypatch):
+    def recorded(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", recorded)
+    rounds = _ivm().optimise(ext_iters=1, kern_iters=1, noise_iters=1)
+    assert [kind for kind, _ in rounds] == ["kern", "noise"]
