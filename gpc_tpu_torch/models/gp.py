@@ -38,6 +38,7 @@ from gpc_tpu_torch.ops.evidence_mode import select_evidence_mode
 from gpc_tpu_torch.ops.iterative import kern_evidence_iterative
 from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
 from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
+from gpc_tpu_torch.utils.profiling import COUNTS
 from gpc_tpu_torch.utils.refrng import RefRng
 
 FTC, DTC, DTCVAR, FITC, PITC = "ftc", "dtc", "dtcvar", "fitc", "pitc"
@@ -240,7 +241,8 @@ def posterior_state(spec: GpSpec, theta, X, y, bias, fixed_scales, X_u_fixed=Non
                     explicit_inverse: bool = False):
     """Everything batch-independent of posteriorMeanVar, factored once.  FTC:
     L = chol(K), α = K⁻¹m and, with `explicit_inverse`, L⁻¹ (so each batch's
-    variance solve is a GEMM).  Sparse: (X_u, L_uu, L_m, u)."""
+    variance solve is a product over L⁻¹'s lower triangle, a few batched
+    GEMMs: `linalg.tri_apply`).  Sparse: (X_u, L_uu, L_m, u)."""
     X_u, kp, scales, beta = spec.unpack(theta)
     if X_u is None and spec.sparse:
         X_u = X_u_fixed
@@ -304,10 +306,14 @@ def posterior_apply(spec: GpSpec, st, Xtest):
     else:
         kX = spec.kern.compute(kp, st["X"], Xtest)            # (N, T)
         mu0 = kX.T @ st["alpha"]                              # (T, D)
-        v = st["Linv"] @ kX if st["Linv"] is not None else linalg.tri_solve(st["L"], kX)
+        if st["Linv"] is not None:
+            COUNTS["serve.tri_apply"] += 1
+            v = linalg.tri_apply(st["Linv"], kX)
+        else:
+            v = linalg.tri_solve(st["L"], kX)
         # clamp at 0: near-singular K, or test points on training points, can
-        # round the variance slightly negative (the f32 explicit-inverse GEMM
-        # most of all), and clients take its square root
+        # round the variance slightly negative (the f32 explicit-inverse
+        # product most of all), and clients take its square root
         var0 = torch.clamp(kstar_diag - torch.sum(v * v, dim=0), min=0.0)
     mu = mu0 * scales[None, :] + st["bias"][None, :]
     var = var0[:, None] * (scales ** 2)[None, :]

@@ -5,7 +5,7 @@
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
 evidence (K3), the dense evidence (Gram + jitchol + solves), the GPServer
-factor (explicit inverse), one served batch of 8192 rows, one
+factor (explicit inverse), one served batch of 8192 rows and one of 128, one
 value_and_grad of the training objective per engine (dense: K1 + jitchol,
 the K1 VJP and the evidence's K⁻¹ backward; panel: K3 "full+diag" + the explicit-K⁻¹ backward),
 and one value_and_grad with cmpnd(mlp, bias, white) under dense (K4 +
@@ -33,7 +33,8 @@ synchronize), the time in which the card runs at least one kernel in that
 window (the union of the kernels' intervals over all streams, from the
 profiler's trace), the blocking host reads by site (utils/profiling's
 `host_read.<site>` counters), the program's other counters that moved
-(`evidence.inverse_vjp`: dense evidence backwards that formed K⁻¹) and
+(`evidence.inverse_vjp`: dense evidence backwards that formed K⁻¹;
+`serve.tri_apply`: served batches' products over L⁻¹'s triangle) and
 the kernels that take the most, each with
 its device time summed (over several streams such sums may pass the wall:
 the streams overlap); writes the full tables to --out.  The port's `gpc.*`
@@ -293,6 +294,8 @@ def ftc_stages(args, X, y, kern, rng, report):
     server = GPServer(model, chunk=8192, explicit_inverse=True)
     stage("GPServer factor", lambda: server.refresh(model), report)
     stage("GPServer batch 8192", lambda: posterior_apply(model.spec, server.state, Xt), report)
+    stage("GPServer batch 128", lambda: posterior_apply(model.spec, server.state, Xt[:128]),
+          report)
     del server
     torch.cuda.empty_cache()
     nlml = make_objective(model.spec, Xd, yd, bias, scales)

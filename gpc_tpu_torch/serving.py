@@ -3,9 +3,12 @@
 Counterpart of gpc_tpu/serving.py: GPServer and IvmServer.  `refresh` factors the
 posterior state once on the model's device: for FTC K's Cholesky, α = K⁻¹m
 and, with `explicit_inverse`, the blocked L⁻¹, so each batch's variance
-solve is a GEMM; for a sparse model (X_u, L_uu, L_m, u), M × M factors.  `predict` serves requests in chunks of at most `chunk` rows, each
-padded to a power-of-two bucket capped at `chunk`: the set of batch shapes
-stays bounded at ~log2(chunk) for any stream of request sizes.  On CUDA the
+solve is a product over L⁻¹'s lower triangle alone, a few batched GEMMs
+(`linalg.tri_apply`, counted a chunk under `serve.tri_apply`); for a sparse
+model (X_u, L_uu, L_m, u), M × M factors.  `predict` serves requests in
+chunks of at most `chunk` rows, each padded to a power-of-two bucket
+capped at `chunk`: the set of batch shapes stays bounded at ~log2(chunk)
+for any stream of request sizes.  On CUDA the
 Grams of the factor and each batch's cross-Gram run kernel K1 (the distance
 family) or K4 (lin, poly, mlp).  IvmServer holds an IVM's d × d factor of
 K + B⁻¹ per covariance structure and α = (K + B⁻¹)⁻¹m̃; a batch is its

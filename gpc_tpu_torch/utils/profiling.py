@@ -38,8 +38,11 @@ The port adds spans and counters at its layer boundaries:
     (dense evidence backwards that formed K⁻¹; profile_slice prints it a
     stage), `serve.rows` (rows asked for) and `serve.pad_rows` (rows the
     power-of-two buckets add; the benchmark's `serve.pad_share.serve`
-    reads the two) and `ivm.steps` (IVM selection steps, d a pass; the
-    benchmark's `ivm.kernels_per_step.ivm` reads it).
+    reads the two), `serve.tri_apply` (FTC posterior products over the
+    explicit L⁻¹'s lower triangle, one a chunk GPServer serves with
+    `explicit_inverse`; models/gp.posterior_apply) and `ivm.steps` (IVM
+    selection steps, d a pass; the benchmark's `ivm.kernels_per_step.ivm`
+    reads it).
 """
 
 from __future__ import annotations

@@ -67,7 +67,9 @@ schedule's gradient on the card against dense autograd (1e-3 relative L2),
 and chol_blocked's K5 leaf-inverse recursion (one K5 call a leaf, within
 1e-3 of max|L| and 1e-4 on the evidence of the plain recursion).  The dense
 evidence's closed-form backward (explicit float32 A⁻¹) against its float64
-form on the card, within 1e-3 (κ(A) < 1e3, so κ·2⁻²⁴ ≈ 5e-5).
+form on the card, within 1e-3 (κ(A) < 1e3, so κ·2⁻²⁴ ≈ 5e-5).  GPServer's
+product over L⁻¹'s lower triangle at N = 4096 against the CPU float64
+posterior at the slice's 1e-4.
 """
 
 import numpy as np
@@ -351,6 +353,32 @@ def test_slice_on_card_matches_cpu_float64(dev, monkeypatch, evidence):
     assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
     assert np.abs(var - want_var).max() <= 1e-4 * np.abs(want_var).max()
     assert (var >= 0).all()
+
+
+def test_ftc_server_triangular_product_matches_cpu_float64(dev):
+    """GPServer's explicit-inverse posterior at N = 4096 in float32 (its
+    product over L⁻¹'s lower triangle, linalg.tri_apply) at buckets 1, 128
+    and 4096 against the CPU float64 posterior, within the slice's 1e-4;
+    one serve.tri_apply a chunk."""
+    from gpc_tpu_torch.utils.profiling import COUNTS
+
+    rng = np.random.default_rng(23)
+    X = 3.0 * rng.standard_normal((4096, 3))
+    y = np.sin(X[:, :1]) + 0.05 * rng.standard_normal((4096, 1))
+    kern = TK.Cmpnd(input_dim=3, components=(
+        TK.Rbf(input_dim=3), TK.Bias(input_dim=3), TK.White(input_dim=3)))
+    cpu = GP(kern, X, y, device="cpu")
+    srv = GPServer(GP(kern, X, y, device=dev), chunk=4096)
+    assert srv.explicit_inverse
+    for rows in (1, 128, 4096):
+        Xt = 3.0 * rng.standard_normal((rows, 3))
+        before = COUNTS["serve.tri_apply"]
+        mu, var = srv.predict(Xt)
+        assert COUNTS["serve.tri_apply"] == before + 1
+        want_mu, want_var = cpu.predict(Xt)
+        assert np.abs(mu - want_mu).max() <= 1e-4 * np.abs(want_mu).max()
+        assert np.abs(var - want_var).max() <= 1e-4 * np.abs(want_var).max()
+        assert (var >= 0).all()
 
 
 @pytest.mark.parametrize("same", [False, True])

@@ -31,6 +31,7 @@ from gpc_tpu_torch.priors import Prior as TPrior
 from gpc_tpu_torch.ops import evidence_mode as TEM
 from gpc_tpu_torch.ops import panel_engine as TPE
 from gpc_tpu_torch.serving import GPServer as TServer
+from gpc_tpu_torch.utils.profiling import COUNTS
 
 
 def _jax_kern(q, *kinds, priors=()):
@@ -92,6 +93,27 @@ def test_blocked_tri_inv_matches():
     np.testing.assert_allclose(TL.blocked_tri_inv(torch.from_numpy(L), block=16).numpy(),
                                np.asarray(JL.blocked_tri_inv(jnp.asarray(L), block=16)),
                                rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("T", [1, 5, 64, 300])
+@pytest.mark.parametrize("N", [1, 37, 128 + 17, 3 * 128 + 5])
+def test_tri_apply_reads_the_lower_triangle_alone(N, T):
+    """linalg.tri_apply at its leaf of 128 rows (one leaf and a
+    ragged tail, three leaves and one, none) against the full product, on
+    L⁻¹ in either layout (blocked_tri_inv's is column-major) with its strict
+    upper triangle NaN: a finite, equal answer never read that triangle."""
+    rng = np.random.default_rng(N * 1000 + T)
+    Z = rng.standard_normal((N, N))
+    L = np.linalg.cholesky(Z @ Z.T + N * np.eye(N))
+    Linv = np.linalg.inv(L)
+    B = torch.from_numpy(rng.standard_normal((N, T)))
+    want = torch.from_numpy(np.tril(Linv)) @ B
+    for layout in (Linv, np.asfortranarray(Linv)):
+        poisoned = torch.from_numpy(layout.copy(order="K"))
+        poisoned[torch.triu(torch.ones(N, N, dtype=torch.bool), 1)] = float("nan")
+        got = TL.tri_apply(poisoned, B)
+        assert got.shape == (N, T) and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("kinds", [("rbf", "bias", "white"), ("bias", "rbf", "whitefixed"),
@@ -186,11 +208,16 @@ def test_panel_log_likelihood_matches_dense_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("explicit_inverse,rtol", [(False, 1e-10), (True, 1e-9)])
 def test_server_matches_jax_server(explicit_inverse, rtol):
-    jm, pm, rng = _pair()
+    """At N = 2·128 + 37, past two of tri_apply's leaves with a ragged
+    tail; each chunk served with the explicit inverse counts one
+    serve.tri_apply."""
+    jm, pm, rng = _pair(N=2 * 128 + 37)
     Xt = rng.standard_normal((37, 2))     # 2 chunks of 16 + a ragged tail of 5
     want_mu, want_var = JServer(jm, chunk=16, explicit_inverse=explicit_inverse).predict(Xt)
     srv = TServer(pm, chunk=16, explicit_inverse=explicit_inverse)
+    before = COUNTS["serve.tri_apply"]
     mu, var = srv.predict(Xt)
+    assert COUNTS["serve.tri_apply"] - before == (3 if explicit_inverse else 0)
     np.testing.assert_allclose(mu, np.asarray(want_mu), rtol=rtol, atol=1e-12)
     np.testing.assert_allclose(var, np.asarray(want_var), rtol=rtol, atol=1e-12)
     p_mu, p_var = pm.predict(Xt)
