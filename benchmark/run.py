@@ -52,9 +52,10 @@ def device_info(device: str, chips: int, peak_bytes: int) -> dict:
 
 
 def measure(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
-            t_proc: float | None = None) -> dict:
-    """Run the cell once and return the result object (not printed)."""
-    run = spec.Run(cell=cell)
+            t_proc: float | None = None, run: spec.Run | None = None) -> dict:
+    """Run the cell once and return the result object (not printed).  A
+    caller that reads the run's records itself passes the spec.Run to fill."""
+    run = spec.Run(cell=cell) if run is None else run
     outcome = cell.driver().run(cell, seed, seconds, trace, device,
                                 time.perf_counter() if t_proc is None else t_proc, run)
     correct, table = judge.judge(outcome, cell.limits)
@@ -77,6 +78,23 @@ def measure(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     return result
 
 
+def report(result: dict, prog: str = "run.py") -> int:
+    """After the window: where the import guard finds a fault, name it on
+    standard error, print no result and return 3; else end standard error
+    with the numbers compared beside their limits, print the result line
+    and return 0."""
+    faults = guard.check(HERE / "reference")
+    if faults:
+        for f in faults:
+            print(f"{prog}: import guard: {f}", file=sys.stderr)
+        return 3
+    for name, c in result["checks"].items():
+        print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run one benchmark cell of gpc_tpu_torch once.")
     ap.add_argument("--workload", required=True)
@@ -94,17 +112,7 @@ def main(argv=None) -> int:
         print(f"run.py: {args.workload} needs {chips} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    result = measure(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_PROC)
-    faults = guard.check(HERE / "reference")
-    if faults:
-        for f in faults:
-            print(f"run.py: import guard: {f}", file=sys.stderr)
-        return 3
-    for name, c in result["checks"].items():
-        print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
-    return 0
+    return report(measure(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_PROC))
 
 
 if __name__ == "__main__":

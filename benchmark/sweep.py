@@ -7,10 +7,15 @@ rate serves the cell's mix offered at that rate for --seconds and prints
 one JSON line: the rate, the requests, the median and 95th-percentile
 latency, the mean wait before a call started, the growth of that wait
 (the mean over the last quarter of the requests less that over the
-first), and the backlog at the close (requests due by the last arrival
-and not finished then).  The knee is the highest rate at which the
-backlog does not grow through the window; a cell runs at about four
-fifths of it, written into its traffic file as a number."""
+first), the backlog at the close (requests due by the last arrival
+and not finished then), the mean wall of a call, and what splits the
+latencies: the share of requests that found the server busy (the
+previous request ended after this one was due, so that its call started
+late), the median latency of the requests of at most SMALL_ROWS rows that
+did not wait, and the median wall of a call of at most SMALL_ROWS rows.
+The knee is the highest rate at which the backlog does not grow through
+the window; a cell runs at about four fifths of it, written into its
+traffic file as a number."""
 
 from __future__ import annotations
 
@@ -24,19 +29,28 @@ import run
 from harness import open_loop, spec
 
 
+SMALL_ROWS = 128
+
+
 def summary(rate: float, out: list) -> dict:
-    due = np.array([d for d, _, _, _ in out])
-    start = np.array([s for _, s, _, _ in out])
-    end = np.array([e for _, _, e, _ in out])
+    """The line of one rate from the served [(due, start, end, rows)]."""
+    due, start, end, rows = (np.array(c, dtype=np.float64) for c in zip(*out))
     lat = (end - due) * 1e3
     wait = (start - due) * 1e3
+    call = (end - start) * 1e3
+    waited = np.concatenate([[False], end[:-1] > due[1:]])
+    small = rows <= SMALL_ROWS
+    free_small = lat[small & ~waited]
     q = max(1, len(out) // 4)
     return {"rate": rate, "requests": len(out),
             "p50_ms": float(np.median(lat)), "p95_ms": float(np.percentile(lat, 95)),
             "wait_ms": float(wait.mean()),
             "wait_growth_ms": float(wait[-q:].mean() - wait[:q].mean()),
             "backlog_at_close": int(np.sum(end > due[-1])),
-            "service_ms": float(((end - start) * 1e3).mean())}
+            "service_ms": float(call.mean()),
+            "waited_share": float(waited.mean()),
+            "small_free_p50_ms": float(np.median(free_small)) if free_small.size else None,
+            "small_service_ms": float(np.median(call[small])) if small.any() else None}
 
 
 def main(argv=None) -> int:

@@ -22,6 +22,10 @@ SMALL = {"config": {"N": 256, "M": 16, "chunk": 64},
 # at four times the rows.
 CONTROL = {"config": {"N": 1024, "M": 64, "chunk": 256},
            "traffic": dict(SMALL["traffic"], rows_max=256, pool_rows=1024, sample=16)}
+# An `ivm` cell at the size of tests/test_torch_ivm_reference.py: N above the
+# active set's d, rounds of 6 and 3 SCG iterations; its control too.
+IVM_SMALL = {"config": {"N": 128, "d": 16},
+             "traffic": {"kern_iters": 6, "noise_iters": 3, "sample": 2}}
 
 
 @pytest.fixture

@@ -7,6 +7,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -57,6 +58,16 @@ def test_a_run_loads_the_program_and_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"forbidden": [], "program": True, "faults": []}
+
+
+@pytest.mark.parametrize("name", sorted(guard.FORBIDDEN))
+def test_a_result_is_refused_where_a_forbidden_module_is_loaded(name, capsys, monkeypatch):
+    import run
+
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert run.report({"correct": True, "checks": {}}) == 3
+    got = capsys.readouterr()
+    assert got.out == "" and f"import guard: loaded module {name}" in got.err
 
 
 def test_a_run_without_a_card_exits_nonzero_and_prints_no_result():

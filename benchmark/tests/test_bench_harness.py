@@ -1,7 +1,8 @@
-"""The harness on the CPU at small sizes: cells found by name, each cell's
-run correct with the committed limits, the contract's shape of
-BENCHMARK.json, and `correct` false under the precision control and under
-each fault the cell can have.  One test runs a cell on the card."""
+"""The harness on the CPU at small sizes, each cell at its system's
+(conftest.py): cells found by name, each cell's run correct with the
+committed limits, the contract's shape of BENCHMARK.json, and `correct`
+false under the cell's precision control and under each fault the cell
+can have.  One test runs a cell on the card."""
 
 import json
 import re
@@ -12,21 +13,30 @@ import pytest
 
 import run
 from harness import spec
-from conftest import BENCH, CONTROL, ROOT, SMALL
+from conftest import BENCH, CONTROL, IVM_SMALL, ROOT, SMALL
 
 BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCHMARK["workloads"]]
-TRAIN = [w for w in CELLS if w.endswith(".train")]
-SERVE = [w for w in CELLS if w.endswith(".serve")]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+LOADED = {w: spec.load_cell(ROOT, w) for w in CELLS}
+# The sizes a CPU test holds, for the cell's run and for its control, by system.
+SIZES = {"gp": (SMALL, CONTROL), "ivm": (IVM_SMALL, IVM_SMALL)}
+# The faults that each traffic kind's cell can have (systems/<system>_faults.py).
+FAULTS = {"scg_segments": ("frozen", "half", "altered"), "open_loop": ("half", "altered"),
+          "ivm_rounds": ("stale", "half", "frozen")}
 
 
-def _measure(workload, variant=None, trace=False, seed=2 ** 31 + 11, size=SMALL):
+def _measure(workload, variant=None, trace=False, seed=2 ** 31 + 11):
+    """The cell once at its system's small size, with the system under test
+    replaced by its control or a fault where `variant` says so."""
+    system = LOADED[workload].config["system"]
+    small, control = SIZES[system]
+    size = control if variant == "control" else small
     ov = {"config": dict(size["config"]), "traffic": dict(size["traffic"])}
     if variant == "control":
-        ov["config"]["system"] = "gp_control"
+        ov["config"]["system"] = f"{system}_control"
     elif variant:
-        ov["config"].update(system="gp_faults", fault=variant)
+        ov["config"].update(system=f"{system}_faults", fault=variant)
     return run.measure(spec.load_cell(ROOT, workload, ov), seed, 0.4, trace, "cpu")
 
 
@@ -112,13 +122,12 @@ def test_each_cell_runs_correct_at_a_small_size(workload, trace):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_precision_control_comes_out_not_correct(workload):
-    res = _measure(workload, "control", size=CONTROL)
+    res = _measure(workload, "control")
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("workload,fault", [(w, f) for w in TRAIN
-                                            for f in ("frozen", "half", "altered")]
-                         + [(w, f) for w in SERVE for f in ("half", "altered")])
+@pytest.mark.parametrize("workload,fault", [(w, f) for w in CELLS
+                                            for f in FAULTS[LOADED[w].traffic["kind"]]])
 def test_each_fault_the_cell_can_have_comes_out_not_correct(workload, fault):
     res = _measure(workload, fault)
     assert not res["correct"], res["checks"]
