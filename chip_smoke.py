@@ -80,17 +80,7 @@ float64 route, scaling_bench's run and census.  Then two ranks on the one
 card over gloo with CUDA tensors (child processes, `chip_smoke.py
 --gloo-rank R STORE REFS`): phase 22's DTC and FTC, and phase 23's dist_ftc
 on two panels, the 2×1 and 1×2 meshes, dist_ivm and scaling_bench at
-world 2.  Phase 24, gpc_tpu's bench evidence engines at its bench geometry
-(N = 16384, q = 8, D = 1, rbf + 0.1·I, bench.py:33-40, 92-94), uncut: every
-candidate of gpc_tpu's bench list (panel-b512, flat-b512, flat-b512h,
-flat-b1024h, flat-b512-noinv, xla-b512) and the port's additions (the flat
-schedule with K5 leaves at base 512 and 1024, rbf_evidence_lazy and
-evidence_fused_lazy in float32, chol_blocked.cholesky with and without the
-K5 leaf-inverse recursion beside cholesky_ex), each with its K1, K3 and K5
-launches counted around one call alone, timed (median of 3, CUDA events)
-and held to the dense float32 evidence and to the CPU float64 route on the
-first 2048 rows; K1 and K5 at its shapes against their plain versions; one
-value_and_grad of evidence_flat against dense autograd.  The script fails
+world 2.  The script fails
 if the Python SVM-light reader ran in its process.  The Cholesky routines of K2, K3's leaf, K5 and K6 are the
 redesigned ones (csrc/chol_tiles.cuh: a 128-leaf by 32-wide sub-panels, a
 register-tiled tile GEMM, a multi-block plan for wider blocks), and K1/K4
@@ -107,8 +97,7 @@ call is so counted apart from the single-process references beside it,
 and each module must launch K1 (the 2-D mesh K4 too).  Every check
 that fails raises, and the script exits non-zero;
 it exits non-zero without a result when no CUDA device is present.  The
-line before the last is a JSON summary of the kernels, the one before it
-phase 24's `bench_evidence` record; the last line is
+line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -321,8 +310,9 @@ def phase_build(cuda_lib):
 def phase_gram(dev, rng):
     """K1 against its plain version for its five maps at the serving chunk
     shape (rtol 1e-5), with the parameters on the card as the model passes
-    them; rbf timed in 5 rounds of plain, kernel, kernel, plain (20 calls
-    each): median and spread."""
+    them, and rbf at the lazy sweep's shapes at base 512 ((N − 512) × 512
+    below the first leaf, 512 × 512 a leaf); rbf timed in 5 rounds of
+    plain, kernel, kernel, plain (20 calls each): median and spread."""
     from gpc_tpu_torch.ops.gram import dist_gram, dist_gram_plain
     X1 = torch.tensor(rng.standard_normal((N, Q)), dtype=torch.float32, device=dev)
     X2 = torch.tensor(rng.standard_normal((CHUNK, Q)), dtype=torch.float32, device=dev)
@@ -341,6 +331,18 @@ def phase_gram(dev, rng):
               f"K1 {family} disagrees with its plain version (max abs {err})")
         log(f"phase 2 K1 {family} {N}x{CHUNK}x{Q}: max abs err {err}")
         del got, want
+    for Xi, Xj in ((X1[512:], X1[:512]), (X1[:512], X1[:512])):
+        got = dist_gram("rbf", params["rbf"], Xi, Xj)
+        want = dist_gram_plain("rbf", params["rbf"], Xi, Xj)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6 * var),
+              f"K1 rbf {Xi.shape[0]}x{Xj.shape[0]} disagrees with its plain version "
+              f"(max abs {err})")
+        ms, plain_ms = paired_ms(lambda: dist_gram("rbf", params["rbf"], Xi, Xj),
+                                 lambda: dist_gram_plain("rbf", params["rbf"], Xi, Xj), 20)
+        log(f"phase 2 K1 rbf {Xi.shape[0]}x{Xj.shape[0]}x{Q}: max abs err {err}; kernel {ms} ms, "
+            f"plain {plain_ms} ms")
     (ms, lo, hi), (plain_ms, _, _) = paired_stats(
         lambda: dist_gram("rbf", params["rbf"], X1, X2),
         lambda: dist_gram_plain("rbf", params["rbf"], X1, X2), 20, 5)
@@ -430,14 +432,14 @@ def spd_block(dev, rng, n):
 
 def phase_chol_inv(dev, rng):
     """K5 against its plain version on a jittered SPD block at n = 256 (the
-    N = 16384 lazy path's leaf), 1024 (the widest it takes) and the ragged
+    N = 16384 lazy path's leaf), 512, 1024 (the widest it takes) and the ragged
     157, 192 and 1000 (157 is the N = 10000 path's leaf), which the kernel
     pads to a multiple of 128 with the identity: ‖ML − I‖ ≤ 1e-3 and L
     within 1e-3 of the plain version's largest entry.  Above 1024 it
     raises."""
     from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain, plan_kernels
     out = {}
-    for n in (256, 1024, 157, 192, 1000):
+    for n in (256, 1024, 157, 192, 1000, 512):
         A = spd_block(dev, rng, n)
         L, M = chol_inv_block(A)
         L_p, _ = chol_inv_block_plain(A)
@@ -3386,152 +3388,6 @@ def gloo_dist2(rank, mesh, refs):
     return res
 
 
-BENCH_F32_TOL = 1e-4      # f32 engines against the dense f32 evidence: PERF.md §2's lazy limit
-BENCH_BF16_TOL = 1e-2     # bf16 engines: gpc_tpu's bench drift gate (bench.py:216)
-BENCH_CPU_ROWS = 2048     # the CPU float64 route's cut
-BENCH_GRAD_TOL = 1e-3     # θ̄ relative L2 against dense autograd: PERF.md §2's FTC limit
-BENCH_GRAD_POLICY = (256, False, "xla", True)   # differentiable: leafinv "xla"
-
-
-def bench_kernels(dev, X):
-    """K1 on the flat schedule's tallest column block ((N − 512) × 512) and
-    a diagonal block, and K5 on the first 512-leaf, against their plain
-    versions (K1 rtol 1e-5 as phase 2; K5 as phase 3).  Beside K1's ms
-    (CUDA events around 20 eager calls) its ms a call with 20 calls in one
-    CUDA graph (graph_paired_ms, median of 10 replays), which has no host
-    launch cost: the gap between the two is the host's."""
-    from gpc_tpu_torch.ops.chol_pallas import chol_inv_block, chol_inv_block_plain
-    from gpc_tpu_torch.ops.gram import dist_gram, dist_gram_plain
-    from gpc_tpu_torch.ops.lazy_evidence import rbf_block_fn
-    from gpc_tpu_torch.profile_slice import BENCH_HYP
-    params = torch.tensor(BENCH_HYP[:2], dtype=torch.float32, device=dev)
-    out = {}
-    for tag, (i0, bi) in (("k1_tall", (512, N - 512)), ("k1_diag", (0, 512))):
-        Xi, Xj = X[i0:i0 + bi], X[:512]
-        got, want = dist_gram("rbf", params, Xi, Xj), dist_gram_plain("rbf", params, Xi, Xj)
-        err = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6), f"phase 24 {tag}: K1 off by {err}")
-        ms, plain_ms = paired_ms(lambda: dist_gram("rbf", params, Xi, Xj),
-                                 lambda: dist_gram_plain("rbf", params, Xi, Xj), 20)
-        bound_ms, _ = k1_bound(bi, 512, Q)
-        (graph_ms, _, _), (graph_plain_ms, _, _) = graph_paired_ms(
-            lambda: dist_gram("rbf", params, Xi, Xj), lambda: dist_gram_plain("rbf", params, Xi, Xj))
-        out[tag] = dict(shape=[bi, 512], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, graph_ms=graph_ms, graph_plain_ms=graph_plain_ms)
-    A = rbf_block_fn(X, *BENCH_HYP)(0, 0, 512, 512)
-    L, M = chol_inv_block(A)
-    L_p, _ = chol_inv_block_plain(A)
-    resid = float((M @ L - torch.eye(512, device=dev)).abs().max())
-    err = float((L - L_p).abs().max())
-    check(resid <= 1e-3 and err <= 1e-3 * float(L_p.abs().max()),
-          f"phase 24 K5 n=512: max|M L - I| {resid}, L off by {err}")
-    ms, plain_ms = paired_ms(lambda: chol_inv_block(A), lambda: chol_inv_block_plain(A), 20)
-    out["k5_512"] = dict(max_abs_err=err, resid=resid, ms=ms, plain_ms=plain_ms,
-                         bound_ms=k5_bound(512)[0])
-    return out
-
-
-def bench_grad(dev, X, m):
-    """value_and_grad of evidence_flat under BENCH_GRAD_POLICY in (inverse
-    width, variance, noise) against dense autograd (K1 Gram,
-    torch.linalg.cholesky): θ̄ within BENCH_GRAD_TOL relative L2 and the
-    value within BENCH_F32_TOL; for each, the peak GiB of one untimed call
-    and the median and spread of 3 timed ones (host clock, synchronised)."""
-    from gpc_tpu_torch.ops.evidence_fast import Policy, evidence_flat
-    from gpc_tpu_torch.ops.lazy_evidence import rbf_block_fn
-    from gpc_tpu_torch.profile_slice import BENCH_HYP
-
-    def flat(h):
-        return evidence_flat(rbf_block_fn(X, h[0], h[1], h[2]), N, m, Policy(*BENCH_GRAD_POLICY))
-
-    def dense(h):
-        L = torch.linalg.cholesky(rbf_block_fn(X, h[0], h[1], h[2])(0, 0, N, N))
-        v = torch.linalg.solve_triangular(L, m, upper=False)
-        return 2.0 * torch.sum(torch.log(torch.diagonal(L))), torch.sum(v * v)
-
-    def value_and_grad(fn):
-        h = torch.tensor(BENCH_HYP, dtype=torch.float32, device=dev, requires_grad=True)
-        ld, quad = fn(h)
-        obj = ld + quad
-        return float(obj.detach()), torch.autograd.grad(obj, h)[0]
-
-    out = {}
-    for tag, fn in (("flat", flat), ("dense", dense)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        (val, g), first_ms = timed(lambda: value_and_grad(fn))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        times = [timed(lambda: value_and_grad(fn))[1] for _ in range(3)]
-        out[tag] = dict(value=val, grad=g.tolist(), ms=float(np.median(times)),
-                        ms_min=min(times), ms_max=max(times), first_ms=first_ms, peak_gib=peak)
-    g, gd = np.array(out["flat"]["grad"]), np.array(out["dense"]["grad"])
-    out["rel_l2"] = rel_l2(g, gd)
-    out["value_rel"] = rel_err(out["flat"]["value"], out["dense"]["value"])
-    check(np.all(np.isfinite(g)) and out["rel_l2"] < BENCH_GRAD_TOL
-          and out["value_rel"] < BENCH_F32_TOL,
-          f"phase 24 evidence_flat value_and_grad vs dense: value rel {out['value_rel']}, "
-          f"θ̄ rel L2 {out['rel_l2']}")
-    return out
-
-
-def phase_bench_evidence(dev):
-    """Phase 24: gpc_tpu's bench evidence engines at its bench geometry,
-    uncut (bench.py:33-40, 92-94: N = 16384, q = 8, D = 1, X and m ~ N(0, 1)
-    from default_rng(0), rbf inverse width 1, variance 1, noise 0.1): each
-    candidate of profile_slice.bench_candidates once untimed with the K1, K3
-    and K5 launches counted around that call alone (each must launch the
-    kernels it names), then 3 calls timed with CUDA events (median, spread),
-    its peak GiB, and its (logdet, quad) against the dense f32 evidence
-    (cholesky_ex) at N = 16384 and against the CPU float64 route on the
-    first 2048 rows (the candidate run there on the card): within
-    BENCH_F32_TOL for f32 engines, BENCH_BF16_TOL for bf16 ones.  Then K1
-    and K5 at the phase's shapes against their plain versions, and one
-    value_and_grad of evidence_flat against dense autograd.  Returns (the
-    bench_evidence record, the phase's launches by kernel)."""
-    from gpc_tpu_torch.ops import cuda_lib
-    from gpc_tpu_torch.profile_slice import K1, K3, K5, bench_candidates, bench_data
-    from gpc_tpu_torch.utils.profiling import time_fn
-    t0 = time.perf_counter()
-    X, m = bench_data(N, Q, dev)
-    Xs, m_s = X[:BENCH_CPU_ROWS].contiguous(), m[:BENCH_CPU_ROWS].contiguous()
-    cands = bench_candidates()
-    dense = {c[0]: c[1] for c in cands}["cholesky_ex"]
-    ref64 = tuple(float(v) for v in dense(Xs.cpu().double(), m_s.cpu().double()))
-    ref32 = tuple(float(v) for v in dense(X, m))
-    rows, launches = [], collections.Counter()
-    for name, fn, bf16, kernels in cands:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_lib.LAUNCHES.clear()
-        (ld, quad), first_ms = timed(lambda: fn(X, m))
-        counts = {k: cuda_lib.LAUNCHES.get(k, 0) for k in (K1, K3, K5)}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for k in kernels:
-            check(counts[k] > 0, f"phase 24 {name}: kernel {k} was not launched")
-        launches.update(counts)
-        ld, quad = float(ld), float(quad)
-        times = [time_fn(fn, X, m, reps=1, warmup=0) * 1e3 for _ in range(3)]
-        ld_s, quad_s = (float(v) for v in fn(Xs, m_s))
-        tol = BENCH_BF16_TOL if bf16 else BENCH_F32_TOL
-        drift = max(rel_err(ld, ref32[0]), rel_err(quad, ref32[1]))
-        drift64 = max(rel_err(ld_s, ref64[0]), rel_err(quad_s, ref64[1]))
-        row = dict(name=name, bf16=bf16, ms=float(np.median(times)), ms_min=min(times),
-                   ms_max=max(times), first_ms=first_ms, peak_gib=peak,
-                   launches={k: v for k, v in counts.items() if v}, logdet=ld, quad=quad,
-                   drift_dense_f32=drift, drift_cpu_f64_2048=drift64, limit=tol)
-        log(f"phase 24 {name}: " + json.dumps(row))
-        check(np.isfinite([ld, quad, ld_s, quad_s]).all() and drift < tol and drift64 < tol,
-              f"phase 24 {name}: drift {drift} from the dense f32 evidence, {drift64} from "
-              f"the CPU float64 route on {BENCH_CPU_ROWS} rows (limit {tol})")
-        rows.append(row)
-    kernels = bench_kernels(dev, X)
-    grad = bench_grad(dev, X, m)
-    record = dict(N=N, q=Q, D=1, dense_f32=dict(logdet=ref32[0], quad=ref32[1]),
-                  cpu_f64_2048=dict(logdet=ref64[0], quad=ref64[1]), candidates=rows,
-                  kernel_checks=kernels, grad=grad, wall_s=time.perf_counter() - t0)
-    return record, dict(launches)
-
-
 def main():
     card = require_card()   # exits non-zero without a CUDA device
     from gpc_tpu_torch.ops import cuda_lib
@@ -3711,12 +3567,6 @@ def main():
     torch.cuda.empty_cache()
     vpu_launches, k8d, vpu = phase_vpu(dev)
     torch.cuda.empty_cache()
-    cuda_lib.LAUNCHES.clear()
-    bench_evidence, bench_launches = phase_bench_evidence(dev)
-    log(f"bench-evidence-path launches (phase 24, each candidate's own call): {bench_launches}")
-    for name in ("dist_gram", "panel_state_rbf", "chol_inv_block"):
-        check(bench_launches.get(name, 0) > 0, f"kernel {name} was not launched on the "
-                                               "bench-evidence path")
     log("launches in the kernels line count wrapper calls; a K5 or K6 call launches several "
         "kernels (phase 3 prints how many); a K3 call is one walk of its plan, N/128 fills and "
         "leaves, N/128 - 1 solves, and corr_launches counts its wgmma correction launches")
@@ -3738,8 +3588,7 @@ def main():
              interop_launches=interop_launches["dist_gram"],
              fgp_launches=interop["fgp_launches"]["dist_gram"],
              dist_launches=dist_launches["dist_gram"],
-             dist2_launches=dist2_launches["dist_gram"],
-             bench_launches=bench_launches["dist_gram"]),
+             dist2_launches=dist2_launches["dist_gram"]),
         dict(name="dist_gram_batched", route="cuda", source="gpc_tpu_torch/csrc/gram.cu",
              replaces="gpc_tpu/models/gp.py:132 (XLA's vmapped kern.gram, no pallas_call; "
                       "K1's batch axis)",
@@ -3749,8 +3598,7 @@ def main():
              replaces="gpc_tpu/ops/chol_panel.py:209", launches=launches["factor_diag"], **k2),
         dict(name="panel_state_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:790",
-             launches=launches["panel_state_rbf"], corr_launches=launches["panel_corr"],
-             bench_launches=bench_launches["panel_state_rbf"], **k3),
+             launches=launches["panel_state_rbf"], corr_launches=launches["panel_corr"], **k3),
         dict(name="panel_state_rbf_diag", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_panel.py:598",
              launches=train_launches["panel_leaf_diag"],
@@ -3767,8 +3615,7 @@ def main():
         dict(name="chol_inv_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:185, gpc_tpu/ops/chol_pallas.py:213",
              launches=ragged_launches["chol_inv_block"],
-             gplvm_launches=gplvm_launches["chol_inv_block"],
-             bench_launches=bench_launches["chol_inv_block"], **k5),
+             gplvm_launches=gplvm_launches["chol_inv_block"], **k5),
         dict(name="chol_block", route="cuda", source="gpc_tpu_torch/csrc/chol_panel.cu",
              replaces="gpc_tpu/ops/chol_pallas.py:88", launches=k6_launches["chol_block"], **k6),
         dict(name="evidence_mega_rbf", route="cuda", source="gpc_tpu_torch/csrc/chol_mega.cu",
@@ -3795,7 +3642,6 @@ def main():
                              ("vpu_stage_store", 134))),
     ]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"bench_evidence": bench_evidence}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,6 @@ which is a no-op (zero cotangent) when the factor is NaN.  Jitter discovery
 runs on a detached copy and builds no graph; the jitter is a plain float, as
 gpc_tpu's `stop_gradient` makes it.
 
-GPC_TPU_FAST_JITCHOL=1 (`FAST_JITCHOL`, read once at import, off by
-default) is gpc_tpu's fast path: a fixed base jitter 1e-6·mean|diag| and
-one factorization through ops/chol_blocked (`cholesky` in `jitchol`, the
-fused `evidence_fused` in `evidence_terms`), never the discovery loop.
-
 The dense evidence (`evidence_terms`) has a backward of its own that never
 differentiates its factor: the cotangent of A is ḡ_ld·A⁻¹ − ḡ_q·ααᵀ with
 α = A⁻¹m, from one explicit A⁻¹ = L⁻ᵀL⁻¹ (`blocked_tri_inv`, then
@@ -34,19 +29,10 @@ counted under `host_read.chol_info`, `host_read.jitchol_finite`,
 
 from __future__ import annotations
 
-import os
-
 import torch
 from torch.autograd.function import once_differentiable
 
-from gpc_tpu_torch.ops.chol_blocked import cholesky, evidence_fused
 from gpc_tpu_torch.utils.profiling import COUNTS, host_read, span
-
-FAST_JITCHOL = os.environ.get("GPC_TPU_FAST_JITCHOL", "0") == "1"
-
-
-def _base_jitter(A):
-    return 1e-6 * torch.abs(torch.trace(A)) / A.shape[-1]
 
 
 def _phi_(X):
@@ -96,11 +82,7 @@ def jitchol(A: torch.Tensor, max_tries: int = 10):
     """(L, jitter_used): lower Cholesky factor of A with escalating jitter.
     The common case (PD at zero jitter) pays one factorization; otherwise
     the jitter is found on a detached copy and the factor is recomputed once,
-    differentiably, at that jitter.  Under FAST_JITCHOL: the base jitter
-    and one blocked factorization, whatever it gives."""
-    if FAST_JITCHOL:
-        jitter = _base_jitter(A)
-        return cholesky(A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)), jitter
+    differentiably, at that jitter."""
     L = chol_nansafe(A)
     with host_read("jitchol_finite"):
         finite = bool(torch.isfinite(L[-1, -1]))    # a failed factor is NaN throughout
@@ -189,11 +171,7 @@ def evidence_terms(A, m):
     """(logdet A, Σⱼ mⱼᵀA⁻¹mⱼ, L) — the dense FTC evidence block, with the
     closed-form backward of `_DenseEvidence`: gradients reach A and m
     through logdet and the quadratic form only; no gradient flows through
-    the returned L.  Under FAST_JITCHOL: the base jitter and one fused
-    blocked factor-and-solve sweep (ops/chol_blocked.evidence_fused)."""
-    if FAST_JITCHOL:
-        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-        return evidence_fused(A + _base_jitter(A) * eye, m)
+    the returned L."""
     return _DenseEvidence.apply(A, m)
 
 

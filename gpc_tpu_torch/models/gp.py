@@ -8,8 +8,8 @@ CGp.cpp:330-385), the same unconstrained theta as gpc_tpu's:
   [output scales (learn_scales; linear)]
   [log β (sparse)]
 
-`log_likelihood` routes the FTC evidence through the engine that
-GPC_TPU_EVIDENCE selects (ops/evidence_mode.py): `dense` (jitchol), `lazy`
+`log_likelihood` takes the FTC evidence from ops/evidence_mode.kern_evidence,
+which runs the engine GPC_TPU_EVIDENCE selects: `dense` (jitchol), `lazy`
 (the left-looking blocked factorization with Gram blocks from K1/K4),
 `panel` (the K3 kernel) or `iterative` (matrix-free CG + SLQ over K1/K4
 row blocks, ops/iterative.py).  The sparse forms are gpc_tpu's (CGp.cpp:913-1014):
@@ -34,10 +34,7 @@ from gpc_tpu_torch import priors as priors_mod
 from gpc_tpu_torch import transforms as tr
 from gpc_tpu_torch.kernels import Kern
 from gpc_tpu_torch.optim import check_gradients, numpy_value_and_grad, run_optimiser
-from gpc_tpu_torch.ops.evidence_mode import select_evidence_mode
-from gpc_tpu_torch.ops.iterative import kern_evidence_iterative
-from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
-from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
+from gpc_tpu_torch.ops.evidence_mode import kern_evidence
 from gpc_tpu_torch.utils.profiling import COUNTS
 from gpc_tpu_torch.utils.refrng import RefRng
 
@@ -212,16 +209,7 @@ def log_likelihood(spec: GpSpec, theta, X, y, bias, fixed_scales, X_u_fixed=None
     if spec.sparse:
         Lacc = _sparse_lacc(spec, kp, beta, X, X_u, m)
     else:
-        mode = select_evidence_mode(N)
-        if mode == "lazy":
-            logdetK, quad = kern_evidence_lazy(spec.kern, kp, X, m, force=True)
-        elif mode == "iterative":
-            logdetK, quad = kern_evidence_iterative(spec.kern, kp, X, m)
-        elif mode == "panel":
-            logdetK, quad = kern_evidence_panel(spec.kern, kp, X, m)
-        else:
-            K = spec.kern.gram(kp, X)
-            logdetK, quad, _L = linalg.evidence_terms(K, m)
+        logdetK, quad = kern_evidence(spec.kern, kp, X, m)
         Lacc = quad + D * logdetK
     if spec.learn_scales:
         Lacc = Lacc + 2.0 * torch.sum(torch.log(torch.abs(scales)))

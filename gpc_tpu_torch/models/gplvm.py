@@ -20,10 +20,10 @@ only X[:, 0] is regularised.  Xout is X shifted up one row with the
 sequence-break rows zeroed, and dynK has the break rows and columns knocked
 out to the identity (CGplvm.cpp:231-243, 448-489).
 
-The latent kernel's evidence goes through the engine GPC_TPU_EVIDENCE
-selects (ops/evidence_mode.py): dense (jitchol), lazy (K1/K4 blocks in the
-left-looking factorization), panel (K3) or iterative (CG + SLQ over K1/K4
-row blocks).  Under iterative the dynamics term takes the masked
+The latent kernel's evidence comes from ops/evidence_mode.kern_evidence,
+which runs the engine GPC_TPU_EVIDENCE selects: dense (jitchol), lazy
+(K1/K4 blocks in the left-looking factorization), panel (K3) or iterative
+(CG + SLQ over K1/K4 row blocks).  Under iterative the dynamics term takes the masked
 matrix-free engine; under every other engine the dynamics Gram is dense
 and jitchol'ed, as in gpc_tpu.
 """
@@ -41,11 +41,8 @@ from gpc_tpu_torch import priors as priors_mod
 from gpc_tpu_torch import transforms as tr
 from gpc_tpu_torch.kernels import Kern
 from gpc_tpu_torch.optim import check_gradients, numpy_value_and_grad, run_optimiser
-from gpc_tpu_torch.ops.evidence_mode import select_evidence_mode
-from gpc_tpu_torch.ops.iterative import (kern_evidence_iterative,
-                                         kern_evidence_iterative_masked)
-from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
-from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
+from gpc_tpu_torch.ops.evidence_mode import kern_evidence, resolve_engine
+from gpc_tpu_torch.ops.iterative import kern_evidence_iterative_masked
 from gpc_tpu_torch.utils.refrng import RefRng
 
 
@@ -153,21 +150,14 @@ def log_likelihood(spec: GplvmSpec, theta, y, noise_bias, fixed_scales,
     m = (y - noise_bias[None, :]) / scales[None, :]
     N, D, q = spec.n_data, spec.data_dim, spec.latent_dim
 
-    mode = select_evidence_mode(N)
-    if mode == "lazy":
-        logdet, quad = kern_evidence_lazy(spec.kern, kp, X, m, force=True)
-    elif mode == "iterative":
-        logdet, quad = kern_evidence_iterative(spec.kern, kp, X, m)
-    elif mode == "panel":
-        logdet, quad = kern_evidence_panel(spec.kern, kp, X, m)
-    else:
-        logdet, quad, _L = linalg.evidence_terms(spec.kern.gram(kp, X), m)
+    engine = resolve_engine(spec.kern, N)
+    logdet, quad = kern_evidence(spec.kern, kp, X, m, engine)
     Lacc = quad + D * logdet
 
     if spec.has_dynamics:
         Xout = _xout(spec, X)
         s = spec.dynamic_scaling
-        if mode == "iterative":
+        if engine == "iterative":
             # the knocked-out dynamics Gram as mask·dynK·mask + (I − mask):
             # break rows have eigenvalue 1 and Xout is zero there
             ld_d, quad_d = kern_evidence_iterative_masked(

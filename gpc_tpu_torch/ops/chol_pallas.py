@@ -129,7 +129,7 @@ def _launch(name: str, A: torch.Tensor, inverse: bool):
     if torch.is_grad_enabled() and A.requires_grad:
         raise RuntimeError(f"{name} (K{5 if inverse else 6}) is forward only; on "
                            "the card differentiate through torch.linalg.cholesky "
-                           "(evidence_fast.Policy(leafinv=False or 'xla'))")
+                           "(evidence_fast.Policy(leafinv=False))")
     cuda_lib.require_cuda(name, A)
     n = A.shape[0]
     if A.dim() != 2 or A.shape[1] != n or not 0 < n <= CHOL_MAX:

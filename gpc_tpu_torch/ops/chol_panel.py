@@ -32,7 +32,6 @@ K = rbf-Gram(X) + noise·I, rows/cols ≥ n_valid masked out of the Gram:
           Above the diagonal blocks T is zero.  The plain version fills T
           to the same contract.
 The inputs are NOT pre-scaled: the rbf map takes γ as rbf's inverseWidth.
-`evidence_panel_rbf` is gpc_tpu's (logdet, quad) entry on top of it.
 """
 
 from __future__ import annotations
@@ -296,33 +295,3 @@ def panel_state_rbf(X, m, inv_width, variance, noise, b: int = LEAF,
     leaf = "panel_leaf_diag" if diag else "factor_diag"
     cuda_lib.LAUNCHES.update({name or leaf: n for name, n in zip(K3_COUNTS, counts) if n})
     return ld, G, v, T
-
-
-CB = 4   # gpc_tpu's chunk of b-blocks: its panel kernel needs N % (CB·b) == 0
-
-# gpc_tpu's slice-timing modes (gpc_tpu/ops/chol_panel.py:783-787) switch off
-# parts of its TPU kernel's DMA and matrix-unit schedule, which K3 does not
-# have: they are not ported
-TPU_TIMING_MODES = ("fakeleaf", "oldleaf", "nodot", "nodma", "nogram", "nosolve",
-                    "notail", "zerogram", "fusegram", "leafdef", "leaf256", "span4",
-                    "peelgram")
-
-
-def evidence_panel_rbf(X, m, inv_width, variance, noise, b: int = 512,
-                       mode: str = "full"):
-    """(logdet K, Σⱼ mⱼᵀK⁻¹mⱼ) for K = rbf-Gram(X) + noise·I from K3
-    (`panel_state_rbf`): logdet and trace G.  gpc_tpu's shape rule holds,
-    N a multiple of 4·b; K3's panel stays 128 wide whatever b is, so b
-    changes only the TPU's schedule and not the function.  `mode` is one
-    of MODES; gpc_tpu's TPU timing modes raise ValueError."""
-    N = X.shape[0]
-    if b <= 0 or N % (CB * b) or N < CB * b:
-        raise ValueError(f"evidence_panel_rbf: N = {N} must be a positive multiple of "
-                         f"{CB}·b = {CB * b}")
-    timing = [part for part in mode.split("+") if part in TPU_TIMING_MODES]
-    if timing:
-        raise ValueError(f"evidence_panel_rbf: mode {'+'.join(timing)} times a part of "
-                         "gpc_tpu's TPU kernel schedule (its DMA and matrix-unit "
-                         "passes), which the Hopper K3 does not have; not ported")
-    ld, G, _v, _T = panel_state_rbf(X, m, inv_width, variance, noise, mode=mode)
-    return ld, torch.trace(G)

@@ -12,9 +12,10 @@ kernel family cmpnd(rbf[, bias...][, white...][, whitefixed...]):
     (Npad − N)·log noise, subtracted here.
 
 On a CUDA tensor this runs the K3 launches; on a CPU tensor, K3's plain
-version.  A noiseless kernel (no white, no ridge) is outside the domain and
-goes to the dense jitchol engine, as in gpc_tpu.  Kernels outside the family
-warn and go to the lazy engine (ops/lazy_evidence.py), as in gpc_tpu.
+version.  `kern_evidence_panel` runs the panel engine only: a kernel outside
+the family (`panel_split` is None) or a noiseless one (`panel_noiseless`:
+pad rows would factor as 0·I) raises ValueError.  ops/evidence_mode.
+resolve_engine sends both elsewhere first, with gpc_tpu's warnings.
 
 Training: `_PanelCore` is the counterpart of gpc_tpu's custom VJP
 (`_panel_core_fn`).  When no input needs a gradient the forward is K3 mode
@@ -33,15 +34,12 @@ alone); gradients carry the bf16 factor's drift (~1e-2 relative).
 
 from __future__ import annotations
 
-import warnings
-
 import torch
 
 from gpc_tpu_torch import linalg
 from gpc_tpu_torch.kernels import Cmpnd
 from gpc_tpu_torch.ops.chol_panel import LEAF, diag_blocks, panel_state_rbf
 from gpc_tpu_torch.ops.gram import dist_gram, recompute_vjp
-from gpc_tpu_torch.ops.lazy_evidence import kern_evidence_lazy
 
 
 def panel_split(kern):
@@ -124,31 +122,25 @@ class _PanelCore(torch.autograd.Function):
         return Xb, rhsb, iwb, varb, nzb, None
 
 
-def kern_evidence_panel(kern, p, X, m, ridge=0.0):
-    """(logdet, quad) for K = kern(X) + ridge·I through the panel kernel."""
+def panel_noiseless(info) -> bool:
+    """Whether a kernel of the panel family (panel_split's `info`) has no
+    white or fixed-white noise to ridge its pad rows."""
+    _rbf_off, _bias_offs, white_offs, fixed_white = info
+    return not white_offs and fixed_white <= 0.0
+
+
+def kern_evidence_panel(kern, p, X, m):
+    """(logdet, quad) for K = kern(X) through the panel kernel; `kern` is of
+    the family and has noise (module docstring)."""
     info = panel_split(kern)
-    if info is None:
-        warnings.warn(f"GPC_TPU_EVIDENCE=panel serves cmpnd(rbf[, bias][, "
-                      f"white]) only (got "
-                      f"{getattr(kern, 'kind', type(kern).__name__)}); "
-                      f"falling back to the lazy engine")
-        return kern_evidence_lazy(kern, p, X, m, ridge=ridge, force=True)
+    if info is None or panel_noiseless(info):
+        raise ValueError("kern_evidence_panel takes cmpnd(rbf[, bias][, white]) with a "
+                         f"white/noise ridge (got {getattr(kern, 'kind', type(kern).__name__)})")
     rbf_off, bias_offs, white_offs, fixed_white = info
-    if not white_offs and fixed_white + ridge <= 0.0:
-        # a noiseless K: pad rows would factor as 0·I and log 0 enters the
-        # correction; the dense jitchol escalation is the engine for it
-        warnings.warn("GPC_TPU_EVIDENCE=panel needs a white/noise ridge "
-                      "(got a noiseless kernel); falling back to the dense "
-                      "jitchol engine")
-        K = kern.gram(p, X)
-        if ridge:
-            K = K + ridge * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
-        ld, quad, _L = linalg.evidence_terms(K, m)
-        return ld, quad
     iw = p[rbf_off]
     var = p[rbf_off + 1]
     noise = sum((p[o] for o in white_offs),
-                torch.as_tensor(fixed_white + ridge, dtype=p.dtype, device=p.device))
+                torch.as_tensor(fixed_white, dtype=p.dtype, device=p.device))
     n = X.shape[0]
     npad = -(-n // LEAF) * LEAF          # the next multiple of the panel width
     Xp = torch.nn.functional.pad(X, (0, 0, 0, npad - n))

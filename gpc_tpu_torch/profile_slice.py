@@ -1,6 +1,6 @@
 """Where the time of the inference, training, sparse, IVM and GP-LVM slices goes on one NVIDIA GPU.
 
-    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse | --ivm | --gplvm | --bench]
+    python -m gpc_tpu_torch.profile_slice [--n 16384] [--q 8] [--sparse | --ivm | --gplvm]
         [--out FILE]
 
 Runs each stage once to warm up, then once under torch.profiler: the panel
@@ -23,11 +23,6 @@ N = 16384, D = 4, q = 2, cmpnd(rbf, bias, white), PCA latents): one
 value_and_grad of its objective under dense (K1 + jitchol), lazy (K1
 blocks in the left-looking sweep) and iterative (CG + SLQ over 2048-row K1
 blocks, and the blockwise backward).
-`--bench` runs the bench evidence engines alone, at gpc_tpu's bench
-geometry (bench.py:33-40, 92-94: N = 16384, q = 8, D = 1, rbf + 0.1·I):
-one call of each of `bench_candidates()` (gpc_tpu's candidate list,
-bench.py:120-131, and the port's additions; chip_smoke.py phase 24 checks
-and times the same list).
 Prints per stage the wall time (host clock around work that ends in a
 synchronize), the time in which the card runs at least one kernel in that
 window (the union of the kernels' intervals over all streams, from the
@@ -58,71 +53,11 @@ from torch.profiler import ProfilerActivity, profile
 from gpc_tpu_torch import kernels as KM
 from gpc_tpu_torch import linalg
 from gpc_tpu_torch.models.gp import GP, make_objective, posterior_apply
-from gpc_tpu_torch.ops.panel_engine import kern_evidence_panel
+from gpc_tpu_torch.ops.evidence_mode import kern_evidence
 from gpc_tpu_torch.serving import GPServer
 from gpc_tpu_torch.utils.profiling import counts
 
 M_SPARSE = 1024     # inducing inputs: gpc_tpu's sparse record (bench.py:279)
-BENCH_HYP = (1.0, 1.0, 0.1)   # inverse width, variance, noise: SNR 10 (bench.py:92-94)
-K1, K3, K5 = "dist_gram", "panel_state_rbf", "chol_inv_block"
-
-
-def bench_data(n=16384, q=8, device="cuda"):
-    """gpc_tpu's bench inputs (bench.py:37-40): X (n, q) and m (n, 1) ~
-    N(0, 1) from default_rng(0), float32."""
-    rng = np.random.default_rng(0)
-    X = torch.tensor(rng.standard_normal((n, q)), dtype=torch.float32, device=device)
-    m = torch.tensor(rng.standard_normal((n, 1)), dtype=torch.float32, device=device)
-    return X, m
-
-
-def bench_candidates(hyp=BENCH_HYP):
-    """[(name, fn(X, m) → (logdet, quad), bf16, the kernels a call launches)]:
-    gpc_tpu's bench candidates (bench.py:120-131) and the port's additions:
-    K5 leaves in the flat schedule at base 512 and 1024, the two rbf lazy
-    recursions in float32, and the dense evidence through chol_blocked's
-    recursion, with and without the K5 leaf-inverse recursion
-    (GPC_TPU_PALLAS_BASE), beside torch.linalg.cholesky_ex."""
-    from gpc_tpu_torch.ops import chol_blocked
-    from gpc_tpu_torch.ops.chol_panel import evidence_panel_rbf
-    from gpc_tpu_torch.ops.evidence_fast import Policy, evidence_flat, evidence_left_fast
-    from gpc_tpu_torch.ops.lazy_evidence import (evidence_fused_lazy, rbf_block_fn,
-                                                 rbf_evidence_lazy)
-    iw, var, noise = hyp
-
-    def sweep(engine, pol):
-        return lambda X, m: engine(rbf_block_fn(X, iw, var, noise), X.shape[0], m, pol)
-
-    def dense(factor):
-        def run(X, m):
-            n = X.shape[0]
-            L = factor(rbf_block_fn(X, iw, var, noise)(0, 0, n, n))
-            v = torch.linalg.solve_triangular(L, m, upper=False)
-            return 2.0 * torch.sum(torch.log(torch.diagonal(L))), torch.sum(v * v)
-        return run
-
-    return [
-        ("panel-b512", lambda X, m: evidence_panel_rbf(X, m, iw, var, noise, b=512), True, (K3,)),
-        ("flat-b512", sweep(evidence_flat, Policy(512, True, "xla", True)), True, (K1,)),
-        ("flat-b512h", sweep(evidence_flat, Policy(512, True, "xla", True, panelhalf=True)),
-         True, (K1,)),
-        ("flat-b1024h", sweep(evidence_flat, Policy(1024, True, "xla", True, panelhalf=True)),
-         True, (K1,)),
-        ("flat-b512-noinv", sweep(evidence_flat, Policy(512, True, False, True)), True, (K1,)),
-        ("xla-b512", sweep(evidence_left_fast, Policy(512, True, "xla", True)), True, (K1,)),
-        ("flat-b512-k5", sweep(evidence_flat, Policy(512, True, "pallas", True)), True, (K1, K5)),
-        ("flat-b1024-k5", sweep(evidence_flat, Policy(1024, True, "pallas", True)), True,
-         (K1, K5)),
-        ("rbf_evidence_lazy", lambda X, m: rbf_evidence_lazy(X, m, iw, var, noise), False, (K1,)),
-        ("evidence_fused_lazy",
-         lambda X, m: evidence_fused_lazy(rbf_block_fn(X, iw, var, noise), X.shape[0], m)[:2],
-         False, (K1,)),
-        ("chol_blocked", dense(lambda K: chol_blocked._cholesky(K, False, leafinv=False)),
-         False, (K1,)),
-        ("chol_blocked-k5", dense(lambda K: chol_blocked._cholesky(K, False, leafinv=True)),
-         False, (K1, K5)),
-        ("cholesky_ex", dense(lambda K: torch.linalg.cholesky_ex(K)[0]), False, (K1,)),
-    ]
 
 
 def trace_kernels(prof):
@@ -199,7 +134,6 @@ def main(argv=None):
     ap.add_argument("--sparse", action="store_true", help="the sparse slice alone")
     ap.add_argument("--ivm", action="store_true", help="the IVM alone")
     ap.add_argument("--gplvm", action="store_true", help="the GP-LVM alone")
-    ap.add_argument("--bench", action="store_true", help="the bench evidence engines alone")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -213,12 +147,7 @@ def main(argv=None):
     kern = KM.Cmpnd(input_dim=args.q, components=(
         KM.Rbf(input_dim=args.q), KM.Bias(input_dim=args.q), KM.White(input_dim=args.q)))
     report = []
-    if args.bench:
-        Xb, mb = bench_data(args.n, args.q)
-        for name, fn, _, _ in bench_candidates():
-            stage(f"bench evidence {name}, N = {args.n}", lambda: fn(Xb, mb), report)
-            torch.cuda.empty_cache()
-    elif args.gplvm:
+    if args.gplvm:
         gplvm_stages(report)
     elif args.ivm:
         ivm_stages(report)
@@ -289,7 +218,7 @@ def ftc_stages(args, X, y, kern, rng, report):
     m = (yd - bias) / scales
     Xt = torch.tensor(rng.standard_normal((8192, args.q)), dtype=torch.float32,
                       device="cuda")
-    stage("panel evidence (K3)", lambda: kern_evidence_panel(kern, kp, Xd, m), report)
+    stage("panel evidence (K3)", lambda: kern_evidence(kern, kp, Xd, m, "panel"), report)
     stage("dense evidence", lambda: linalg.evidence_terms(kern.gram(kp, Xd), m), report)
     server = GPServer(model, chunk=8192, explicit_inverse=True)
     stage("GPServer factor", lambda: server.refresh(model), report)

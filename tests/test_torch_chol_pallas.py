@@ -73,9 +73,10 @@ def test_evidence_left_fast_ragged_leaves_match_jax():
     X, m = rng.standard_normal((625, Q)), rng.standard_normal((625, 2))
     p = jk.default_params()
     p[-1] = 0.3
-    pol = dict(base=256, bf16=False, leafinv="pallas", stack=True)
+    pol = dict(base=256, leafinv="pallas")
     ld_j, q_j = JEF.evidence_left_fast(JLE.kern_block_fn(jk, jnp.asarray(p), jnp.asarray(X)),
-                                       625, jnp.asarray(m), JEF.Policy(**pol))
+                                       625, jnp.asarray(m),
+                                       JEF.Policy(bf16=False, stack=True, **pol))
     ld_t, q_t = TEF.evidence_left_fast(TLE.kern_block_fn(tk, torch.from_numpy(p),
                                                          torch.from_numpy(X)),
                                        625, torch.from_numpy(m), TEF.Policy(**pol))

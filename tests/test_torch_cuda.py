@@ -59,13 +59,7 @@ single-process engine on its probes (1e-5); dist_ivm's order against the
 single process's graph (where a pick differs, within IVM_GAP_TOL of the
 f64 step maximum); dist_sparse2d on mesh_2d(1, 1) against the CPU float64
 route (1e-4 on the value, 1e-3 relative L2 on θ̄ at N = 1000, M = 64); and
-`python -m gpc_tpu_torch.parallel.scaling_bench --worlds 1`'s line.  The
-bench evidence engines: evidence_flat with K5 leaves against its plain
-leaves (2e-4), evidence_panel_rbf against panel_state_rbf (equal),
-rbf_block_fn's K1 blocks against the plain Gram (K1's rtol 1e-5), the flat
-schedule's gradient on the card against dense autograd (1e-3 relative L2),
-and chol_blocked's K5 leaf-inverse recursion (one K5 call a leaf, within
-1e-3 of max|L| and 1e-4 on the evidence of the plain recursion).  The dense
+`python -m gpc_tpu_torch.parallel.scaling_bench --worlds 1`'s line.  The dense
 evidence's closed-form backward (explicit float32 A⁻¹) against its float64
 form on the card, within 1e-3 (κ(A) < 1e3, so κ·2⁻²⁴ ≈ 5e-5).  GPServer's
 product over L⁻¹'s lower triangle at N = 4096 against the CPU float64
@@ -1629,90 +1623,6 @@ def _bench_rbf(dev, n=2048, q=8, seed=0):
     return _randn(rng, (n, q), dev), _randn(rng, (n, 1), dev)
 
 
-@pytest.mark.parametrize("base", [512, 1024])
-def test_evidence_flat_k5_leaves_match_plain_leaves(dev, base):
-    """evidence_flat with K5 leaves (leafinv "pallas") against the same
-    sweep with the leaves' plain version (leafinv "xla": Cholesky and its
-    triangular inverse), float32: within 2e-4 (tests/test_lazy_evidence.py:
-    185-187); one K5 call a column."""
-    X, m = _bench_rbf(dev)
-    kfn = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)
-    before = LAUNCHES["chol_inv_block"]
-    ld, quad = TEF.evidence_flat(kfn, 2048, m, TEF.Policy(base, False, "pallas", True))
-    assert LAUNCHES["chol_inv_block"] == before + 2048 // base
-    ld0, q0 = TEF.evidence_flat(kfn, 2048, m, TEF.Policy(base, False, "xla", True))
-    assert abs(float(ld) - float(ld0)) <= 2e-4 * abs(float(ld0))
-    assert abs(float(quad) - float(q0)) <= 2e-4 * abs(float(q0))
-
-
-def test_evidence_panel_rbf_is_panel_state_rbf(dev):
-    """evidence_panel_rbf returns K3's logdet and trace G, whatever b."""
-    X, m = _bench_rbf(dev)
-    ld0, G, _, _ = TCP.panel_state_rbf(X, m, 1.0, 1.0, 0.1)
-    for b in (128, 512):
-        before = LAUNCHES["panel_state_rbf"]
-        ld, quad = TCP.evidence_panel_rbf(X, m, 1.0, 1.0, 0.1, b=b)
-        assert LAUNCHES["panel_state_rbf"] == before + 1
-        assert float(ld) == float(ld0) and float(quad) == float(torch.trace(G))
-
-
-def test_rbf_block_fn_blocks_match_plain_gram(dev):
-    """rbf_block_fn's blocks are K1 launches, within K1's rtol 1e-5 of the
-    plain Gram, with the ridge on diagonal blocks only."""
-    X, _ = _bench_rbf(dev)
-    kfn = TLE.rbf_block_fn(X, 0.7, 1.3, 0.1)
-    p = torch.tensor([0.7, 1.3], device=dev)
-    for i0, j0, bi, bj in ((0, 0, 512, 512), (512, 0, 1536, 512), (1024, 1024, 256, 256)):
-        before = LAUNCHES["dist_gram"]
-        got = kfn(i0, j0, bi, bj)
-        assert LAUNCHES["dist_gram"] == before + 1
-        want = TG.dist_gram_plain("rbf", p, X[i0:i0 + bi], X[j0:j0 + bj])
-        if i0 == j0:
-            want = want + 0.1 * torch.eye(bi, device=dev)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1.3e-6)
-
-
-def test_evidence_flat_gradient_on_card(dev):
-    """value_and_grad of evidence_flat (leafinv "xla", float32, K1 blocks)
-    in X and (inverse width, variance, noise) against dense autograd on the
-    card: 1e-3 relative L2 (the FTC limit)."""
-    X, m = _bench_rbf(dev, n=1024, q=3)
-    grads = []
-    for flat in (True, False):
-        Xg = X.clone().requires_grad_(True)
-        h = torch.tensor([0.8, 1.3, 0.1], device=dev, requires_grad=True)
-        kfn = TLE.rbf_block_fn(Xg, h[0], h[1], h[2])
-        if flat:
-            ld, quad = TEF.evidence_flat(kfn, 1024, m, TEF.Policy(256, False, "xla", True))
-        else:
-            L = torch.linalg.cholesky(kfn(0, 0, 1024, 1024))
-            v = torch.linalg.solve_triangular(L, m, upper=False)
-            ld, quad = 2.0 * torch.sum(torch.log(torch.diagonal(L))), torch.sum(v * v)
-        grads.append(torch.autograd.grad(ld + quad, (Xg, h)))
-    for got, want in zip(*grads):
-        assert float(torch.linalg.norm(got - want)) <= 1e-3 * float(torch.linalg.norm(want))
-
-
-def test_pallas_base_recursion_launches_k5(dev, monkeypatch):
-    """chol_blocked.cholesky under PALLAS_BASE on the card: one K5 call a
-    BASE leaf (1024 / 256 = 4), L within 1e-3 of max|L| of the plain
-    recursion's, and evidence_fused's (logdet, quad) within 1e-4 of it."""
-    from gpc_tpu_torch.ops import chol_blocked as TCB
-    X, m = _bench_rbf(dev, n=1024)
-    K = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)(0, 0, 1024, 1024)
-    L0 = TCB.cholesky(K)
-    ld0, q0, _ = TCB.evidence_fused(K, m)
-    monkeypatch.setattr(TCB, "PALLAS_BASE", True)
-    before = LAUNCHES["chol_inv_block"]
-    L = TCB.cholesky(K)
-    assert LAUNCHES["chol_inv_block"] == before + 4
-    assert float((L - L0).abs().max()) <= 1e-3 * float(L0.abs().max())
-    ld, quad, _ = TCB.evidence_fused(K, m)
-    assert LAUNCHES["chol_inv_block"] == before + 8
-    assert abs(float(ld) - float(ld0)) <= 1e-4 * abs(float(ld0))
-    assert abs(float(quad) - float(q0)) <= 1e-4 * abs(float(q0))
-
-
 def test_dense_evidence_backward_on_card(dev):
     """evidence_terms' closed-form backward on the card, N = 4096, float32,
     an rbf + 0.1·I Gram (κ ≈ 8e2, asserted below 1e3): Ā and m̄ of
@@ -1725,7 +1635,8 @@ def test_dense_evidence_backward_on_card(dev):
     from gpc_tpu_torch.utils import profiling
     n = 4096
     X, m = _bench_rbf(dev, n=n)
-    A = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)(0, 0, n, n)
+    A = TG.dist_gram("rbf", torch.tensor([1.0, 1.0], device=dev), X, X) \
+        + 0.1 * torch.eye(n, device=dev)
     A64, m64 = A.double(), m.double()
     ev = torch.linalg.eigvalsh(A64)
     assert float(ev[-1] / ev[0]) < 1e3
@@ -1742,48 +1653,6 @@ def test_dense_evidence_backward_on_card(dev):
         err = g.double() - w
         assert float(torch.linalg.norm(err)) <= 1e-3 * float(torch.linalg.norm(w))
         assert float(err.abs().max()) <= 1e-3 * float(w.abs().max())
-
-
-def test_fast_jitchol_on_card(dev, monkeypatch):
-    """linalg under FAST_JITCHOL on the card: jitchol is chol_blocked's
-    recursion (n = 1024 > 2·BASE) on A + base jitter·I, within 1e-3 of
-    max|L| of torch.linalg.cholesky's; evidence_terms is evidence_fused at
-    that jitter, within 1e-4 of the default evidence_terms of A + jitter·I."""
-    from gpc_tpu_torch import linalg as TLA
-    from gpc_tpu_torch.ops import chol_blocked as TCB
-    X, m = _bench_rbf(dev, n=1024)
-    A = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)(0, 0, 1024, 1024)
-    jit0 = float(TLA._base_jitter(A))
-    Aj = A + jit0 * torch.eye(1024, device=dev)
-    ld0, q0, _ = TLA.evidence_terms(Aj, m)
-    calls = []
-    recursive = TCB._chol_recursive
-    monkeypatch.setattr(TCB, "_chol_recursive", lambda B: calls.append(1) or recursive(B))
-    monkeypatch.setattr(TLA, "FAST_JITCHOL", True)
-    L, jit = TLA.jitchol(A)
-    assert calls and float(jit) == pytest.approx(jit0, rel=1e-6)
-    L0 = torch.linalg.cholesky(Aj)
-    assert float((L - L0).abs().max()) <= 1e-3 * float(L0.abs().max())
-    ld, quad, _ = TLA.evidence_terms(A, m)
-    assert abs(float(ld) - float(ld0)) <= 1e-4 * abs(float(ld0))
-    assert abs(float(quad) - float(q0)) <= 1e-4 * abs(float(q0))
-
-
-def test_bf16_updates_on_card(dev, monkeypatch):
-    """chol_blocked.cholesky(force=True) under BF16_UPDATES on the card
-    (float32, n = 1024): the bf16-input update GEMMs took effect (farther
-    from the float64 factor than the float32 recursion) and land no farther
-    from it than the same emulation on the CPU (2× its error + 1e-6, the
-    CPU test's bound against gpc_tpu's)."""
-    from gpc_tpu_torch.ops import chol_blocked as TCB
-    X, _ = _bench_rbf(dev, n=1024)
-    K = TLE.rbf_block_fn(X, 1.0, 1.0, 0.1)(0, 0, 1024, 1024)
-    want = torch.linalg.cholesky(K.double().cpu())
-    err = lambda L: float((L.double().cpu() - want).abs().max())   # noqa: E731
-    f32_err = err(TCB.cholesky(K, force=True))
-    monkeypatch.setattr(TCB, "BF16_UPDATES", True)
-    card_err, cpu_err = err(TCB.cholesky(K, force=True)), err(TCB.cholesky(K.cpu(), force=True))
-    assert f32_err < card_err < 2 * cpu_err + 1e-6, (f32_err, card_err, cpu_err)
 
 
 def test_profiling_times_the_card(dev, monkeypatch):

@@ -142,26 +142,37 @@ def test_panel_engine_matches_jax_interpret():
     assert abs(float(quad_t) - float(quad_j)) <= 2e-3 * abs(float(quad_j))
 
 
-def test_panel_engine_noiseless_falls_back_to_dense():
+def test_panel_engine_noiseless_falls_back_to_dense(monkeypatch):
+    """GPC_TPU_EVIDENCE=panel with a noiseless cmpnd(rbf, bias): gpc_tpu's
+    warning, then the dense engine's value; the panel engine itself
+    refuses the kernel."""
     X, y, _ = _data(60, 2, 3)
     kern = TK.Cmpnd(input_dim=2, components=(TK.Rbf(input_dim=2), TK.Bias(input_dim=2)))
     p = torch.tensor([1.0, 1.0, 0.3], dtype=torch.float64)
     Xt, m = torch.from_numpy(X), torch.from_numpy(y)
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", "panel")
     with pytest.warns(UserWarning, match="noise"):
-        ld, quad = TPE.kern_evidence_panel(kern, p, Xt, m)
+        assert TEM.resolve_engine(kern, 60) == "dense"
+    with pytest.warns(UserWarning, match="noise"):
+        ld, quad = TEM.kern_evidence(kern, p, Xt, m)
     ld_d, quad_d, _ = TL.evidence_terms(kern.gram(p, Xt), m)
     assert float(ld) == float(ld_d) and float(quad) == float(quad_d)
+    with pytest.raises(ValueError, match="white/noise ridge"):
+        TPE.kern_evidence_panel(kern, p, Xt, m)
 
 
-def test_panel_engine_outside_family_raises():
-    """Outside the panel family the engine no longer raises: it warns and
-    falls back to the lazy engine (here the dense fused sweep, N = 8 being
-    too small to split), as gpc_tpu does."""
+def test_panel_engine_outside_family_raises(monkeypatch):
+    """Outside the panel family the panel engine raises; the dispatcher
+    warns and runs what lazy would, here dense (N = 8 being too small to
+    split), as gpc_tpu does."""
     kern = TK.Cmpnd(input_dim=2, components=(TK.Bias(input_dim=2), TK.White(input_dim=2)))
     X = torch.zeros((8, 2), dtype=torch.float64)
     p = torch.ones(2, dtype=torch.float64)
+    with pytest.raises(ValueError, match="cmpnd"):
+        TPE.kern_evidence_panel(kern, p, X, X[:, :1])
+    monkeypatch.setenv("GPC_TPU_EVIDENCE", "panel")
     with pytest.warns(UserWarning, match="falling back to the lazy engine"):
-        ld, quad = TPE.kern_evidence_panel(kern, p, X, X[:, :1])
+        ld, quad = TEM.kern_evidence(kern, p, X, X[:, :1])
     ld_d, quad_d, _ = TL.evidence_terms(kern.gram(p, X), X[:, :1])
     np.testing.assert_allclose([float(ld), float(quad)], [float(ld_d), float(quad_d)],
                                rtol=1e-12, atol=1e-12)
@@ -172,16 +183,17 @@ def test_evidence_mode_unported_and_invalid(monkeypatch, mode):
     """iterative takes any size (no split requirement, as in gpc_tpu), an
     unknown engine is a ValueError, and lazy on a size that does not split
     warns and falls back to dense."""
+    kern = TK.Cmpnd(input_dim=2, components=(TK.Rbf(input_dim=2), TK.White(input_dim=2)))
     monkeypatch.setenv("GPC_TPU_EVIDENCE", mode)
     if mode == "lazy":
         with pytest.warns(UserWarning, match="falling back to dense"):
-            assert TEM.select_evidence_mode(100) == "dense"
+            assert TEM.resolve_engine(kern, 100) == "dense"
         return
     if mode == "iterative":
-        assert TEM.select_evidence_mode(100) == "iterative"
+        assert TEM.resolve_engine(kern, 100) == "iterative"
         return
     with pytest.raises(ValueError):
-        TEM.select_evidence_mode(100)
+        TEM.resolve_engine(kern, 100)
 
 
 @pytest.mark.parametrize("case", [

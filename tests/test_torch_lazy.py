@@ -2,19 +2,20 @@
 
 Same numpy inputs through both packages:
 
-  * kern_evidence_lazy (force=True) for cmpnd(mlp|poly|lin, bias, white),
-    where the rank-1 bias term is split off, and for cmpnd(mlp, white),
-    which has no bias: float64 at N = 1024 (four 256-leaves), the value to
-    1e-10 relative and its gradient in θ and X to 1e-8 (both packages take
-    the same Cholesky and triangular solves, in another order); at N = 600,
-    which does not split, the fused blocked sweep of ops/chol_blocked.py;
-  * evidence_left_fast under each leaf mode (False: Cholesky and solves;
-    "xla": an explicit leaf inverse; "pallas": K5's plain version here),
-    with stack off, and under the bf16 policy, against gpc_tpu's, float32,
-    2e-4 relative — the bound of tests/test_lazy_evidence.py:185-187;
+  * kern_evidence_lazy for cmpnd(mlp|poly|lin, bias, white), where the
+    rank-1 bias term is split off, and for cmpnd(mlp, white), which has no
+    bias: float64 at N = 1024 (four 256-leaves), the value to 1e-10
+    relative and its gradient in θ and X to 1e-8 (both packages take the
+    same Cholesky and triangular solves, in another order); at N = 600,
+    which does not split, kern_evidence under GPC_TPU_EVIDENCE=lazy warns
+    and runs the dense engine;
+  * evidence_left_fast under each of the port's leaf modes (False:
+    Cholesky and solves; "pallas": K5's plain version here) against
+    gpc_tpu's, float32, 2e-4 relative — the bound of
+    tests/test_lazy_evidence.py:185-187;
   * the model path: GPC_TPU_EVIDENCE=lazy in GP.log_likelihood and its
     gradient, the fallback to dense on a size that does not split, and the
-    panel engine's fallback to lazy for a kernel outside its family, each
+    panel setting's fallback to lazy for a kernel outside its family, each
     with gpc_tpu's warning.
 """
 
@@ -26,15 +27,12 @@ import torch
 
 from gpc_tpu import kernels as GK
 from gpc_tpu.models import gp as JGPM
-from gpc_tpu.ops import chol_blocked as JCB
 from gpc_tpu.ops import evidence_fast as JEF
 from gpc_tpu.ops import lazy_evidence as JLE
 from gpc_tpu_torch.interop.from_jax import from_jax, kern_from_desc
-from gpc_tpu_torch.ops import chol_blocked as TCB
 from gpc_tpu_torch.ops import evidence_fast as TEF
 from gpc_tpu_torch.ops import evidence_mode as TEM
 from gpc_tpu_torch.ops import lazy_evidence as TLE
-from gpc_tpu_torch.ops import panel_engine as TPE
 
 Q = 3
 
@@ -61,7 +59,7 @@ CASES = [("mlp", True, 1024), ("poly", True, 1024), ("lin", True, 1024),
 
 
 @pytest.mark.parametrize("first,bias,n", CASES)
-def test_kern_evidence_lazy_matches_jax(first, bias, n):
+def test_kern_evidence_lazy_matches_jax(first, bias, n, monkeypatch):
     jk = _kern(first, bias)
     tk = kern_from_desc(jk)
     assert (TLE.bias_split(tk) is None) == (JLE.bias_split(jk) is None) == (not bias)
@@ -73,7 +71,15 @@ def test_kern_evidence_lazy_matches_jax(first, bias, n):
 
     v_j, (gp_j, gX_j) = jax.value_and_grad(f_jax, argnums=(0, 1))(jnp.asarray(p), jnp.asarray(X))
     pt, Xt = torch.tensor(p, requires_grad=True), torch.tensor(X, requires_grad=True)
-    ld, quad = TLE.kern_evidence_lazy(tk, pt, Xt, torch.from_numpy(m), force=True)
+    if TEM.evidence_splits(n):
+        ld, quad = TLE.kern_evidence_lazy(tk, pt, Xt, torch.from_numpy(m), TEM.evidence_base())
+    else:
+        # the dispatcher's case: lazy on a size that does not split runs dense
+        monkeypatch.setenv("GPC_TPU_EVIDENCE", "lazy")
+        with pytest.warns(UserWarning, match="falling back to dense"):
+            assert TEM.resolve_engine(tk, n) == "dense"
+        with pytest.warns(UserWarning, match="falling back to dense"):
+            ld, quad = TEM.kern_evidence(tk, pt, Xt, torch.from_numpy(m))
     v_t = ld + 0.5 * quad
     gp_t, gX_t = torch.autograd.grad(v_t, (pt, Xt))
     np.testing.assert_allclose(float(v_t.detach()), float(v_j), rtol=1e-10)
@@ -89,15 +95,11 @@ def test_kern_evidence_lazy_matches_jax(first, bias, n):
     np.testing.assert_allclose(float(v_t.detach()), float(dense), rtol=1e-10)
 
 
-@pytest.mark.parametrize("leafinv,stack,bf16", [(False, True, False), ("xla", True, False),
-                                                ("pallas", True, False), ("pallas", False, False),
-                                                ("xla", True, True)])
+@pytest.mark.parametrize("leafinv,stack,bf16", [(False, True, False), ("pallas", True, False)])
 def test_evidence_left_fast_leafinv_matches_jax(leafinv, stack, bf16):
     """float32, N = 1024, cmpnd(mlp, white): the port's left-looking sweep
-    under each leaf mode, with and without the stacked corrections, against
-    gpc_tpu's; and under the bf16 policy, which the port emulates exactly
-    (bf16-rounded inputs, float32 products and sums), against gpc_tpu's
-    bf16 GEMMs."""
+    under each of its leaf modes against gpc_tpu's with the same leaves
+    and stacked corrections (the port always stacks them, in float32)."""
     jk = _kern("mlp", bias=False)
     tk = kern_from_desc(jk)
     p, X, m = _inputs(jk, 1024, seed=5)
@@ -105,31 +107,14 @@ def test_evidence_left_fast_leafinv_matches_jax(leafinv, stack, bf16):
     pol_j = JEF.Policy(base=256, bf16=bf16, leafinv=leafinv, stack=stack)
     ld_j, q_j = JEF.evidence_left_fast(
         JLE.kern_block_fn(jk, jnp.asarray(p32), jnp.asarray(X32)), 1024, jnp.asarray(m32), pol_j)
-    pol_t = TEF.Policy(base=256, bf16=bf16, leafinv=leafinv, stack=stack)
+    pol_t = TEF.Policy(base=256, leafinv=leafinv)
     ld_t, q_t = TEF.evidence_left_fast(
         TLE.kern_block_fn(tk, torch.from_numpy(p32), torch.from_numpy(X32)), 1024,
         torch.from_numpy(m32), pol_t)
     assert ld_t.dtype == torch.float32
     assert abs(float(ld_t) - float(ld_j)) < 2e-4 * abs(float(ld_j))
     assert abs(float(q_t) - float(q_j)) < 2e-4 * abs(float(q_j))
-    assert TEF.Policy() == TEF.Policy(base=256, bf16=False, leafinv="pallas", stack=True)
-
-
-def test_evidence_fused_matches_jax():
-    """The dense fused blocked sweep (the lazy engine's fallback) with
-    force at N = 600, whose halves turn odd, and the recursive panel solve."""
-    rng = np.random.default_rng(9)
-    Z = rng.standard_normal((600, 600))
-    K = Z @ Z.T / 600 + np.eye(600)
-    m = rng.standard_normal((600, 2))
-    ld_j, q_j, L_j = JCB.evidence_fused(jnp.asarray(K), jnp.asarray(m), force=True)
-    ld_t, q_t, L_t = TCB.evidence_fused(torch.from_numpy(K), torch.from_numpy(m), force=True)
-    np.testing.assert_allclose([float(ld_t), float(q_t)], [float(ld_j), float(q_j)], rtol=1e-10)
-    np.testing.assert_allclose(L_t.numpy(), np.asarray(L_j), rtol=1e-9, atol=1e-12)
-    B = rng.standard_normal((100, 600))
-    np.testing.assert_allclose(TCB._tri_solve_rt(torch.from_numpy(B), L_t).numpy(),
-                               np.asarray(JCB._tri_solve_rt(jnp.asarray(B), L_j)),
-                               rtol=1e-9, atol=1e-12)
+    assert TEF.Policy() == TEF.Policy(base=256, leafinv="pallas")
 
 
 def _gp_pair(first, n, seed=3):
@@ -157,15 +142,18 @@ def test_lazy_objective_matches_jax(monkeypatch):
 
 
 def test_select_evidence_mode(monkeypatch):
+    """resolve_engine: dense unset at any size, lazy where N splits, and
+    lazy on a size that does not split warns and resolves to dense."""
+    kern = kern_from_desc(_kern("mlp"))
     monkeypatch.delenv("GPC_TPU_EVIDENCE", raising=False)
-    assert TEM.select_evidence_mode(16384) == "dense"
+    assert TEM.resolve_engine(kern, 16384) == "dense"
     monkeypatch.setenv("GPC_TPU_EVIDENCE", "lazy")
-    assert TEM.evidence_base() == 256 and TEM.select_evidence_mode(1024) == "lazy"
+    assert TEM.evidence_base() == 256 and TEM.resolve_engine(kern, 1024) == "lazy"
     for n in (512, 1000):
         with pytest.warns(UserWarning, match="falling back to dense"):
-            assert TEM.select_evidence_mode(n) == "dense"
+            assert TEM.resolve_engine(kern, n) == "dense"
     monkeypatch.setenv("GPC_TPU_EVIDENCE_BASE", "128")
-    assert TEM.evidence_splits(512) and TEM.select_evidence_mode(512) == "lazy"
+    assert TEM.evidence_splits(512) and TEM.resolve_engine(kern, 512) == "lazy"
 
 
 def test_panel_falls_back_to_lazy(monkeypatch):
@@ -175,11 +163,13 @@ def test_panel_falls_back_to_lazy(monkeypatch):
     theta, X, y, bias, scales = pm._args()
     _, kp, _, _ = pm.spec.unpack(theta)
     m = y - bias
-    with pytest.warns(UserWarning, match="falling back to the lazy engine"):
-        got = TPE.kern_evidence_panel(pm.spec.kern, kp, X, m)
-    want = TLE.kern_evidence_lazy(pm.spec.kern, kp, X, m, force=True)
-    assert [float(a) for a in got] == [float(a) for a in want]
     monkeypatch.setenv("GPC_TPU_EVIDENCE", "panel")
+    with pytest.warns(UserWarning, match="falling back to the lazy engine"):
+        assert TEM.resolve_engine(pm.spec.kern, 1024) == "lazy"
+    with pytest.warns(UserWarning, match="falling back to the lazy engine"):
+        got = TEM.kern_evidence(pm.spec.kern, kp, X, m)
+    want = TLE.kern_evidence_lazy(pm.spec.kern, kp, X, m, TEM.evidence_base())
+    assert [float(a) for a in got] == [float(a) for a in want]
     with pytest.warns(UserWarning, match="lazy"):
         ll = pm.log_likelihood()
     np.testing.assert_allclose(ll, float(jm.log_likelihood()), rtol=1e-10)

@@ -11,7 +11,7 @@ compute's diagonal, a deviation recorded in ROADMAP.md).  Each kernel that
 depends on X (every leaf but white and bias, which the compounds hold)
 under cmpnd(·, white) and cmpnd(·, bias, white):
 
-  * kern_evidence_lazy (GPC_TPU_EVIDENCE_BASE = 16, N = 64: four leaves,
+  * kern_evidence_lazy (base 16, N = 64: four leaves,
     and the bias split where the kernel has a bias) against the dense
     Cholesky evidence of Kern.gram: logdet + quad to 1e-12 relative, the
     X-gradient to 1e-10 relative L2;
@@ -72,11 +72,10 @@ def _x_grad(fn, X):
 
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("lead", LEADS)
-def test_lazy_x_gradient_matches_dense(lead, form, monkeypatch):
-    monkeypatch.setenv("GPC_TPU_EVIDENCE_BASE", "16")
+def test_lazy_x_gradient_matches_dense(lead, form):
     kern = _kern(lead, form)
     p, X, m = _inputs(kern, 64, seed=LEADS.index(lead))
-    val, g = _x_grad(lambda Xg: sum(TLE.kern_evidence_lazy(kern, p, Xg, m, force=True)), X)
+    val, g = _x_grad(lambda Xg: sum(TLE.kern_evidence_lazy(kern, p, Xg, m, 16)), X)
     val_d, g_d = _x_grad(lambda Xg: _dense_evidence(kern, p, Xg, m), X)
     assert torch.isfinite(g).all()
     assert abs(val - val_d) <= 1e-12 * abs(val_d)

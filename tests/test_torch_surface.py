@@ -161,9 +161,8 @@ def test_chol_inv_block_fused():
     """K5 under the name of gpc_tpu's fused kernel: its plain version here
     (Cholesky and a triangular solve, float64) against LAPACK within 1e-10
     and against gpc_tpu's kernel in interpret mode within 1e-6 (that
-    kernel's float64 factor is 5.8e-8 from LAPACK's at this n, as its
-    "pallas" leaves in tests/test_torch_evidence_flat.py); n not a multiple
-    of 128 raises."""
+    kernel's float64 factor is 5.8e-8 from LAPACK's at this n); n not a
+    multiple of 128 raises."""
     from gpc_tpu.ops.chol_pallas import chol_inv_block_fused as j_fused
     from gpc_tpu_torch.ops.chol_pallas import chol_inv_block_fused
 
